@@ -8,6 +8,10 @@ checkpoint writer, corpus writer) are imported from there, not copied; a
 host module is ported only where importing it would pull in JAX.
 
 The update step's device work runs in four hand-written CUDA kernels under
-``csrc/`` (built at first use by ``ops.kernels``), each beside a plain
-PyTorch version that CPU tensors take. This package never imports JAX.
+``csrc/`` and the aligner's seeding in a fifth (built at first use by
+``ops.kernels``), each beside a plain PyTorch version that CPU tensors
+take. Entry points: ``models.runs_sim.BossRunsSim`` (with precomputed PAFs
+or aligning live), ``models.experiment.BossRuns`` (the live experiment),
+``live.mapper.TorchMapperPlugin`` (the readfish-side mapper) and
+``python -m bossruns_torch --toml ...``. This package never imports JAX.
 """

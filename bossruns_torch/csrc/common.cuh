@@ -1,5 +1,5 @@
-// Shared helpers for the update-step kernels (coverage.cu, scores.cu,
-// rows.cu, strategy.cu). Every C entry point is `extern "C"`, takes raw
+// Shared helpers for the kernels (coverage.cu, scores.cu, rows.cu,
+// strategy.cu, seed.cu). Every C entry point is `extern "C"`, takes raw
 // device pointers and the caller's CUDA stream, launches on that stream
 // without synchronising, allocates nothing, and returns the cudaError_t of
 // its launches (0 on success); ops/kernels.py binds them with ctypes.

@@ -8,10 +8,14 @@ advances for a BOSS and a control half of the flowcell, and cumulative read
 dumps are written at dump intervals. The update step runs in the port's
 RunsEngine on an explicit device.
 
+Without precomputed PAFs (``paf_full``/``paf_trunc`` None) the reads are
+aligned live by the port's aligner (``aligner.make_aligner`` on the sim's
+device: seeding kernel H5 on CUDA) in two phases per batch: the mu-sized
+prefix pass decides, and only accepted reads get a full-length pass.
+
 ``ReadCache``, ``SimOutcome`` and ``load_reference_contigs`` are ported
 here because the JAX module imports its engine, and so JAX, at its top.
-The live aligner (``paf_full``/``paf_trunc`` None) and mesh sharding are
-later slices and raise NotImplementedError.
+Mesh sharding is a later slice and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from bossruns_tpu.parallel.distributed import is_primary
 from bossruns_tpu.utils.checkpoint import MetricsWriter
 from bossruns_tpu.utils.readlen import ReadLengthDist
 
+from ..aligner import make_aligner
 from ..device import as_device
 from ..io.coo_native import EX_PAD, build_packed_runs, pack_batch, split_runs_rows
 from ..io.paf import PafRecords, best_per_query, parse_paf
@@ -157,13 +162,17 @@ class BossRunsSim:
         """reference_quirks: bug-compatible mode (docs/PARITY.md) — quirk Q1
         on the engine (ubar0 from benefit) and Q2 on the data plane
         (rejected reverse-strand reads contribute coverage from the read's
-        LAST mu bases, as the reference does)."""
+        LAST mu bases, as the reference does).
+
+        gated: the gated batch flow (default: on with precomputed PAFs, off
+        when aligning live; the gated flow needs both PAF record sets before
+        the decision and cannot take live alignments)."""
         if tuple(mesh_shards) != (1, 1):
             raise NotImplementedError(
                 "mesh_shards: the multi-GPU engine is ROADMAP Queue 1 item 11")
-        if not (paf_full and paf_trunc):
-            raise NotImplementedError(
-                "live alignment (no precomputed PAFs) is ROADMAP Queue 1 item 9")
+        live_align = not (paf_full and paf_trunc)
+        if gated and live_align:
+            raise ValueError("gated=True needs precomputed PAFs (paf_full and paf_trunc)")
         self.device = as_device(device)
         self.name = name
         self.out_dir = make_output_dirs(name, out_base)
@@ -190,6 +199,13 @@ class BossRunsSim:
         self.sampler = Sampler(
             fq, paf_full, paf_trunc, batchsize=batchsize, maxbatch=maxb, seed=seed
         )
+        # without precomputed PAFs, align live. Noisy 400-base prefixes drive
+        # the decisions: the dense k13/w5 profile (the reference's own
+        # sim-mapper non-defaults) keeps short, noisy reads mappable.
+        self.aligner = None
+        if live_align:
+            self.aligner = make_aligner(self.layout, device=self.device, k=13, w=5,
+                                        min_votes=3, source=ref)
         self.read_cache = ReadCache(batchsize, dumptime, out_base=out_base)
         self.tracker = AbundanceTracker(self.layout.names)
         self.batch = 0
@@ -213,7 +229,7 @@ class BossRunsSim:
         self._prefetched = None
         # gated flow: both coverage sets upload during prefetch; only the
         # decision bits are uploaded on the critical path
-        self._gated = True if gated is None else bool(gated)
+        self._gated = (not live_align) if gated is None else bool(gated)
 
     def phase_p50_ms(self, last: int = 5) -> dict[str, float]:
         """Median per-phase wall time (ms) over the last N batches."""
@@ -461,8 +477,11 @@ class BossRunsSim:
     # ------------------------------------------------------------ batch ------
 
     def _sample_parsed(self):
-        """One sampled batch + parsed PAF records (strategy-independent)."""
+        """One sampled batch + parsed PAF records (strategy-independent);
+        no records when aligning live."""
         seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
+        if self.aligner is not None:
+            return seqs, quals, bc_names, None, None
         return seqs, quals, bc_names, parse_paf(paf_f), parse_paf(paf_t)
 
     def process_batch(self) -> None:
@@ -475,6 +494,17 @@ class BossRunsSim:
         seqs, quals, bc_names, full_rec, trunc_rec = self._take_prefetched(self._sample_parsed)
         t["sample"] = time.perf_counter()
         read_bc = {rid: self.barcodes_index.get(bc, 0) for rid, bc in bc_names.items()}
+        if self.aligner is not None:
+            # two-phase live alignment: the mu-sized prefix mapping alone
+            # decides (what the sequencer knows at decision time), so the
+            # full-length extension runs only for reads that are accepted —
+            # rejected reads contribute only their truncated alignment
+            trunc_rec = self.aligner.map_sequences(seqs, trunc=True)
+            decisions = self._trunc_decisions(trunc_rec, read_bc)
+            need_full = [rid for rid, acc in decisions.items() if acc]
+            if self.accept_unmapped:
+                need_full += [rid for rid in seqs if rid not in decisions]
+            full_rec = self.aligner.map_sequences({r: seqs[r] for r in need_full})
         t["align"] = time.perf_counter()
         full, trunc, outc = self.make_decisions(seqs, full_rec, trunc_rec, read_bc)
         self._last_decisions = outc.reads_decision
@@ -530,7 +560,9 @@ class BossRunsSim:
         self.read_cache.fill(
             seqs, outc.reads_decision, bc_names if len(self.barcodes_index) > 1 else None
         )
-        if self.sampler.fq_stream.offsets.shape[0] > 0:
+        # the next batch's sample + parse on the prefetch worker; only with
+        # precomputed PAFs, as in bossruns_tpu's sim
+        if self.aligner is None and self.sampler.fq_stream.offsets.shape[0] > 0:
             self._submit_prefetch(self._sample_parsed)
         t["overlap"] = time.perf_counter()
         self._finish_batch(aux, t, outc.n_mapped, outc.n_accepted, outc.n_rejected)

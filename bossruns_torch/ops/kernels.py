@@ -114,6 +114,10 @@ KERNELS = {
     "benefit_strategy": Kernel(
         "benefit_strategy", "bk_benefit_strategy", [ctypes.POINTER(StratArgs), _P]
     ),
+    "seed_topn": Kernel(
+        "seed_topn", "bk_seed_topn",
+        [_P, _I64, *[ctypes.c_int] * 5, _P, _I64, _P, _P, _P, _P],
+    ),
 }
 
 

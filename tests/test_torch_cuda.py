@@ -1,5 +1,9 @@
 """The CUDA kernels against their plain versions, on a card (marker ``cuda``).
 
+The seeding kernel H5 is held exactly against its plain version, and the
+aligner seeding on the card against the host-seeded aligner, record for
+record.
+
 Skipped where torch sees no GPU; on a machine with one run
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``. Two barcodes,
 so the per-barcode index math is exercised (chip_smoke.py runs one). The
@@ -159,3 +163,67 @@ def test_engine_on_card_matches_oracle_decisions(dev):
             updated += 1
             np.testing.assert_allclose(float(aux.threshold), aux_o["threshold"], rtol=1e-12)
     assert updated >= 5
+
+
+@pytest.fixture(scope="module")
+def seed_world():
+    """A 600 kb genome with a planted repeat, reads simulated from it."""
+    from bossruns_tpu.utils.datagen import simulate_reads
+
+    rng = np.random.default_rng(31)
+    base = rng.integers(0, 4, 600_000).astype(np.uint8)
+    base[400_000:406_000] = base[100_000:106_000]
+    genome = {"g": "".join(np.array(list("ACGT"))[base])}
+    reads = simulate_reads(rng, genome, 600, mean_len=4000.0, sd_len=3000.0)
+    return base, {r.rid: r.seq for r in reads}
+
+
+@pytest.mark.parametrize("k,w", [(13, 5), (15, 10)])
+def test_seed_kernel_exact(seed_world, dev, k, w):
+    """H5 equals the plain version in all 24 rows: corpus prefixes at L=512,
+    the reads' 4096 bucket, and random junk reads (placeholders)."""
+    from bossruns_torch.aligner import encode
+    from bossruns_torch.aligner import seed as S
+    from bossruns_torch.aligner.index import build_index
+
+    base, seqs = seed_world
+    idx = build_index(base, np.ones(base.shape[0], bool), k=k, w=w)
+    di = S.DeviceIndex(idx, dev)
+    enc = [encode(s) for s in seqs.values()]
+    rng = np.random.default_rng(5)
+    cases = {
+        512: [e[:400] for e in enc],
+        4096: [e[:4096] for e in enc if 2048 < e.shape[0] <= 4096],
+        32768: [e for e in enc if e.shape[0] > 8192][:8],
+    }
+    cases[512] += [rng.integers(0, 5, 500).astype(np.int8) for _ in range(32)]
+    for L, reads in cases.items():
+        assert reads, L
+        mat = np.full((len(reads), L), 4, np.int8)
+        for r, e in enumerate(reads):
+            mat[r, : e.shape[0]] = e[:L]
+        x = torch.from_numpy(mat).to(dev)
+        b = S.anchor_budget(L, w)
+        got = S.seed_topn(x, di, k, w, b, L)
+        want = S.seed_topn_plain(x, di, k, w, b, L)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), L
+        assert float((got[2] >= 3).float().mean()) > 0.5
+
+
+def test_aligner_on_card_matches_host_seeded(seed_world, dev):
+    from bossruns_torch.aligner import make_aligner
+    from bossruns_torch.models.layout import build_layout
+
+    base, seqs = seed_world
+    lay = build_layout({"g": base})
+    card = make_aligner(lay, device=dev, k=13, w=5, min_votes=3)
+    host = make_aligner(lay, device="cpu", backend="host", k=13, w=5, min_votes=3)
+    for kw in (dict(trunc=True), dict(), dict(all_records=True)):
+        a, b = card.map_sequences(seqs, **kw), host.map_sequences(seqs, **kw)
+        assert len(a) == len(b) > 0 and list(a.qname) == list(b.qname)
+        for f in ("qstart", "qend", "rev", "tstart", "tend", "nmatch", "blocklen", "mapq",
+                  "align_score", "s1", "primary"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        for x, y in zip(a.cigars, b.cigars):
+            np.testing.assert_array_equal(x, y)

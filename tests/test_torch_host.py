@@ -4,9 +4,13 @@
   the same arrays as the bossruns_tpu functions on the corpus;
 * a subprocess in which ``jax`` cannot be imported imports the whole port
   and runs two simulation batches on the CPU;
+* ``python -m bossruns_torch --toml ... --device cpu`` runs a simulation
+  with live alignment in a subprocess in which ``jax`` cannot be imported;
+  an AEONS TOML and a device mesh raise NotImplementedError;
 * the kernel build raises a clear error without nvcc instead of falling
   back, and a wrapper given a tensor on neither the CPU nor CUDA raises.
 """
+import json
 import subprocess
 import sys
 import textwrap
@@ -131,6 +135,63 @@ def test_port_runs_with_jax_unimportable(corpus, tmp_path):
     assert proc.returncode == 0 and "NOJAX_OK" in proc.stdout, proc.stderr[-3000:]
 
 
+CLI_JAX_BLOCKED = textwrap.dedent("""
+    import runpy
+    import sys
+
+    class _NoJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, _NoJax())
+    sys.path.insert(0, sys.argv[1])
+    import torch
+
+    torch.set_num_threads(2)
+    sys.argv = ["bossruns_torch", "--toml", sys.argv[2], "--device", "cpu"]
+    try:
+        runpy.run_module("bossruns_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    assert not loaded, loaded
+    print("CLI_OK")
+""")
+
+
+def _toml(path, name, ref=None, **sections):
+    text = f'[general]\nname = "{name}"\n' + (f'ref = "{ref}"\n' if ref else "")
+    for sec, kv in sections.items():
+        text += f"[{sec}]\n" + "".join(f"{k} = {json.dumps(v)}\n" for k, v in kv.items())
+    path.write_text(text)
+    return path
+
+
+def test_cli_runs_live_alignment_sim_without_jax(corpus, tmp_path):
+    toml = _toml(tmp_path / "sim.toml", "clisim", ref=corpus["ref"],
+                 simulation=dict(fq=corpus["fq"], batchsize=100, maxb=2))
+    proc = subprocess.run([sys.executable, "-c", CLI_JAX_BLOCKED, str(REPO), str(toml)],
+                          capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0 and "CLI_OK" in proc.stdout, proc.stderr[-3000:]
+    assert (tmp_path / "out_clisim" / "masks" / "boss.npz").exists()
+    assert (tmp_path / "out_clisim" / "metrics" / "batches.jsonl").read_text().count("\n") == 2
+
+
+def test_cli_refuses_aeons_and_mesh(corpus, tmp_path, monkeypatch):
+    from bossruns_torch.__main__ import main
+
+    monkeypatch.chdir(tmp_path)
+    aeons = _toml(tmp_path / "aeons.toml", "a", simulation=dict(fq=corpus["fq"]))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        main(["--toml", str(aeons), "--device", "cpu"])
+    mesh = _toml(tmp_path / "mesh.toml", "m", ref=corpus["ref"],
+                 simulation=dict(fq=corpus["fq"]), tpu=dict(mesh_genome=2))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        main(["--toml", str(mesh), "--device", "cpu"])
+
+
 def test_port_source_has_no_jax_import():
     import re
 
@@ -175,6 +236,6 @@ def test_wrappers_raise_off_cpu_without_cuda():
 
 
 def test_kernel_sources_carry_their_notes():
-    for name in ("coverage.cu", "scores.cu", "rows.cu", "strategy.cu"):
+    for name in ("coverage.cu", "scores.cu", "rows.cu", "strategy.cu", "seed.cu"):
         head = (REPO / "bossruns_torch" / "csrc" / name).read_text()[:3000]
         assert "Replaces:" in head and "Bound on the H100" in head and "Design" in head, name

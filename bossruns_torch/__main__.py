@@ -5,10 +5,13 @@
 The TOML schema is the JAX package's (``bossruns_tpu.config``, which
 imports no JAX; it needs pydantic, so it is imported here and nowhere in
 the library). As there, ``simulation.fq`` selects a simulation and
-``general.ref`` selects BOSS-RUNS. The port runs the two RUNS modes: the
-live experiment (``models.experiment.BossRuns``) and the simulation
-(``models.runs_sim.BossRunsSim``). The AEONS modes (no ``general.ref``) and
-a device mesh (``[tpu] mesh_* != 1``) raise NotImplementedError.
+``general.ref`` selects BOSS-RUNS; without ``general.ref`` the mode is the
+reference-free BOSS-AEONS. The port runs all four: the live RUNS
+experiment (``models.experiment.BossRuns``), the RUNS simulation
+(``models.runs_sim.BossRunsSim``), the live AEONS experiment
+(``aeons.core.BossAeons``) and the AEONS simulation
+(``aeons.simulation.BossAeonsSim``). A device mesh (``[tpu] mesh_* != 1``)
+raises NotImplementedError.
 
 --device defaults to the CUDA card (``device.require_cuda``, which raises
 when there is none); the CPU runs only when asked for.
@@ -39,15 +42,22 @@ def main(argv=None) -> int:
     for h in src.handlers:
         logger.addHandler(h)
     sim = bool(args.simulation.fq)
-    if not args.general.ref:
-        raise NotImplementedError(
-            "AEONS (no general.ref) is not ported yet: ROADMAP Queue 1 item 10")
     if (args.tpu.mesh_barcode, args.tpu.mesh_genome) != (1, 1):
         raise NotImplementedError(
             "[tpu] mesh_* != 1: the multi-GPU engine is ROADMAP Queue 1 item 11")
     dev = as_device(ns.device) if ns.device is not None else require_cuda()
 
-    if not sim:
+    if not args.general.ref:
+        if sim:
+            from .aeons.simulation import BossAeonsSim
+
+            BossAeonsSim(args, device=dev).run()
+            logger.info("simulation finished")
+        else:
+            from .aeons.core import BossAeons
+
+            BossAeons(args, device=dev).run()
+    elif not sim:
         from .models.experiment import BossRuns
 
         exp = BossRuns(args, device=dev)

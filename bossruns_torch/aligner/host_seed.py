@@ -1,21 +1,22 @@
-"""Vectorised host (NumPy/C) mirror of the seeding kernel H5.
+"""Vectorised host (NumPy/C) mirror of the seeding kernels H5 and H6.
 
-A copy of ``bossruns_tpu.aligner.host_seed`` with ``host_seed_topn`` only
-(``host_seed_candidates``, the all-vs-all mirror, belongs to the AEONS
-path). Its consumer is ``CpuAligner`` (cpu_baseline.py): the host
-baseline of the aligner and ``make_aligner(backend="host")``. The reference
-maps with mappy (minimap2's C library) over a 4-worker thread pool; mappy
-is not available, so the stand-in walks the SAME minimizer index on the
-host and extends with the same native banded_align.cpp.
+A copy of ``bossruns_tpu.aligner.host_seed``. Its consumers are
+``CpuAligner`` (cpu_baseline.py: the host baseline of the aligner and
+``make_aligner(backend="host")``) and the AEONS overlap search
+(``aeons.ava.find_overlaps``: ``backend="host"`` and the ultralong bucket,
+through ``host_seed_candidates``). The reference maps with mappy
+(minimap2's C library) over a 4-worker thread pool; mappy is not available,
+so the stand-in walks the SAME minimizer index on the host and extends with
+the same native banded_align.cpp.
 
-The algorithm mirrors ``seed.seed_topn`` step for step — same (k, w, hash)
-minimizer selection, same anchor budget, OCC_CAP occurrence cap and
-compaction-width drop, same vote/peel semantics — so host and device
-seeding produce identical voted candidates (tests/test_torch_aligner.py).
-Everything is batch-vectorised NumPy: one k-mer scan (native C when built)
-over the concatenated reads, one composite-key sort of all anchors,
-staggered-bucket run-length votes (native C), reduceat cluster stats. No
-per-read Python.
+The algorithms mirror ``seed.seed_topn`` and ``seed.seed_candidates`` step
+for step — same (k, w, hash) minimizer selection, same anchor budget,
+OCC_CAP occurrence cap and compaction-width drop, same vote/peel semantics —
+so host and device seeding produce identical voted candidates
+(tests/test_torch_aligner.py, tests/test_torch_aeons.py). Everything is
+batch-vectorised NumPy: one k-mer scan (native C when built) over the
+concatenated reads, one composite-key sort of all anchors, staggered-bucket
+run-length votes (native C), reduceat cluster stats. No per-read Python.
 """
 from __future__ import annotations
 
@@ -74,14 +75,39 @@ def _batch_minimizers(enc_reads: list[np.ndarray], k: int, w: int, budget: int):
     return rid, qpos, canonical[pos].astype(np.int64), strand[pos].astype(np.int64)
 
 
-def _anchors(enc_reads, index: MinimizerIndex, budget: int, occ_cap: int = OCC_CAP):
+def _merge_pre_scans(pre_scans, budget: int):
+    """(rid, qpos, key, strand) from per-read memoised scans — identical to
+    _batch_minimizers' output (minimizer positions are ascending per read and
+    the first-`budget` cap matches compact_minimizers semantics)."""
+    rids, qposs, keys, strands = [], [], [], []
+    for r, (ky, po, sd) in enumerate(pre_scans):
+        if po.shape[0] > budget:
+            ky, po, sd = ky[:budget], po[:budget], sd[:budget]
+        rids.append(np.full(po.shape[0], r, np.int64))
+        qposs.append(po.astype(np.int64))
+        keys.append(ky.astype(np.int64))
+        strands.append(sd.astype(np.int64))
+    if not rids:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z
+    return (np.concatenate(rids), np.concatenate(qposs),
+            np.concatenate(keys), np.concatenate(strands))
+
+
+def _anchors(enc_reads, index: MinimizerIndex, budget: int, occ_cap: int = OCC_CAP,
+             pre_scans=None):
     """(rid, space, diag, qpos, gpos) of every anchor, mirroring the device
     lookup: exact key match, first ``occ_cap`` occurrences per key.
 
     space 0 = same-strand (diag = gpos - qpos), 1 = opposite
-    (diag = gpos + qpos).
+    (diag = gpos + qpos). pre_scans: optional per-read memoised minimizer
+    scans (index._SEQ_SCAN_CACHE entries) replacing the batch k-mer/window
+    scan — exactly the same anchors.
     """
-    rid, qpos, key, strand = _batch_minimizers(enc_reads, index.k, index.w, budget)
+    if pre_scans is not None:
+        rid, qpos, key, strand = _merge_pre_scans(pre_scans, budget)
+    else:
+        rid, qpos, key, strand = _batch_minimizers(enc_reads, index.k, index.w, budget)
     if index.keys.shape[0] == 0 or rid.shape[0] == 0:
         z = np.zeros(0, np.int64)
         return z, z, z, z, z
@@ -337,4 +363,75 @@ def host_seed_topn(enc_reads: list[np.ndarray], index: MinimizerIndex,
         out["qmax"][:, c] = np.where(have, np.maximum(qmx, 0), 0)
         if c + 1 < ncand:
             _peel_mask(work, comp, seg_sel, key_i, 2 * tol, have)
+    return out
+
+
+def host_seed_candidates(enc_reads: list[np.ndarray], index: MinimizerIndex,
+                         ncand: int = 4, tol: int | None = None,
+                         L: int | None = None,
+                         occ_cap: int = OCC_CAP,
+                         pre_scans=None,
+                         budget: int | None = None) -> dict[str, np.ndarray]:
+    """Host mirror of seed.seed_candidates (kernel H6, all-vs-all seeding).
+
+    Returns dict of [n, 2*ncand] arrays (votes, strand, qmin, qmax, tmin,
+    tmax): per strand space, the top-ncand diagonal clusters (columns
+    0..ncand-1 = space 0, ncand..2*ncand-1 = space 1 — the device layout).
+    Rounds with no vote left hold 0 in the span fields.
+
+    budget: minimizer-slot cap per read; defaults to the device-matched
+    anchor_budget. The ultralong ava path passes a raised cap so 100 kb
+    reads keep all their anchors.
+    """
+    n_reads = len(enc_reads)
+    if L is None:
+        L = max((e.shape[0] for e in enc_reads), default=0)
+    if tol is None:
+        tol = max(DIAG_TOL, L // 32)
+    if budget is None:
+        budget = anchor_budget(max(L, 1), index.w)
+    cw = (budget * occ_cap) // 2
+    nc2 = 2 * ncand
+    out = {f: np.zeros((n_reads, nc2), np.int64)
+           for f in ("votes", "strand", "qmin", "qmax", "tmin", "tmax")}
+    out["strand"][:, ncand:] = 1
+    rid, space, diag, qpos, gpos = _anchors(
+        enc_reads, index, budget, occ_cap, pre_scans=pre_scans
+    )
+    if rid.shape[0] == 0:
+        return out
+    rid, space, diag, qpos, gpos, seg, comp = _sorted_segments(
+        rid, space, diag, qpos, gpos, n_reads, cw
+    )
+    votes = _votes(seg, diag, int(tol))
+    work = votes.copy()
+    pos_idx = np.arange(comp.shape[0], dtype=np.int64)
+    all_segs = np.arange(2 * n_reads, dtype=np.int64)
+    for c in range(ncand):
+        key2 = work * (np.int64(1) << 32) - pos_idx
+        t2 = _seg_tables(seg, key2, n_reads, np.iinfo(np.int64).min)
+        tv = _seg_tables(seg, work, n_reads, -1)
+        bidx = (tv * (np.int64(1) << 32) - t2).reshape(-1)   # [2*n_reads]
+        bv = tv.reshape(-1)
+        have = bv > 0
+        bi_c = np.where(have, bidx, 0).astype(np.int64)
+        key_i = diag[bi_c]
+        base = all_segs << _SEG_SHIFT
+        lo = np.searchsorted(comp, base | (key_i - tol + _DOFF), side="left")
+        hi = np.searchsorted(comp, base | (key_i + tol + _DOFF), side="right")
+        lo = np.where(have, lo, 0)
+        hi = np.where(have, hi, 0)
+        qmn, qmx = _interval_minmax(qpos, lo, hi, _DOFF)
+        tmn, tmx = _interval_minmax(gpos, lo, hi, _DOFF)
+        # device column order: space s, round c -> column s*ncand + c
+        for s in (0, 1):
+            col = s * ncand + c
+            sel = all_segs % 2 == s
+            out["votes"][:, col] = bv[sel]
+            out["qmin"][:, col] = np.where(have[sel], qmn[sel], 0)
+            out["qmax"][:, col] = np.where(have[sel], qmx[sel], 0)
+            out["tmin"][:, col] = np.where(have[sel], tmn[sel], 0)
+            out["tmax"][:, col] = np.where(have[sel], tmx[sel], 0)
+        if c + 1 < ncand:
+            _peel_mask(work, comp, all_segs, key_i, 2 * int(tol), have)
     return out

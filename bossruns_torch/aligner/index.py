@@ -1,7 +1,6 @@
 """Minimizer index of the reference genome (host build, device resident).
 
-A copy of ``bossruns_tpu.aligner.index`` for the port (without the
-per-sequence scans of the AEONS pool index): the module is
+A copy of ``bossruns_tpu.aligner.index`` for the port: the module is
 host NumPy + SciPy + the native scans and imports no JAX, but importing it
 from the JAX package runs ``bossruns_tpu/aligner/__init__.py``, which
 imports the JAX seeding module. It replaces minimap2's .mmi index (the
@@ -286,9 +285,11 @@ def build_index(
     )
 
 
-#: per-contig minimizer-scan memo of build_index_layout: (content digest,
-#: len, k, w, "layout") -> (keys, local positions, strands). A layout
-#: rebuilt from mostly unchanged contigs rescans only the changed ones.
+#: per-sequence minimizer-scan memo: (content digest, len, k, w) -> (keys,
+#: local positions, strands) for the AEONS pool index (build_index_cached),
+#: and (content digest, len, k, w, "layout") for build_index_layout's
+#: contigs. AEONS rebuilds its pool index every batch over a mostly
+#: unchanged sequence set, so each sequence value is scanned once.
 #: LRU-bounded: hits refresh an entry's recency and the least-recently-used
 #: half is evicted when full.
 _SEQ_SCAN_CACHE: dict[tuple, tuple] = {}
@@ -313,6 +314,57 @@ def _memo_get(memo_key: tuple):
     if hit is not None:
         _SEQ_SCAN_CACHE[memo_key] = hit
     return hit
+
+
+def scan_seq_minimizers(seq: str, k: int = K, w: int = W):
+    """(keys, local_positions, strands) of one sequence's minimizers, memoised
+    by string value.
+
+    Scanning a sequence alone is exactly equivalent to scanning it inside a
+    gap-padded concatenation (aeons.ava.PoolIndex): gap-touching k-mers hash
+    to INVALID_HASH (never a window minimum next to any valid k-mer) and the
+    window-minimum edge clamping matches.
+    """
+    memo_key = (_digest(seq.encode()), len(seq), k, w)
+    hit = _memo_get(memo_key)
+    if hit is not None:
+        return hit
+    from . import encode
+
+    out = _scan_codes(encode(seq), k, w)
+    _memo_put(memo_key, out)
+    return out
+
+
+def _scan_uncached_bulk(seqs: list[str], keys: list[tuple], k: int, w: int) -> None:
+    """Scan many sequences in ONE gap-padded concatenated pass (amortising
+    the per-call overhead of small sequences) and memoise each sequence's
+    local result. Equivalent to per-sequence scans, by the argument of
+    scan_seq_minimizers."""
+    from . import encode
+
+    gap = 512
+    lengths = np.array([len(s) for s in seqs], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lengths + gap)[:-1]]).astype(np.int64)
+    concat = np.full(int((lengths + gap).sum()), 4, np.int8)
+    for st, s in zip(starts, seqs):
+        concat[st : st + len(s)] = encode(s)
+    if concat.shape[0] - k + 1 <= 0:
+        canonical = strand = None
+        sel_pos = np.empty(0, np.int64)
+    else:
+        canonical, strand, h, ok = _kmer_scan_arrays(concat, k)
+        sel_pos = np.flatnonzero(minimizer_mask(h, w) & ok)
+    for memo_key, st, ln in zip(keys, starts, lengths):
+        lo, hi = np.searchsorted(sel_pos, [st, st + ln])
+        pos = sel_pos[lo:hi] - st
+        out = (
+            (canonical[sel_pos[lo:hi]].astype(np.int64) if canonical is not None
+             else np.empty(0, np.int64)),
+            pos.astype(np.int64),
+            (strand[sel_pos[lo:hi]] if strand is not None else np.empty(0, np.int8)),
+        )
+        _memo_put(memo_key, out)
 
 
 def _memo_put(memo_key: tuple, out: tuple) -> None:
@@ -366,6 +418,42 @@ def build_index_layout(layout, k: int = K, w: int = W, max_occ: int = MAX_OCC) -
         ky, po, sd = hit
         keys_l.append(ky)
         pos_l.append(po + int(off))
+        strand_l.append(sd)
+    if not keys_l:
+        z = np.empty(0, np.int64)
+        return MinimizerIndex(z, np.zeros(1, np.int64), z, np.empty(0, np.int8), k, w)
+    return _assemble_index(
+        np.concatenate(keys_l), np.concatenate(pos_l), np.concatenate(strand_l),
+        k, w, max_occ,
+    )
+
+
+def build_index_cached(
+    seqs: list[str],
+    starts: np.ndarray,
+    k: int = K,
+    w: int = W,
+    max_occ: int = MAX_OCC,
+) -> MinimizerIndex:
+    """MinimizerIndex over a virtual gap-padded concatenation of seqs, built
+    from per-sequence memoised scans (scan_seq_minimizers). starts must be
+    ascending (concat order) so that within-key position order matches
+    build_index on the real concatenation bit for bit."""
+    memo_keys = [(_digest(s.encode()), len(s), k, w) for s in seqs]
+    fresh = {}
+    for s, mk in zip(seqs, memo_keys):
+        if _memo_get(mk) is None:
+            fresh[mk] = s  # dedupes repeated values within the batch
+    if fresh:
+        _scan_uncached_bulk(list(fresh.values()), list(fresh.keys()), k, w)
+    keys_l, pos_l, strand_l = [], [], []
+    for mk, st, s in zip(memo_keys, starts, seqs):
+        hit = _memo_get(mk)
+        if hit is None:  # evicted mid-build (pool larger than the memo cap)
+            hit = scan_seq_minimizers(s, k, w)
+        ky, po, sd = hit
+        keys_l.append(ky)
+        pos_l.append(po + int(st))
         strand_l.append(sd)
     if not keys_l:
         z = np.empty(0, np.int64)

@@ -1,6 +1,7 @@
 """Seed lookup + diagonal voting on PyTorch: the device half of the aligner.
 
-The port of ``bossruns_tpu.aligner.seed`` (its ``_seed_topn_jit``, K8).
+The port of ``bossruns_tpu.aligner.seed`` (its ``_seed_topn_jit``, K8, and
+``_seed_candidates_jit``, K9).
 It replaces minimap2's seed-and-chain stage (the reference calls mappy's C
 implementation per read in a thread pool). A length bucket of reads is one
 padded [R, L] int8 code matrix (0..3, 4 = N or padding), and per read:
@@ -28,11 +29,19 @@ holds field i of candidate c, exactly as ``_seed_topn_jit`` lays it out.
 ``stable=True``, the kernel by the (diagonal, slot) pair, so both keep the
 same anchors when a read has more than ``cw`` real ones.
 
+``seed_candidates`` is the all-vs-all seeding of the AEONS overlap search
+(K9): stages 1-4 as above, then each strand space on its own is sorted by
+(diagonal, slot) with the read and genome positions as payload, cut to
+``cw``, voted with the caller's tolerance and peeled ``ncand`` times. Its
+result is one int32 [R, len(CAND_FIELDS), 2 * ncand] block, column
+s * ncand + c holding round c of space s, as ``_seed_candidates_jit`` lays
+it out. A CPU tensor takes ``seed_candidates_plain``, a CUDA tensor
+launches kernel H6 (``csrc/seed.cu``) or raises.
+
 Left out of the JAX module: ``pack_reads``/``unpack_reads`` (4-bit read
-packing for a slow host link; the port uploads the int8 codes),
+packing for a slow host link; the port uploads the int8 codes) and
 ``_pad_hysteresis`` (power-of-two index padding against recompiles; the
-port's index keeps its own size) and ``_seed_candidates_jit``/
-``seed_candidates`` (all-vs-all seeding of the AEONS path, K9).
+port's index keeps its own size).
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ DIAG_TOL = 256         # diagonal clustering tolerance (bases)
 SENTINEL = int(2**31 - 2**24)  # beyond any real diagonal
 NCAND = 4              # diagonal clusters peeled per read
 SEED_FIELDS = ("strand", "bkey", "votes", "dspan", "qmin", "qmax")
+CAND_FIELDS = ("votes", "strand", "qmin", "qmax", "tmin", "tmax")
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 PACK_PAD = -1          # pos_packed slot with no occurrence (0xFFFFFFFF as int32)
@@ -277,6 +287,96 @@ def seed_topn(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
     mins = torch.empty((r, n), dtype=torch.int32, device=dev)
     K.KERNELS["seed_topn"](
         K.ptr(reads), r, L, k, w, budget, ncand, K.ptr(dev_index.keys),
+        dev_index.keys.shape[0], K.ptr(dev_index.pos_packed), K.ptr(mins), K.ptr(out),
+        K.stream_ptr(reads),
+    )
+    return out
+
+
+# ------------------------------------------------------------ kernel H6 --
+
+
+def candidate_tol(L: int) -> int:
+    """Default diagonal tolerance of all-vs-all seeding at padded length L:
+    long sequences accumulate indel drift of about 1% of their length."""
+    return max(DIAG_TOL, L // 32)
+
+
+def seed_candidates_plain(reads: torch.Tensor, dev_index: DeviceIndex,
+                          ncand: int = NCAND, tol: int = DIAG_TOL) -> torch.Tensor:
+    """Plain PyTorch version of H6 on any device: [R, L] int8 codes ->
+    int32 [R, len(CAND_FIELDS), 2 * ncand], entry for entry
+    ``_seed_candidates_jit`` (placeholders included: a round with no vote
+    left reports votes -1 and the spans of the cluster around the space's
+    first kept diagonal, +-2^30 when that is SENTINEL; nothing is clamped)."""
+    k, w = dev_index.k, dev_index.w
+    L = reads.shape[1]
+    canonical, strand, is_min = read_minimizers(reads, k, w)
+    ck, cs, cpos, cvalid = compact_minimizers(canonical, strand, is_min, anchor_budget(L, w))
+    r, a = ck.shape
+    hit, rank = lookup(dev_index.keys, ck.reshape(-1), cvalid.reshape(-1))
+    hit = hit.view(r, a)
+    packed = dev_index.pos_packed[rank.view(r, a)].to(torch.int64) & _M32  # [r, a, C]
+    occ_ok = hit[:, :, None] & (packed != _M32)
+    gpos = packed >> 1
+    same = (packed & 1) == cs[:, :, None]
+    cp = cpos[:, :, None]
+    rp0 = cp.expand(r, a, OCC_CAP).reshape(r, a * OCC_CAP)
+    gp0 = gpos.reshape(r, a * OCC_CAP)
+    cw = (a * OCC_CAP) // 2
+    cols: list[list[torch.Tensor]] = [[] for _ in CAND_FIELDS]
+    for space, key0 in ((0, torch.where(occ_ok & same, gpos - cp, SENTINEL)),
+                        (1, torch.where(occ_ok & ~same, gpos + cp, SENTINEL))):
+        keys_flat, order = torch.sort(key0.reshape(r, a * OCC_CAP), dim=1, stable=True)
+        keys_flat, order = keys_flat[:, :cw], order[:, :cw]
+        rp, gp = torch.gather(rp0, 1, order), torch.gather(gp0, 1, order)
+        real = keys_flat < SENTINEL
+        v = vote(keys_flat, tol)
+        for _ in range(ncand):
+            best = torch.argmax(v, dim=1, keepdim=True)
+            bkey = keys_flat.gather(1, best)
+            bvote = v.gather(1, best)[:, 0]
+            dist = (keys_flat - bkey).abs()
+            cl = (dist <= tol) & real
+            for i, x in enumerate((
+                bvote, torch.full_like(bvote, space),
+                torch.where(cl, rp, _BIG).amin(dim=1), torch.where(cl, rp, -_BIG).amax(dim=1),
+                torch.where(cl, gp, _BIG).amin(dim=1), torch.where(cl, gp, -_BIG).amax(dim=1),
+            )):
+                cols[i].append(x)
+            v = torch.where(dist <= 2 * tol, -1, v)
+    return torch.stack([torch.stack(c, dim=1) for c in cols], dim=1).to(torch.int32)
+
+
+def seed_candidates(reads: torch.Tensor, dev_index: DeviceIndex, ncand: int = NCAND,
+                    tol: int | None = None) -> torch.Tensor:
+    """H6: top-``ncand`` diagonal clusters per strand space, int32
+    [R, len(CAND_FIELDS), 2 * ncand]; tol defaults to candidate_tol(L). A
+    CPU tensor takes the plain version; a CUDA tensor launches
+    csrc/seed.cu (two launches) or raises."""
+    r, L = reads.shape
+    tol = candidate_tol(L) if tol is None else int(tol)
+    if reads.device.type == "cpu":
+        return seed_candidates_plain(reads, dev_index, ncand, tol)
+    dev = reads.device
+    k, w = dev_index.k, dev_index.w
+    n = L - k + 1
+    budget = anchor_budget(L, w)
+    K.check(reads, "reads", torch.int8, (r, L))
+    K.check(dev_index.keys, "keys", torch.int32, None, dev)
+    K.check(dev_index.pos_packed, "pos_packed", torch.int32,
+            (dev_index.keys.shape[0], OCC_CAP), dev)
+    if not (1 <= k <= 15 and 1 <= w <= 16 and w <= n and budget <= n
+            and budget >= 64 and budget & (budget - 1) == 0 and budget <= ANCHOR_BUDGET
+            and 1 <= ncand <= 8 and 1 <= tol <= (1 << 24) and L % 8 == 0):
+        raise ValueError(f"seed_candidates: unsupported k={k} w={w} budget={budget} L={L} "
+                         f"ncand={ncand} tol={tol}")
+    out = torch.empty((r, len(CAND_FIELDS), 2 * ncand), dtype=torch.int32, device=dev)
+    if r == 0:
+        return out
+    mins = torch.empty((r, n), dtype=torch.int32, device=dev)
+    K.KERNELS["seed_candidates"](
+        K.ptr(reads), r, L, k, w, budget, ncand, tol, K.ptr(dev_index.keys),
         dev_index.keys.shape[0], K.ptr(dev_index.pos_packed), K.ptr(mins), K.ptr(out),
         K.stream_ptr(reads),
     )

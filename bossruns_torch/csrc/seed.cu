@@ -1,5 +1,6 @@
-// H5 seed_topn — minimizer seeding and diagonal voting for one length
-// bucket of reads: the device half of the read aligner.
+// H5 seed_topn and H6 seed_candidates — minimizer seeding and diagonal
+// voting for one length bucket of reads: the device half of the read
+// aligner (H5) and of the AEONS all-vs-all overlap search (H6).
 //
 // Replaces: bossruns_tpu/aligner/seed.py:273-370 (_seed_topn_jit, K8) with
 // its stages read_minimizers (:157), compact_minimizers (:185), the
@@ -7,6 +8,12 @@
 // _vote (:231). Output row for output row the same int32
 // [6 * ncand, R] block: row c*6 + i holds field i (strand, bkey, votes,
 // dspan, qmin, qmax) of candidate c, placeholders included.
+// H6 replaces bossruns_tpu/aligner/seed.py:410-469 (_seed_candidates_jit,
+// K9): the same stages, then per strand space its own sort, vote with a
+// caller-given tolerance and ncand peel rounds. Output entry for entry the
+// same int32 [R, 6, 2 * ncand] block (votes, strand, qmin, qmax, tmin,
+// tmax; column s * ncand + c is round c of space s), placeholders
+// included and unclamped.
 //
 // Bound on the H100: at 4000 reads x L=512 (the mu=400 decision pass) the
 // per-read work is small (~200 minimizers, two 1024-key sorts), so the
@@ -16,21 +23,29 @@
 // 8 Mb genome, k13/w5). At L >= 4096 the 1024-slot budget makes each
 // block's binary searches into the key table (about 22 dependent loads per
 // slot) and its 4096-key sorts the bound, with two blocks per SM for lack
-// of shared memory.
+// of shared memory. H6 runs at L = 8192 and 32768 with the full budget:
+// its first launch streams R x L codes (16 MB per 500 reads at 32768), its
+// second does two 4096-key sorts per read, so the sorts and their barriers
+// bound it as they bound H5 at L >= 4096.
 //
 // Design: two launches. seed_minimizers: one thread per (read, position);
 // a block stages its tile of codes and the 2(w-1) halo hashes in shared
 // memory and writes (canonical << 1 | strand) where the position is a
-// minimizer, -1 elsewhere. seed_vote: one block per read. It compacts the
-// first `budget` minimizers with a block scan, binary-searches each in the
-// sorted keys (a hit is all that matters), and for each strand space
-// bitonic-sorts (diagonal, anchor slot) pairs as 64-bit keys in shared
-// memory (the slot is the tie-break, which equals the stable sort of the
-// plain version and of jax.lax.sort), keeps the cw smallest, counts votes
-// by binary search over the two staggered grids, and peels ncand clusters
-// with block reductions. Negative diagonals are floor-divided; uint32
-// hashing wraps in uint32_t; argmax ties go to the first index and strand
-// ties to the forward space, as in the JAX function.
+// minimizer, -1 elsewhere. seed_vote (H5) and cand_vote (H6): one block per
+// read. It compacts the first `budget` minimizers with a block scan,
+// binary-searches each in the sorted keys (a hit is all that matters), and
+// for each strand space bitonic-sorts (diagonal, anchor slot) pairs as
+// 64-bit keys in shared memory (the slot is the tie-break, which equals the
+// stable sort of the plain version and of jax.lax.sort), keeps the cw
+// smallest, counts votes by binary search over the two staggered grids,
+// and peels ncand clusters with block reductions. H5 votes both spaces and
+// peels them jointly; H6 sorts, votes and peels one space at a time (76 KB
+// of shared memory at budget 1024, one space's 4096 sort keys plus its
+// kept keys, read positions, genome positions and votes) and re-reads an
+// anchor's genome position from pos_packed by its slot. Negative diagonals
+// are floor-divided; uint32 hashing wraps in uint32_t; argmax ties go to
+// the first index and strand ties to the forward space, as in the JAX
+// functions.
 #include <climits>
 
 #include "common.cuh"
@@ -142,30 +157,15 @@ __device__ __forceinline__ long long pack_arg(int32_t v, int i) {
     return (long long)v * 4294967296LL + (long long)(0xffffffffu - (uint32_t)i);
 }
 
-__global__ void seed_vote(const int32_t* __restrict__ mins, int n, int a, int ncand,
-                          const int32_t* __restrict__ keys, int64_t U,
-                          const uint32_t* __restrict__ packed, int32_t* __restrict__ out,
-                          int64_t R) {
-    extern __shared__ unsigned long long s_dyn[];
-    const int na = a * OCC;                    // anchor slots per strand space
-    const int cw = na / 2;                     // kept after the sort
-    unsigned long long* s_sort = s_dyn;        // [na]
-    int32_t* s_cs = (int32_t*)(s_sort + na);   // [a] canonical << 1 | strand
-    int32_t* s_cpos = s_cs + a;                // [a]
-    int32_t* s_rank = s_cpos + a;              // [a] index row, -1 on a miss
-    int32_t* s_key = s_rank + a;               // [2][cw]
-    int32_t* s_rp = s_key + 2 * cw;            // [2][cw]
-    int32_t* s_vote = s_rp + 2 * cw;           // [2][cw]
+// 1-2. the first a minimizers of the read in position order (block scan per
+// chunk) into s_cs/s_cpos, and each one's row in the sorted keys (-1 on a
+// miss) into s_rank. Returns their count.
+__device__ int compact_and_lookup(const int32_t* __restrict__ mrow, int n, int a,
+                                  const int32_t* __restrict__ keys, int64_t U,
+                                  int32_t* s_cs, int32_t* s_cpos, int32_t* s_rank) {
     __shared__ int s_count;
     __shared__ int s_wtot[32];
-    __shared__ long long s_red64[32];
-    __shared__ int32_t s_red32[32];
-
-    const int64_t r = blockIdx.x;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nw = blockDim.x >> 5;
-    const int32_t* mrow = mins + r * n;
-
-    // 1. the first a minimizers in position order (block scan per chunk)
     if (t == 0) s_count = 0;
     __syncthreads();
     for (int base = 0; base < n; base += blockDim.x) {
@@ -193,8 +193,6 @@ __global__ void seed_vote(const int32_t* __restrict__ mins, int n, int a, int nc
         if (s_count >= a) break;
     }
     const int nmin = min(s_count, a);
-
-    // 2. exact-match lookup in the sorted keys
     for (int j = t; j < nmin; j += blockDim.x) {
         int32_t q = s_cs[j] >> 1;
         int64_t lo = 0, hi = U;
@@ -205,42 +203,90 @@ __global__ void seed_vote(const int32_t* __restrict__ mins, int n, int a, int nc
         s_rank[j] = (lo < U && keys[lo] == q) ? (int32_t)lo : -1;
     }
     __syncthreads();
+    return nmin;
+}
+
+// 3. the anchors of strand space s as (diagonal, slot) 64-bit keys in
+// s_sort[0, na), sorted ascending (bitonic, na a power of two)
+__device__ void sort_space(int s, int na, int nmin, const uint32_t* __restrict__ packed,
+                           const int32_t* s_cs, const int32_t* s_cpos, const int32_t* s_rank,
+                           unsigned long long* s_sort) {
+    const int t = threadIdx.x;
+    for (int e = t; e < na; e += blockDim.x) {
+        int j = e >> 2;
+        int32_t key = SENT;
+        if (j < nmin && s_rank[j] >= 0) {
+            uint32_t pk = packed[(int64_t)s_rank[j] * OCC + (e & 3)];
+            if (pk != PAD) {
+                int32_t gpos = (int32_t)(pk >> 1);
+                bool same = (int32_t)(pk & 1u) == (s_cs[j] & 1);
+                if (s == 0 && same) key = gpos - s_cpos[j];
+                if (s == 1 && !same) key = gpos + s_cpos[j];
+            }
+        }
+        s_sort[e] = ((unsigned long long)((uint32_t)key ^ 0x80000000u) << 32) | (uint32_t)e;
+    }
+    __syncthreads();
+    for (int size = 2; size <= na; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            for (int i = t; i < na / 2; i += blockDim.x) {
+                int lo = 2 * i - (i & (stride - 1));
+                int hi = lo + stride;
+                bool asc = (lo & size) == 0;
+                unsigned long long x = s_sort[lo], y = s_sort[hi];
+                if ((x > y) == asc) {
+                    s_sort[lo] = y;
+                    s_sort[hi] = x;
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+__device__ __forceinline__ int32_t sorted_key(unsigned long long c) {
+    return (int32_t)((uint32_t)(c >> 32) ^ 0x80000000u);
+}
+
+// votes of one sorted, cw-wide space: anchors sharing the key's bucket of
+// either staggered grid of width 2 * tol; -1 for SENTINEL keys
+__device__ __forceinline__ int32_t bucket_votes(const int32_t* row, int cw, int64_t key,
+                                                int64_t tol) {
+    if (key >= SENT) return -1;
+    int64_t b0 = floor_div(key, 2 * tol) * (2 * tol);
+    int64_t b1 = floor_div(key + tol, 2 * tol) * (2 * tol) - tol;
+    int c0 = lower_bound(row, cw, b0 + 2 * tol) - lower_bound(row, cw, b0);
+    int c1 = lower_bound(row, cw, b1 + 2 * tol) - lower_bound(row, cw, b1);
+    return max(c0, c1);
+}
+
+__global__ void seed_vote(const int32_t* __restrict__ mins, int n, int a, int ncand,
+                          const int32_t* __restrict__ keys, int64_t U,
+                          const uint32_t* __restrict__ packed, int32_t* __restrict__ out,
+                          int64_t R) {
+    extern __shared__ unsigned long long s_dyn[];
+    const int na = a * OCC;                    // anchor slots per strand space
+    const int cw = na / 2;                     // kept after the sort
+    unsigned long long* s_sort = s_dyn;        // [na]
+    int32_t* s_cs = (int32_t*)(s_sort + na);   // [a] canonical << 1 | strand
+    int32_t* s_cpos = s_cs + a;                // [a]
+    int32_t* s_rank = s_cpos + a;              // [a] index row, -1 on a miss
+    int32_t* s_key = s_rank + a;               // [2][cw]
+    int32_t* s_rp = s_key + 2 * cw;            // [2][cw]
+    int32_t* s_vote = s_rp + 2 * cw;           // [2][cw]
+    __shared__ long long s_red64[32];
+    __shared__ int32_t s_red32[32];
+
+    const int64_t r = blockIdx.x;
+    const int t = threadIdx.x;
+    const int nmin = compact_and_lookup(mins + r * n, n, a, keys, U, s_cs, s_cpos, s_rank);
 
     // 3. per strand space: anchors' diagonals, sorted by (diagonal, slot)
     for (int s = 0; s < 2; ++s) {
-        for (int e = t; e < na; e += blockDim.x) {
-            int j = e >> 2;
-            int32_t key = SENT;
-            if (j < nmin && s_rank[j] >= 0) {
-                uint32_t pk = packed[(int64_t)s_rank[j] * OCC + (e & 3)];
-                if (pk != PAD) {
-                    int32_t gpos = (int32_t)(pk >> 1);
-                    bool same = (int32_t)(pk & 1u) == (s_cs[j] & 1);
-                    if (s == 0 && same) key = gpos - s_cpos[j];
-                    if (s == 1 && !same) key = gpos + s_cpos[j];
-                }
-            }
-            s_sort[e] = ((unsigned long long)((uint32_t)key ^ 0x80000000u) << 32) | (uint32_t)e;
-        }
-        __syncthreads();
-        for (int size = 2; size <= na; size <<= 1) {
-            for (int stride = size >> 1; stride > 0; stride >>= 1) {
-                for (int i = t; i < na / 2; i += blockDim.x) {
-                    int lo = 2 * i - (i & (stride - 1));
-                    int hi = lo + stride;
-                    bool asc = (lo & size) == 0;
-                    unsigned long long x = s_sort[lo], y = s_sort[hi];
-                    if ((x > y) == asc) {
-                        s_sort[lo] = y;
-                        s_sort[hi] = x;
-                    }
-                }
-                __syncthreads();
-            }
-        }
+        sort_space(s, na, nmin, packed, s_cs, s_cpos, s_rank, s_sort);
         for (int i = t; i < cw; i += blockDim.x) {
             unsigned long long c = s_sort[i];
-            int32_t key = (int32_t)((uint32_t)(c >> 32) ^ 0x80000000u);
+            int32_t key = sorted_key(c);
             int e = (int)(c & 0xffffffffu);
             s_key[s * cw + i] = key;
             s_rp[s * cw + i] = key < SENT ? s_cpos[e >> 2] : 0;
@@ -249,19 +295,8 @@ __global__ void seed_vote(const int32_t* __restrict__ mins, int n, int a, int nc
     }
 
     // 4. votes: anchors in the same bucket of either staggered grid
-    for (int i = t; i < 2 * cw; i += blockDim.x) {
-        const int32_t* row = s_key + (i / cw) * cw;
-        int64_t key = s_key[i];
-        int32_t v = -1;
-        if (key < SENT) {
-            int64_t b0 = floor_div(key, 2 * TOL) * (2 * TOL);
-            int64_t b1 = floor_div(key + TOL, 2 * TOL) * (2 * TOL) - TOL;
-            int c0 = lower_bound(row, cw, b0 + 2 * TOL) - lower_bound(row, cw, b0);
-            int c1 = lower_bound(row, cw, b1 + 2 * TOL) - lower_bound(row, cw, b1);
-            v = max(c0, c1);
-        }
-        s_vote[i] = v;
-    }
+    for (int i = t; i < 2 * cw; i += blockDim.x)
+        s_vote[i] = bucket_votes(s_key + (i / cw) * cw, cw, s_key[i], TOL);
     __syncthreads();
 
     // 5. peel ncand clusters jointly over both strand spaces
@@ -317,6 +352,90 @@ __global__ void seed_vote(const int32_t* __restrict__ mins, int n, int a, int nc
     }
 }
 
+
+// H6: per strand space on its own, sort, vote with tolerance tol and peel
+// ncand rounds; out[r, f, s * ncand + c]
+__global__ void cand_vote(const int32_t* __restrict__ mins, int n, int a, int ncand, int tol,
+                          const int32_t* __restrict__ keys, int64_t U,
+                          const uint32_t* __restrict__ packed, int32_t* __restrict__ out) {
+    extern __shared__ unsigned long long s_dyn[];
+    const int na = a * OCC;
+    const int cw = na / 2;
+    unsigned long long* s_sort = s_dyn;        // [na]
+    int32_t* s_cs = (int32_t*)(s_sort + na);   // [a]
+    int32_t* s_cpos = s_cs + a;                // [a]
+    int32_t* s_rank = s_cpos + a;              // [a]
+    int32_t* s_key = s_rank + a;               // [cw] this space's kept diagonals
+    int32_t* s_rp = s_key + cw;                // [cw] read positions
+    int32_t* s_gp = s_rp + cw;                 // [cw] genome positions
+    int32_t* s_vote = s_gp + cw;               // [cw]
+    __shared__ long long s_red64[32];
+    __shared__ int32_t s_red32[32];
+
+    const int64_t r = blockIdx.x;
+    const int t = threadIdx.x;
+    const int64_t tl = tol;
+    const int nmin = compact_and_lookup(mins + r * n, n, a, keys, U, s_cs, s_cpos, s_rank);
+    int32_t* orow = out + r * 6 * (2 * ncand);
+
+    for (int s = 0; s < 2; ++s) {
+        sort_space(s, na, nmin, packed, s_cs, s_cpos, s_rank, s_sort);
+        for (int i = t; i < cw; i += blockDim.x) {
+            unsigned long long c = s_sort[i];
+            int32_t key = sorted_key(c);
+            int e = (int)(c & 0xffffffffu);
+            s_key[i] = key;
+            s_rp[i] = 0;
+            s_gp[i] = 0;
+            if (key < SENT) {
+                s_rp[i] = s_cpos[e >> 2];
+                s_gp[i] = (int32_t)(packed[(int64_t)s_rank[e >> 2] * OCC + (e & 3)] >> 1);
+            }
+        }
+        __syncthreads();
+        for (int i = t; i < cw; i += blockDim.x) s_vote[i] = bucket_votes(s_key, cw, s_key[i], tl);
+        __syncthreads();
+        for (int c = 0; c < ncand; ++c) {
+            long long bp = LLONG_MIN;
+            for (int i = t; i < cw; i += blockDim.x) bp = MaxOp()(bp, pack_arg(s_vote[i], i));
+            bp = block_reduce(bp, s_red64, MaxOp());
+            int32_t bvote = (int32_t)floor_div(bp, 4294967296LL);
+            int ib = (int)(0xffffffffu - (uint32_t)(bp & 0xffffffffLL));
+            int64_t bkey = s_key[ib];
+            int32_t qmax = -BIG, qmin = BIG, tmax = -BIG, tmin = BIG;
+            for (int i = t; i < cw; i += blockDim.x) {
+                int64_t kc = s_key[i];
+                int64_t d = kc > bkey ? kc - bkey : bkey - kc;
+                if (kc < SENT && d <= tl) {
+                    qmax = max(qmax, s_rp[i]);
+                    qmin = min(qmin, s_rp[i]);
+                    tmax = max(tmax, s_gp[i]);
+                    tmin = min(tmin, s_gp[i]);
+                }
+            }
+            qmin = block_reduce(qmin, s_red32, MinOp());
+            qmax = block_reduce(qmax, s_red32, MaxOp());
+            tmin = block_reduce(tmin, s_red32, MinOp());
+            tmax = block_reduce(tmax, s_red32, MaxOp());
+            if (t == 0) {
+                int col = s * ncand + c, w2 = 2 * ncand;
+                orow[0 * w2 + col] = bvote;
+                orow[1 * w2 + col] = s;
+                orow[2 * w2 + col] = qmin;
+                orow[3 * w2 + col] = qmax;
+                orow[4 * w2 + col] = tmin;
+                orow[5 * w2 + col] = tmax;
+            }
+            for (int i = t; i < cw; i += blockDim.x) {
+                int64_t kc = s_key[i];
+                int64_t d = kc > bkey ? kc - bkey : bkey - kc;
+                if (d <= 2 * tl) s_vote[i] = -1;
+            }
+            __syncthreads();
+        }
+    }
+}
+
 }  // namespace
 
 BK_API int bk_seed_topn(const int8_t* reads, int64_t R, int L, int k, int w, int budget,
@@ -337,6 +456,30 @@ BK_API int bk_seed_topn(const int8_t* reads, int64_t R, int L, int k, int w, int
                                   (int)smem));
     seed_vote<<<(unsigned)R, VOTE_THREADS, smem, stream>>>(mins, n, budget, ncand, keys, U,
                                                           packed, out, R);
+    BK_LAUNCHED();
+    return 0;
+}
+
+BK_API int bk_seed_candidates(const int8_t* reads, int64_t R, int L, int k, int w, int budget,
+                              int ncand, int tol, const int32_t* keys, int64_t U,
+                              const uint32_t* packed, int32_t* mins, int32_t* out,
+                              cudaStream_t stream) {
+    int n = L - k + 1;
+    if (R <= 0 || k < 1 || k > MAX_K || w < 1 || w > MAX_W || n < w || budget < 64 ||
+        budget > n || (budget & (budget - 1)) != 0 || budget > 1024 || U < 1 || ncand < 1 ||
+        ncand > 8 || tol < 1 || tol > (1 << 24))
+        return -1;
+    int tiles = (n + TILE - 1) / TILE;
+    int64_t blocks = (int64_t)tiles * R;
+    if (blocks > 0x7fffffffLL || R > 0x7fffffffLL) return -1;
+    seed_minimizers<<<(unsigned)blocks, TILE, 0, stream>>>(reads, R, L, k, w, n, tiles, mins);
+    BK_LAUNCHED();
+    int na = budget * OCC;
+    size_t smem = (size_t)na * 8 + (size_t)budget * 12 + (size_t)(na / 2) * 16;
+    BK_CHECK(cudaFuncSetAttribute(cand_vote, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem));
+    cand_vote<<<(unsigned)R, VOTE_THREADS, smem, stream>>>(mins, n, budget, ncand, tol, keys,
+                                                          U, packed, out);
     BK_LAUNCHED();
     return 0;
 }

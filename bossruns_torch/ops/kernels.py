@@ -77,6 +77,21 @@ class StratArgs(ctypes.Structure):
     ]
 
 
+class AeonsArgs(ctypes.Structure):
+    """Mirror of ``struct AeonsArgs`` in csrc/aeons_strategy.cu (same field order)."""
+
+    _fields_ = [
+        ("n", _I64), ("C", _I64),
+        ("win", ctypes.c_int32 * 11), ("pad0", ctypes.c_int32),
+        ("weight", ctypes.c_double * 10),
+        ("tc", ctypes.c_double), ("tbar0", ctypes.c_double),
+        *[(n, _P) for n in (
+            "cov", "ends", "flags", "table", "cs", "benefit", "smu_part", "norm_bits",
+            "any_nz", "counts", "threshold", "mask",
+        )],
+    ]
+
+
 class Kernel:
     """One C entry point of the kernel library, with its launch count."""
 
@@ -117,6 +132,13 @@ KERNELS = {
     "seed_topn": Kernel(
         "seed_topn", "bk_seed_topn",
         [_P, _I64, *[ctypes.c_int] * 5, _P, _I64, _P, _P, _P, _P],
+    ),
+    "seed_candidates": Kernel(
+        "seed_candidates", "bk_seed_candidates",
+        [_P, _I64, *[ctypes.c_int] * 6, _P, _I64, _P, _P, _P, _P],
+    ),
+    "aeons_strategy": Kernel(
+        "aeons_strategy", "bk_aeons_strategy", [ctypes.POINTER(AeonsArgs), _P]
     ),
 }
 

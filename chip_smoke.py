@@ -20,11 +20,27 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      both, and the truncated records' loci against the corpus's own PAF;
   7. the simulation with live alignment (no PAFs, classic flow): 6
      batches of 4000 reads through H5 and H1-H4, with the same checks as 4;
-  8. the live experiment (BossRuns) over two 4000-read fastq files.
-Each driven path (4, 7, 8) runs with the launch counts set to 0 just
-before it and read just after. The last three lines are the kernel table,
-the card and {"ok": true, "device": ...}. Nothing here imports JAX or the
-JAX package.
+  8. the live experiment (BossRuns) over two 4000-read fastq files;
+  9. the all-vs-all seeding kernel H6 against its plain version on a
+     metagenome-sized working pool (2000 reads of 5 kb, ~10 Mb): 500-read
+     query batches at L=8192 and L=32768, all 48 entries of every row
+     exact, with times, and find_overlaps on the card against host seeding
+     (identical rows, times of both);
+ 10. the contig strategy kernel H7 against its plain version on bench.py's
+     strat_triple pools (40 and 200 contigs of 200 kb, coverage 0-21 and
+     0-29): threshold, mask and benefit exact, with times of H7, the plain
+     version and the f64 host path;
+ 11. the AEONS simulation at bench.py's section_aeons shape (300 kb genome,
+     4000 reads of mean 5 kb, batch 500, binit 2, 4 batches): masks and
+     contigs written, time_boss <= time_control, decisions engaged, H5, H6
+     and H7 launched, per-stage p50 times, and H7 exact against its plain
+     version and the host path on the sim's final contigs;
+ 12. one live BossAeons.process_batch over two fastq files after an initial
+     assembly.
+Each driven path (4, 7, 8, 11, 12) runs with the launch counts set to 0
+just before it and read just after. The last three lines are the kernel
+table, the card and {"ok": true, "device": ...}. Nothing here imports JAX
+or the JAX package.
 The port's decisions are held against the f64 NumPy oracle by
 tests/test_torch_engine.py (CPU) and tests/test_torch_cuda.py (on a card).
 """
@@ -536,7 +552,7 @@ def run_live_align_sim(dev, card: str, work: Path, paths: dict) -> dict:
     launches = kernels.launches()
     log(f"live-alignment sim: {N_LIVE_BATCHES} batches of {N_READS} reads in {sim_s:.2f} s; "
         f"launches {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in (*UPDATE_KERNELS, "seed_topn")) <= 0:
         raise AssertionError(f"a kernel of the live-alignment sim never launched: {launches}")
     check_sim(sim, "live-alignment sim")
     phase = sim.phase_p50_ms()
@@ -584,6 +600,254 @@ def run_live_experiment(dev, work: Path, paths: dict) -> None:
     log(f"live experiment checks: coverage grew, masks written; launches {launches}")
 
 
+AVA_POOL_READS = 2000
+AVA_QUERY_READS = 500
+AEONS_GENOME = 300_000
+AEONS_READS = 4000
+AEONS_BATCH = 500
+AEONS_BINIT = 2
+AEONS_MAXB = 4
+
+
+def check_ava(dev, card: str) -> dict:
+    """Phase 9: H6 against its plain version, and find_overlaps seeded on
+    the card against host seeding, on a ~10 Mb working pool."""
+    from bossruns_torch.aeons.ava import PoolIndex, find_overlaps
+    from bossruns_torch.aligner import encode
+    from bossruns_torch.aligner import seed as S
+    from bossruns_torch.utils.datagen import random_genome, simulate_reads
+
+    rng = np.random.default_rng(17)
+    genome = random_genome(rng, {"m1": 1_200_000, "m2": 800_000})
+    pool = {r.rid: r.seq for r in simulate_reads(rng, genome, AVA_POOL_READS, mean_len=5000.0,
+                                                 sd_len=1500.0)}
+    t0 = time.perf_counter()
+    pidx = PoolIndex(pool, device=dev)
+    di = pidx.dev
+    log(f"pool index: {AVA_POOL_READS} reads, {sum(map(len, pool.values()))} bases, "
+        f"{pidx.host.n_minimizers} positions, built in {time.perf_counter() - t0:.1f} s")
+    res, worst = {}, 0.0
+    for L, lo, ml in ((8192, 0, 5000.0), (32768, 8193, 16000.0)):
+        q = []
+        while len(q) < AVA_QUERY_READS:
+            q += [r for r in simulate_reads(rng, genome, AVA_QUERY_READS, mean_len=ml,
+                                            sd_len=ml / 3) if lo <= len(r.seq) <= L]
+        q = q[:AVA_QUERY_READS]
+        mat = np.full((len(q), L), 4, np.int8)
+        for i, r in enumerate(q):
+            e = encode(r.seq)
+            mat[i, : e.shape[0]] = e
+        x = torch.from_numpy(mat).to(dev)
+        tol = S.candidate_tol(L)
+        got = S.seed_candidates(x, di)
+        want = S.seed_candidates_plain(x, di, tol=tol)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err((got, want)))
+        exact(f"H6 L={L}", got, want)
+        ms = time_ms(lambda: S.seed_candidates(x, di), reps=10)
+        plain_ms = time_ms(lambda: S.seed_candidates_plain(x, di, tol=tol), reps=3, warm=1)
+        hit = float((got[:, 0] >= 4).any(dim=1).float().mean())
+        log(f"H6 seed_candidates L={L} R={len(q)} tol {tol}: all 48 entries of every row exact, "
+            f"{hit:.3f} of reads with a cluster of >= 4 votes; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms [{card}]")
+        res[L] = dict(ms=ms, plain_ms=plain_ms)
+        queries = {r.rid: r.seq for r in q}
+        find_overlaps(queries, pidx)  # warm-up
+        td, th = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rows_d = find_overlaps(queries, pidx, merge=True)
+            td.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            rows_h = find_overlaps(queries, pidx, merge=True, backend="host")
+            th.append(time.perf_counter() - t0)
+        if rows_d != rows_h:
+            raise AssertionError(f"find_overlaps L={L}: device-seeded rows != host-seeded rows")
+        log(f"find_overlaps L={L}, {len(q)} queries: {len(rows_d['qname'])} rows identical; "
+            f"device-seeded {1000 * statistics.median(td):.1f} ms, host-seeded "
+            f"{1000 * statistics.median(th):.1f} ms (median of 3) [{card}]")
+    # the main path's shape: the sim's batches are 5 kb reads (L=8192)
+    return dict(res[8192], max_abs_err=worst)
+
+
+class _PoolContig:
+    """A contig of bench.py's strat_triple pools: 200 kb, random coverage."""
+
+    def __init__(self, n: int, rng, hi: int):
+        self.seq = "A" * n
+        self.cov = rng.integers(0, hi, n).astype(np.float32)
+        self.cap_l = self.cap_r = False
+
+
+def check_aeons_strategy(dev, card: str) -> dict:
+    """Phase 10: H7 against its plain version and the f64 host path."""
+    from bossruns_torch.aeons import benefit as B
+
+    ccl = np.array([20000, 14000, 10000, 7000, 5000, 3500, 2500, 1700, 900, 300])
+    lam = 6000.0
+    rng = np.random.default_rng(5)
+    res, worst = {}, 0.0
+    for n_contigs in (40, 200):
+        for hi in (22, 30):
+            pool = {f"u{j}": _PoolContig(200_000, rng, hi) for j in range(n_contigs)}
+            inp = B.StrategyInputs.build(pool, ccl, lam)
+            args = inp.device_args(dev)
+            mk, tk, bk = B.strategy(*args)
+            mp, tp, bp = B.strategy_plain(*args)
+            mh, th = inp.run_host()
+            torch.cuda.synchronize()
+            if tk != tp:
+                raise AssertionError(f"H7 threshold {tk!r} != plain {tp!r}")
+            exact("H7 mask", mk, mp)
+            exact("H7 benefit", bk, bp)
+            worst = max(worst, max_abs_err((bk, bp)))
+            if abs(tk - th) > 1e-12 * abs(th) or not np.array_equal(mk.cpu().numpy(), mh):
+                raise AssertionError(f"H7 vs host path: threshold {tk!r} vs {th!r}, "
+                                     f"{int((mk.cpu().numpy() != mh).sum())} mask bits")
+            ms = time_ms(lambda: B.strategy(*args), reps=10)
+            plain_ms = time_ms(lambda: B.strategy_plain(*args), reps=3, warm=1)
+            hs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                inp.run_host()
+                hs.append(time.perf_counter() - t0)
+            ed, eh = [], []
+            for _ in range(3):  # contig_strategies end to end, descriptor build included
+                t0 = time.perf_counter()
+                B.contig_strategies(pool, ccl, lam, device=dev)
+                ed.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                B.contig_strategies(pool, ccl, lam, device=dev, backend="host")
+                eh.append(time.perf_counter() - t0)
+            mb = n_contigs * 200_000 // 1_000_000
+            log(f"H7 aeons_strategy {mb} Mb ({n_contigs} x 200 kb), coverage 0-{hi - 1}: "
+                f"threshold {tk!r}, mask ({int(mk.sum())} of {mk.numel()} accepted) and benefit "
+                f"exact vs plain, equal to the f64 host path; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, host path {1000 * statistics.median(hs):.2f} ms; "
+                f"contig_strategies device {1000 * statistics.median(ed):.1f} ms, host "
+                f"{1000 * statistics.median(eh):.1f} ms [{card}]")
+            res[(n_contigs, hi)] = dict(ms=ms, plain_ms=plain_ms)
+    # the main path's shape is a few small contigs; report the 8 Mb pool
+    return dict(res[(40, 22)], max_abs_err=worst)
+
+
+def aeons_args(name: str, fq: str):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        general=SimpleNamespace(name=name, wait=1),
+        simulation=SimpleNamespace(fq=fq, batchsize=AEONS_BATCH, maxb=AEONS_MAXB,
+                                   binit=AEONS_BINIT, dumptime=200_000_000),
+        optional=SimpleNamespace(min_seq_len=2500, min_contig_len=10_000, min_map_len=2000,
+                                 min_s1=200, tetra=True, temperature=60, lowcov=10,
+                                 filter_repeats=False, resume=False),
+        live=SimpleNamespace(data_wait=0, device=None),
+    )
+
+
+def run_aeons_sim(dev, card: str, work: Path) -> dict:
+    """Phase 11: the AEONS simulation at bench.py's section_aeons shape."""
+    from bossruns_torch.aeons.simulation import BossAeonsSim
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.utils.datagen import write_corpus
+
+    t0 = time.perf_counter()
+    paths = write_corpus(work / "aeons_data", rng=np.random.default_rng(21),
+                         contig_lengths={"gA": AEONS_GENOME}, n_reads=AEONS_READS,
+                         mean_len=5000.0)
+    log(f"AEONS corpus: {AEONS_GENOME} sites, {AEONS_READS} reads, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sim = BossAeonsSim(aeons_args("aeons", paths["fq"]), out_base=work / "aeons", device=dev)
+    init_s = time.perf_counter() - t0
+    stages, batch_s, engaged = [], [], 0
+    for _ in range(AEONS_MAXB):
+        t0 = time.perf_counter()
+        sim.process_batch()
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        stages.append(dict(sim.stage_times))
+        engaged += sim.accept_count + sim.reject_count
+    launches = kernels.launches()
+    log(f"AEONS sim: initial assembly of {AEONS_BINIT} x {AEONS_BATCH} reads in {init_s:.2f} s, "
+        f"{AEONS_MAXB} batches of {AEONS_BATCH} in {sum(batch_s):.2f} s "
+        f"(p50 {1000 * statistics.median(batch_s):.0f} ms); launches {launches} [{card}]")
+    for k in ("seed_topn", "seed_candidates", "aeons_strategy"):
+        if launches[k] <= 0:
+            raise AssertionError(f"AEONS sim: {k} never launched: {launches}")
+    out = Path(sim.out_dir)
+    if not (out / "masks" / "boss.npz").exists() or not (out / "contigs" / "aeons.fa").exists():
+        raise AssertionError("AEONS sim: masks or contigs not written")
+    tb, tc = sim.read_cache.time_boss, sim.read_cache.time_control
+    if not tb <= tc:
+        raise AssertionError(f"AEONS sim: time_boss {tb} > time_control {tc}")
+    if engaged <= 0 or not sim.strat:
+        raise AssertionError("AEONS sim: no decisions engaged")
+    n_contigs = len(sim.strat)
+    acc = float(np.mean([m.mean() for m in sim.strat.values()]))
+    stage_p50 = {k: round(1000 * statistics.median(s.get(k, 0.0) for s in stages), 1)
+                 for k in stages[-1]}
+    log(f"AEONS sim checks: {n_contigs} contigs, accepted share {acc:.4f}, "
+        f"{engaged} decisions, time_boss {tb} <= time_control {tc}, masks and contigs written")
+    log(f"AEONS sim stage p50 ms: {json.dumps(stage_p50)} [{card}]")
+    # H7 at the sim's own shape (its contig set after the last batch),
+    # outside the counted run: exact against its plain version and the host path
+    from bossruns_torch.aeons import benefit as B
+
+    contigs = sim.pool.declare_contigs(sim.args.optional.min_contig_len).sequences
+    inp = B.StrategyInputs.build(contigs, sim.rl_dist.approx_ccl, sim.rl_dist.lam,
+                                 sim.args.optional.lowcov)
+    args = inp.device_args(dev)
+    mk, tk, _ = B.strategy(*args)
+    mp, tp, _ = B.strategy_plain(*args)
+    mh, th = inp.run_host()
+    torch.cuda.synchronize()
+    exact("H7 mask at the sim's contigs", mk, mp)
+    if tk != tp or abs(tk - th) > 1e-12 * abs(th) or not np.array_equal(mk.cpu().numpy(), mh):
+        raise AssertionError(f"H7 at the sim's contigs: threshold {tk!r}, plain {tp!r}, "
+                             f"host {th!r}")
+    log(f"H7 at the sim's {len(contigs)} contigs ({inp.cov.shape[0]} chunks): threshold and "
+        f"mask exact vs plain and host path; kernel {time_ms(lambda: B.strategy(*args)):.4f} "
+        f"ms [{card}]")
+    sim.read_cache.flush()
+    return dict(launches=launches, paths=paths)
+
+
+def run_aeons_live(dev, card: str, work: Path, paths: dict) -> None:
+    """Phase 12: BossAeons, initial assembly then one batch over two files."""
+    from bossruns_torch.aeons.core import BossAeons
+    from bossruns_torch.ops import kernels
+
+    fqdir = work / "aeons_run" / "fastq_pass"
+    fqdir.mkdir(parents=True)
+    with open(paths["fq"]) as fh:
+        lines = fh.readlines()
+    per = 4 * AEONS_BATCH
+    (fqdir / "f0.fq").write_text("".join(lines[: 2 * per]))
+    exp = BossAeons(aeons_args("aeons_live", paths["fq"]), out_base=work / "aeons_live",
+                    device=dev)
+    exp.fq_dir, exp.channels = str(fqdir), set()
+    exp.first_live_asm()
+    for i in (1, 2):
+        (fqdir / f"f{i}.fq").write_text("".join(lines[(1 + i) * per: (2 + i) * per]))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    exp.process_batch()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    if exp.batch != 1 or len(exp.processed_files) != 3 or not exp.strat:
+        raise AssertionError("live AEONS: the batch did not run")
+    if launches["seed_candidates"] <= 0 or launches["aeons_strategy"] <= 0:
+        raise AssertionError(f"live AEONS: H6/H7 never launched: {launches}")
+    if not (Path(exp.out_dir) / "masks" / "boss.npz").exists():
+        raise AssertionError("live AEONS: no masks written")
+    log(f"live AEONS batch: {2 * AEONS_BATCH} reads from 2 files in "
+        f"{time.perf_counter() - t0:.2f} s, {len(exp.strat)} contigs; launches {launches} [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -620,6 +884,10 @@ def main() -> int:
         check_aligner(dev, card, paths, seqs)
         live = run_live_align_sim(dev, card, work, paths)
         run_live_experiment(dev, work, paths)
+        res["seed_candidates"] = check_ava(dev, card)
+        res["aeons_strategy"] = check_aeons_strategy(dev, card)
+        aeons = run_aeons_sim(dev, card, work)
+        run_aeons_live(dev, card, work, aeons["paths"])
     if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
@@ -629,10 +897,14 @@ def main() -> int:
         "row_stage": ("csrc/rows.cu", "bossruns_tpu/models/runs.py:592"),
         "benefit_strategy": ("csrc/strategy.cu", "bossruns_tpu/ops/genome_ops.py:88"),
         "seed_topn": ("csrc/seed.cu", "bossruns_tpu/aligner/seed.py:273"),
+        "seed_candidates": ("csrc/seed.cu", "bossruns_tpu/aligner/seed.py:410"),
+        "aeons_strategy": ("csrc/aeons_strategy.cu", "bossruns_tpu/aeons/benefit.py:53"),
     }
     # H1-H4 count the gated sim's launches (path 4), H5 the live-alignment
-    # sim's (path 7)
-    counts = dict(sl["launches"], seed_topn=live["launches"]["seed_topn"])
+    # sim's (path 7), H6 and H7 the AEONS sim's (path 11)
+    counts = dict(sl["launches"], seed_topn=live["launches"]["seed_topn"],
+                  seed_candidates=aeons["launches"]["seed_candidates"],
+                  aeons_strategy=aeons["launches"]["aeons_strategy"])
     table = {"kernels": [
         {"name": k, "route": "cuda", "source": f"bossruns_torch/{src}", "replaces": rep,
          "launches": counts[k], "max_abs_err": res[k]["max_abs_err"],

@@ -2,7 +2,10 @@
 
 The seeding kernel H5 is held exactly against its plain version, and the
 aligner seeding on the card against the host-seeded aligner, record for
-record.
+record. The AEONS kernels too: H6 (all-vs-all seeding) in all 48 entries
+of every row at both device buckets, H7 (contig strategies) in threshold,
+mask and benefit at 8 and 40 Mb, and a short AEONS simulation on the card
+against the same simulation on the CPU.
 
 Skipped where torch sees no GPU; on a machine with one run
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``. Two barcodes,
@@ -227,3 +230,93 @@ def test_aligner_on_card_matches_host_seeded(seed_world, dev):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
         for x, y in zip(a.cigars, b.cigars):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("L", [8192, 32768])
+def test_seed_candidates_kernel_exact(seed_world, dev, L):
+    """H6 equals its plain version in all 48 entries of every row, at the
+    bucket's default tolerance, against a pool index of 5 kb reads."""
+    from bossruns_torch.aeons.ava import PoolIndex
+    from bossruns_torch.aligner import encode
+    from bossruns_torch.aligner import seed as S
+    from bossruns_torch.utils.datagen import simulate_reads
+
+    base, seqs = seed_world
+    genome = {"g": "".join(np.array(list("ACGT"))[base])}
+    rng = np.random.default_rng(L)
+    pool = {r.rid: r.seq for r in simulate_reads(rng, genome, 500, mean_len=5000.0)}
+    pidx = PoolIndex(pool, device=dev)
+    ml = 5000.0 if L == 8192 else 16000.0
+    q = [encode(r.seq)[:L] for r in simulate_reads(rng, genome, 64, mean_len=ml)]
+    mat = np.full((len(q) + 4, L), 4, np.int8)
+    for r, e in enumerate(q):
+        mat[r, : e.shape[0]] = e
+    mat[len(q):] = rng.integers(0, 5, (4, L))
+    x = torch.from_numpy(mat).to(dev)
+    got = S.seed_candidates(x, pidx.dev)
+    want = S.seed_candidates_plain(x, pidx.dev, tol=S.candidate_tol(L))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float((got[:-4, 0] >= 4).any(dim=1).float().mean()) > 0.8
+
+
+@pytest.mark.parametrize("n_contigs", [40, 200])
+def test_aeons_strategy_kernel_exact(dev, n_contigs):
+    """H7 equals its plain version (threshold, mask and benefit, bit for bit)
+    on bench.py's strat_triple pools of 200 kb contigs."""
+    from bossruns_torch.aeons import benefit as B
+
+    rng = np.random.default_rng(n_contigs)
+    for hi in (22, 30):
+        n = n_contigs * 2000
+        nd = np.full(n_contigs, 2000, np.int64)
+        cov = rng.integers(0, hi, n).astype(np.uint8)
+        flags = rng.integers(0, 16, n_contigs).astype(np.uint8)
+        up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        args = (up(cov), up(np.cumsum(nd)), up(flags), up(B.score_table(10.0)),
+                (4, 200, 140, 100, 70, 50, 35, 25, 17, 9, 3), B.AEONS_WEIGHTS, 55.0, 10)
+        mk, tk, bk = B.strategy(*args)
+        mp, tp, bp = B.strategy_plain(*args)
+        torch.cuda.synchronize()
+        assert tk == tp and tk > 0
+        assert torch.equal(bk, bp) and torch.equal(mk, mp)
+
+
+def test_aeons_sim_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """2 batches of test_aeons.py's end-to-end AEONS sim on the card and on
+    the CPU: the same contigs, masks and pseudotimes."""
+    from bossruns_tpu.config import BossConfig
+    from bossruns_torch.aeons.simulation import BossAeonsSim
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.utils.datagen import write_corpus
+
+    monkeypatch.chdir(tmp_path)
+    paths = write_corpus(tmp_path / "data", rng=np.random.default_rng(21),
+                         contig_lengths={"gA": 100_000}, n_reads=1300, mean_len=5000.0)
+
+    def args(name):
+        a = BossConfig()
+        a.general.name = name
+        a.simulation.fq = paths["fq"]
+        a.simulation.batchsize = 140
+        a.simulation.maxb = 2
+        a.simulation.binit = 4
+        a.optional.min_seq_len = 2500
+        a.optional.min_contig_len = 10_000
+        return a
+
+    kernels.reset_launches()
+    card = BossAeonsSim(args("card"), out_base=tmp_path / "card", device=dev)
+    cpu = BossAeonsSim(args("cpu"), out_base=tmp_path / "cpu", device="cpu")
+    for _ in range(2):
+        card.process_batch()
+        cpu.process_batch()
+        assert {s.seq for s in card.pool.sequences.values()} == {
+            s.seq for s in cpu.pool.sequences.values()}
+        assert card.strat.keys() == cpu.strat.keys()
+        for h in card.strat:
+            np.testing.assert_array_equal(card.strat[h], cpu.strat[h])
+        assert (card.read_cache.time_boss, card.read_cache.time_control) == (
+            cpu.read_cache.time_boss, cpu.read_cache.time_control)
+    n = kernels.launches()
+    assert n["seed_candidates"] > 0 and n["aeons_strategy"] > 0 and n["seed_topn"] > 0

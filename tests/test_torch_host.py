@@ -5,8 +5,9 @@
 * a subprocess in which ``jax`` cannot be imported imports the whole port
   and runs two simulation batches on the CPU;
 * ``python -m bossruns_torch --toml ... --device cpu`` runs a simulation
-  with live alignment in a subprocess in which ``jax`` cannot be imported;
-  an AEONS TOML and a device mesh raise NotImplementedError;
+  with live alignment in a subprocess in which ``jax`` cannot be imported
+  (the AEONS simulation's twin is in test_torch_aeons_sim.py); a device
+  mesh raises NotImplementedError;
 * the kernel build raises a clear error without nvcc instead of falling
   back, and a wrapper given a tensor on neither the CPU nor CUDA raises.
 """
@@ -180,11 +181,13 @@ def test_cli_runs_live_alignment_sim_without_jax(corpus, tmp_path):
 
 
 def test_cli_refuses_aeons_and_mesh(corpus, tmp_path, monkeypatch):
+    """Only a device mesh is refused now: RUNS and AEONS TOMLs with one."""
     from bossruns_torch.__main__ import main
 
     monkeypatch.chdir(tmp_path)
-    aeons = _toml(tmp_path / "aeons.toml", "a", simulation=dict(fq=corpus["fq"]))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    aeons = _toml(tmp_path / "aeons.toml", "a", simulation=dict(fq=corpus["fq"]),
+                  tpu=dict(mesh_barcode=2))
+    with pytest.raises(NotImplementedError, match="item 11"):
         main(["--toml", str(aeons), "--device", "cpu"])
     mesh = _toml(tmp_path / "mesh.toml", "m", ref=corpus["ref"],
                  simulation=dict(fq=corpus["fq"]), tpu=dict(mesh_genome=2))
@@ -236,6 +239,7 @@ def test_wrappers_raise_off_cpu_without_cuda():
 
 
 def test_kernel_sources_carry_their_notes():
-    for name in ("coverage.cu", "scores.cu", "rows.cu", "strategy.cu", "seed.cu"):
+    for name in ("coverage.cu", "scores.cu", "rows.cu", "strategy.cu", "seed.cu",
+                 "aeons_strategy.cu"):
         head = (REPO / "bossruns_torch" / "csrc" / name).read_text()[:3000]
         assert "Replaces:" in head and "Bound on the H100" in head and "Design" in head, name

@@ -2,16 +2,18 @@
 
 The port of ``bossruns_tpu`` to PyTorch. Module paths mirror the JAX
 package, so ``bossruns_torch.models.runs`` is the counterpart of
-``bossruns_tpu.models.runs``. Host modules of ``bossruns_tpu`` that import
-no JAX (layout, observation model, fastq/sampler, read-length distribution,
-checkpoint writer, corpus writer) are imported from there, not copied; a
-host module is ported only where importing it would pull in JAX.
+``bossruns_tpu.models.runs``. The port imports nothing of ``bossruns_tpu``:
+the host modules it needs (layout, observation model, fastq/sampler, PAF
+records, read-length distribution, checkpoint writer, corpus writer, the
+AEONS pool and the config schema) are copies at the mirrored paths.
 
 The update step's device work runs in four hand-written CUDA kernels under
 ``csrc/`` and the aligner's seeding in a fifth (built at first use by
 ``ops.kernels``), each beside a plain PyTorch version that CPU tensors
 take. Entry points: ``models.runs_sim.BossRunsSim`` (with precomputed PAFs
 or aligning live), ``models.experiment.BossRuns`` (the live experiment),
-``live.mapper.TorchMapperPlugin`` (the readfish-side mapper) and
-``python -m bossruns_torch --toml ...``. This package never imports JAX.
+``live.mapper.TorchMapperPlugin`` (the readfish-side mapper),
+``parallel.mesh.ShardedRunsEngine`` (the genome- and barcode-sharded
+update step over a mesh of devices or processes) and ``python -m
+bossruns_torch --toml ...``. This package never imports JAX.
 """

@@ -2,16 +2,20 @@
 
     python -m bossruns_torch --toml config.toml [--device cuda|cpu]
 
-The TOML schema is the JAX package's (``bossruns_tpu.config``, which
-imports no JAX; it needs pydantic, so it is imported here and nowhere in
-the library). As there, ``simulation.fq`` selects a simulation and
+The TOML schema is the JAX package's, in the port's copy ``config`` (it
+needs pydantic, so it is imported here and nowhere in the library). As there, ``simulation.fq`` selects a simulation and
 ``general.ref`` selects BOSS-RUNS; without ``general.ref`` the mode is the
 reference-free BOSS-AEONS. The port runs all four: the live RUNS
 experiment (``models.experiment.BossRuns``), the RUNS simulation
 (``models.runs_sim.BossRunsSim``), the live AEONS experiment
 (``aeons.core.BossAeons``) and the AEONS simulation
-(``aeons.simulation.BossAeonsSim``). A device mesh (``[tpu] mesh_* != 1``)
-raises NotImplementedError.
+(``aeons.simulation.BossAeonsSim``). ``[tpu] mesh_barcode`` and
+``mesh_genome`` shard the RUNS simulation's update step
+(``parallel.mesh.ShardedRunsEngine``); the live RUNS experiment and both
+AEONS modes ignore them, as in the JAX package. With ``BOSS_COORDINATOR``,
+``BOSS_NUM_PROCESSES`` and ``BOSS_PROCESS_ID`` set, each process is one rank
+of a ``torch.distributed`` group (``parallel.distributed.init_from_env``,
+NCCL on a card, one per rank, gloo on the CPU) and holds one shard.
 
 --device defaults to the CUDA card (``device.require_cuda``, which raises
 when there is none); the CPU runs only when asked for.
@@ -22,7 +26,8 @@ import argparse
 import logging
 import sys
 
-from .device import as_device, require_cuda
+from .device import as_device
+from .parallel import distributed
 
 logger = logging.getLogger("boss_torch")
 
@@ -32,7 +37,9 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device: cuda (default, needs a card) or cpu")
     ns, rest = parser.parse_known_args(argv)
-    from bossruns_tpu.config import Config
+    dev = as_device(distributed.rank_device(ns.device))
+    distributed.init_from_env(dev)
+    from .config import Config
 
     args = Config(parse=True, argv=rest).args
     # Config sets up the console and log-file handlers of the JAX package's
@@ -42,10 +49,6 @@ def main(argv=None) -> int:
     for h in src.handlers:
         logger.addHandler(h)
     sim = bool(args.simulation.fq)
-    if (args.tpu.mesh_barcode, args.tpu.mesh_genome) != (1, 1):
-        raise NotImplementedError(
-            "[tpu] mesh_* != 1: the multi-GPU engine is ROADMAP Queue 1 item 11")
-    dev = as_device(ns.device) if ns.device is not None else require_cuda()
 
     if not args.general.ref:
         if sim:
@@ -79,10 +82,13 @@ def main(argv=None) -> int:
             ploidy=args.optional.ploidy,
             accept_unmapped=args.simulation.accept_unmapped,
             resume=args.optional.resume,
+            mesh_shards=(args.tpu.mesh_barcode, args.tpu.mesh_genome),
             device=dev,
         )
         exp.run()
         logger.info("simulation finished")
+    if distributed.is_initialized():
+        distributed.close()
     return 0
 
 

@@ -6,6 +6,6 @@ strategies (``benefit``, kernel H7), the initial assembly, the repeat
 filter, the live experiment (``core.BossAeons``) and the simulation
 (``simulation.BossAeonsSim``). The host state and its algorithms — the
 sequence pool, the overlap store and classification, k-mer statistics and
-the unitig walk — import no JAX and are used from ``bossruns_tpu.aeons``
-as they are, so a checkpoint pickled by either package loads in the other.
+the unitig walk — are copies of the JAX package's host modules at the same
+paths, and a checkpoint pickled by either package loads in the other.
 """

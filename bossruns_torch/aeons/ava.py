@@ -22,13 +22,12 @@ import logging
 import numpy as np
 import torch
 
-from bossruns_tpu.io.paf import PafRecords
-
 from ..aligner import encode
 from ..aligner.host_seed import host_seed_candidates
 from ..aligner.index import _digest, _memo_get, build_index_cached
 from ..aligner.seed import CAND_FIELDS, DeviceIndex, anchor_budget, seed_candidates
 from ..device import as_device
+from ..io.paf import PafRecords
 
 logger = logging.getLogger("boss_torch")
 

@@ -8,32 +8,80 @@ accept/reject strategies over the current contigs. The overlap search
 (``ava``, kernel H6) and the strategies (``benefit``, kernel H7) run on the
 experiment's device; the pool, the overlap store, the fastq batches, the
 live sequencer, the read-length distribution and the metrics writer are the
-JAX package's host classes, so the pickled checkpoint holds the same
-classes and resumes in either package.
+port's copies of the JAX package's host classes. The checkpoint pickles
+them under the JAX package's module paths and the loader maps those paths
+to the copies, so a checkpoint resumes in either package and loading one
+imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import logging
 import pickle
+import pkgutil
 import shutil
 import time
 from pathlib import Path
 
 import numpy as np
 
-from bossruns_tpu.aeons.pool import LinkStore, SequencePool
-from bossruns_tpu.io.fastq import FastqBatch
-from bossruns_tpu.live.sequencer import LiveRun
-from bossruns_tpu.utils.checkpoint import MetricsWriter
-from bossruns_tpu.utils.readlen import ReadLengthDist
-
 from ..device import as_device
+from ..io.fastq import FastqBatch
+from ..live.sequencer import LiveRun
+from ..utils.checkpoint import MetricsWriter
 from ..utils.misc import make_output_dirs, write_strategy_npz
+from ..utils.readlen import ReadLengthDist
 from .assembly import initial_assembly, walk_unitigs
 from .ava import PoolIndex, find_overlaps, rows_to_records
 from .benefit import contig_strategies
+from .pool import LinkStore, SequencePool
 
 logger = logging.getLogger("boss_torch")
+
+#: modules of host classes that a checkpoint pickles; the port keeps copies
+#: of the JAX package's at the same paths
+_SHARED_MODULES = ("aeons.pool", "aeons.classify", "aeons.kmer", "io.paf", "io.fastq",
+                   "utils.readlen")
+
+
+def _shared(module: str, package: str) -> str | None:
+    """The path of ``module`` inside the package beside ``package``, if it
+    is one of the shared host modules."""
+    prefix = package + "."
+    if module.startswith(prefix) and module[len(prefix):] in _SHARED_MODULES:
+        return module[len(prefix):]
+    return None
+
+
+class _PackagePickler(pickle.Pickler):
+    """Pickles the shared host classes as ``pkgutil.resolve_name`` of their
+    JAX-package path, so a plain ``pickle.load`` in the JAX package loads
+    the port's checkpoints as its own."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, type):
+            sub = _shared(obj.__module__, "bossruns_torch")
+            if sub is not None:
+                return pkgutil.resolve_name, (f"bossruns_tpu.{sub}:{obj.__qualname__}",)
+        return NotImplemented
+
+
+def _resolve_port(name: str):
+    """``pkgutil.resolve_name`` with the JAX package's shared module paths
+    mapped to the port's copies."""
+    module, _, qual = name.partition(":")
+    sub = _shared(module, "bossruns_tpu")
+    return pkgutil.resolve_name(f"bossruns_torch.{sub}:{qual}" if sub else name)
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Loads a checkpoint of either package: the shared host classes resolve
+    to the port's copies, so nothing of the JAX package is imported."""
+
+    def find_class(self, module, name):
+        if (module, name) == ("pkgutil", "resolve_name"):
+            return _resolve_port
+        sub = _shared(module, "bossruns_tpu")
+        return super().find_class(f"bossruns_torch.{sub}" if sub else module, name)
 
 
 class BossAeons:
@@ -66,7 +114,7 @@ class BossAeons:
     # --------------------------------------------------------- live init ----
 
     def launch_live_components(self) -> None:
-        from bossruns_tpu.live.sequencer import Sequencer
+        from ..live.sequencer import Sequencer
 
         if self.args.live.device:
             LiveRun.launch_readfish(
@@ -266,7 +314,7 @@ class BossAeons:
                 self.repeat_filter.min_votes,
             )
         with open(tmp, "wb") as fh:
-            pickle.dump(data, fh)
+            _PackagePickler(fh).dump(data)
         tmp.rename(ckpt / "pool.pkl")
 
     def load_checkpoint(self) -> dict | None:
@@ -276,7 +324,7 @@ class BossAeons:
         if not path.exists():
             return None
         with open(path, "rb") as fh:
-            data = pickle.load(fh)
+            data = _PortUnpickler(fh).load()
         self.pool = data["pool"]
         self.strat = data["strat"]
         self.batch = data["batch"]

@@ -18,10 +18,9 @@ from pathlib import Path
 
 import numpy as np
 
-from bossruns_tpu.io.sampler import Sampler
-
 from ..aligner import make_aligner
 from ..io.paf import best_per_query
+from ..io.sampler import Sampler
 from ..models.layout import build_layout
 from ..models.runs_sim import MU, ReadCache
 from .assembly import initial_assembly

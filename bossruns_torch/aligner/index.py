@@ -207,7 +207,7 @@ def load_or_build_index(
         return build_index(seq_int, site_valid, k=k, w=w, max_occ=max_occ)
     from pathlib import Path
 
-    from bossruns_tpu.io.sampler import _atomic_np_write, _cache_fresh, _stamp_cache
+    from ..io.sampler import _atomic_np_write, _cache_fresh, _stamp_cache
 
     src = Path(source)
     cache = Path(f"{source}.minidx.npz")

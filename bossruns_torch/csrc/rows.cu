@@ -26,6 +26,20 @@
 //      f32-rounded fhat weights of the row.
 // f64 arithmetic on the decision path uses the _rn intrinsics so nvcc
 // cannot contract it into FMAs the reference does not do.
+//
+// H8, part 2: bk_shard_rows runs the same kernels for one shard of the
+// sharded step (bossruns_tpu/parallel/mesh.py:275-336, K11), one phase per
+// call, so the caller can reduce across shards in between:
+//   phase 0: row_sums over the shard's rows (per_contig and total are then
+//            summed over both mesh axes, winsums over the genome axis);
+//   phase 1: row_tables, replicated: the read-start scatter and the fhat
+//            normaliser see identical inputs on every shard and give
+//            identical results (aux[0], any bucket on, is then OR-ed over
+//            the barcode axis);
+//   phase 2: row_low, only with several barcode shards: the any-barcode
+//            low test of row_apply as its own launch, a per-site mask that
+//            is OR-ed over the barcode axis (mesh.py:296-297);
+//   phase 3: row_apply, reading that mask when it is given.
 #include <math.h>
 
 #include "common.cuh"
@@ -69,6 +83,9 @@ struct RowArgs {
     uint8_t* active_c;
     double* fhat_w;
     double* scale;
+    // per-site any-barcode low mask [G]: written by row_low, read by
+    // row_apply in place of its own test when not null
+    uint8_t* low;
 };
 
 namespace {
@@ -209,7 +226,10 @@ __global__ void row_apply(RowArgs a) {
             if (j < DS) {
                 int64_t g = row * DS + j;
                 bool low = false;
-                for (int64_t b = 0; b < a.nb; ++b) low |= (float)a.covsum[b * a.G + g] <= thr;
+                if (a.low != nullptr)
+                    low = a.low[g] != 0;
+                else
+                    for (int64_t b = 0; b < a.nb; ++b) low |= (float)a.covsum[b * a.G + g] <= thr;
                 drop[t] = low && act && a.site_valid[g];
                 ch[t] = a.changed[g] != 0;
             }
@@ -243,6 +263,17 @@ __global__ void row_apply(RowArgs a) {
     }
 }
 
+// any barcode of this shard at or below its contig's dropout threshold
+__global__ void row_low(RowArgs a) {
+    int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < a.G; g += stride) {
+        float thr = a.thr_c[a.contig_id_ds[g / DS]];
+        bool low = false;
+        for (int64_t b = 0; b < a.nb; ++b) low |= (float)a.covsum[b * a.G + g] <= thr;
+        a.low[g] = low ? 1 : 0;
+    }
+}
+
 }  // namespace
 
 BK_API int bk_row_stage(const RowArgs* args, void* stream) {
@@ -258,6 +289,36 @@ BK_API int bk_row_stage(const RowArgs* args, void* stream) {
     row_tables<<<1, 1024, 0, st>>>(a);
     BK_LAUNCHED();
     row_apply<<<bk_grid(Gd, 8), 256, 0, st>>>(a);
+    BK_LAUNCHED();
+    return 0;
+}
+
+BK_API int bk_shard_rows(const RowArgs* args, int phase, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    RowArgs a = *args;
+    int64_t Gd = a.G / DS;
+    switch (phase) {
+        case 0: {
+            BK_CHECK(cudaMemsetAsync(a.per_contig, 0, sizeof(unsigned long long) * a.n_c1, st));
+            BK_CHECK(cudaMemsetAsync(a.winsums, 0, sizeof(unsigned long long) * a.nb * a.nw_pad, st));
+            BK_CHECK(cudaMemsetAsync(a.total, 0, sizeof(unsigned long long), st));
+            dim3 grid_a((unsigned)((Gd + ROWS_A - 1) / ROWS_A), (unsigned)a.nb);
+            row_sums<<<grid_a, 256, 0, st>>>(a);
+            break;
+        }
+        case 1:
+            row_tables<<<1, 1024, 0, st>>>(a);
+            break;
+        case 2:
+            if (a.low == nullptr) return -1;
+            row_low<<<bk_grid(a.G, 256), 256, 0, st>>>(a);
+            break;
+        case 3:
+            row_apply<<<bk_grid(Gd, 8), 256, 0, st>>>(a);
+            break;
+        default:
+            return -1;
+    }
     BK_LAUNCHED();
     return 0;
 }

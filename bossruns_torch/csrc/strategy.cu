@@ -29,6 +29,23 @@
 //   5. the gated strategy write.
 // f64 arithmetic on the decision path uses the _rn intrinsics so nvcc
 // cannot contract it into FMAs the reference does not do.
+//
+// H8, part 3: bk_shard_benefit runs the same kernels for one shard of the
+// sharded step (bossruns_tpu/parallel/mesh.py:338-407, K11), one phase per
+// call, with the collectives in between:
+//   phase 0: scan_tiles over the shard's rows (the tile totals are then
+//            all-gathered over the genome axis, in global tile order);
+//   phase 1: scan_tile_prefix over the gathered totals (replicated) and
+//            scan_add of the shard's own tile prefixes: when the shard
+//            bounds fall on 4096-row tiles, the cumsum is bit-identical to
+//            the single-device scan (then [nb, halo] halos are exchanged
+//            with the neighbours and concatenated around it);
+//   phase 2: benefit_windows, reading the halo-extended cumsum at global
+//            rows (the max, any-nonzero and ubar0 are then reduced over
+//            both axes);
+//   phase 3: bin_benefit with the global norm (counts, fsum and ubar0 are
+//            summed over both axes);
+//   phase 4: threshold_scan (replicated) and the shard's strat_write.
 #include <math.h>
 
 #include "common.cuh"
@@ -62,6 +79,15 @@ struct StratArgs {
     int32_t* counts;
     double* fsum;
     double* ubar0;
+    // the cumsum that benefit_windows reads: ext + b*cs_stride + halo is
+    // the value at global row row0 (unsharded: ext = cs, no halo, row0 0)
+    int64_t row0, halo, cs_stride;
+    // tile totals whose exclusive prefix scan_add adds: n_tiles_g per
+    // barcode row, this array's tiles starting at tile0 (unsharded:
+    // tile_sums itself)
+    int64_t n_tiles_g, tile0;
+    const double* ext;
+    double* tiles_g;
 };
 
 namespace {
@@ -118,26 +144,27 @@ __global__ void scan_tiles(StratArgs a, int64_t n_tiles) {
     if (threadIdx.x == SCAN_THREADS - 1) a.tile_sums[b * n_tiles + t] = excl + run;
 }
 
-// 1b. exclusive prefix over the tile totals (few tiles: one thread each b)
-__global__ void scan_tile_prefix(StratArgs a, int64_t n_tiles) {
+// 1b. exclusive prefix over the tile totals (few tiles: one thread each b);
+// cs[b, 0] takes the prefix of this array's first tile
+__global__ void scan_tile_prefix(StratArgs a, double* tiles, int64_t n_tiles, int64_t tile0) {
     int64_t b = blockIdx.x;
     double run = 0.0;
     for (int64_t t = 0; t < n_tiles; ++t) {
-        double s = a.tile_sums[b * n_tiles + t];
-        a.tile_sums[b * n_tiles + t] = run;
+        double s = tiles[b * n_tiles + t];
+        tiles[b * n_tiles + t] = run;
         run += s;
     }
-    a.cs[b * (a.Gd + 1)] = 0.0;
+    a.cs[b * (a.Gd + 1)] = tiles[b * n_tiles + tile0];
 }
 
 // 1c. add each tile's prefix
-__global__ void scan_add(StratArgs a, int64_t n_tiles) {
+__global__ void scan_add(StratArgs a, const double* tiles, int64_t n_tiles, int64_t tile0) {
     int64_t n = a.nb * a.Gd;
     int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
         int64_t b = i / a.Gd, r = i - b * a.Gd;
-        int64_t t = r / TILE;
-        if (t > 0) a.cs[b * (a.Gd + 1) + 1 + r] += a.tile_sums[b * n_tiles + t];
+        int64_t t = tile0 + r / TILE;
+        if (t > 0) a.cs[b * (a.Gd + 1) + 1 + r] += tiles[b * n_tiles + t];
     }
 }
 
@@ -150,15 +177,17 @@ __global__ void benefit_windows(StratArgs a) {
     bool nz = false;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
         int64_t b = i / a.Gd, r = i - b * a.Gd;
-        const double* c = a.cs + b * (a.Gd + 1);
+        // c[k]: the cumsum at global row row0 + k, k in [-halo, Gd + halo]
+        const double* c = a.ext + b * a.cs_stride + a.halo - a.row0;
+        int64_t rg = a.row0 + r;
         int64_t se = a.seg_end[r], ss = a.seg_start[r];
-        double cr = c[r], cr1 = c[r + 1];
+        double cr = c[rg], cr1 = c[rg + 1];
         auto fwd = [&](int64_t w) {
-            int64_t hi = r + w < se ? r + w : se;
+            int64_t hi = rg + w < se ? rg + w : se;
             return __dsub_rn(c[hi], cr);
         };
         auto rev = [&](int64_t w) {
-            int64_t lo = r + 1 - w > ss ? r + 1 - w : ss;
+            int64_t lo = rg + 1 - w > ss ? rg + 1 - w : ss;
             return __dsub_rn(cr1, c[lo]);
         };
         double sf = fwd(a.mu_ds), sr = rev(a.mu_ds);
@@ -293,9 +322,9 @@ BK_API int bk_benefit_strategy(const StratArgs* args, void* stream) {
     BK_CHECK(cudaMemsetAsync(a.ubar0, 0, sizeof(double), st));
     scan_tiles<<<dim3((unsigned)n_tiles, (unsigned)a.nb), SCAN_THREADS, 0, st>>>(a, n_tiles);
     BK_LAUNCHED();
-    scan_tile_prefix<<<(unsigned)a.nb, 1, 0, st>>>(a, n_tiles);
+    scan_tile_prefix<<<(unsigned)a.nb, 1, 0, st>>>(a, a.tile_sums, n_tiles, 0);
     BK_LAUNCHED();
-    scan_add<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a, n_tiles);
+    scan_add<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a, a.tile_sums, n_tiles, 0);
     BK_LAUNCHED();
     benefit_windows<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a);
     BK_LAUNCHED();
@@ -304,6 +333,43 @@ BK_API int bk_benefit_strategy(const StratArgs* args, void* stream) {
     threshold_scan<<<1, 32, 0, st>>>(a);
     BK_LAUNCHED();
     strat_write<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a);
+    BK_LAUNCHED();
+    return 0;
+}
+
+BK_API int bk_shard_benefit(const StratArgs* args, int phase, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    StratArgs a = *args;
+    int64_t n_tiles = (a.Gd + TILE - 1) / TILE;
+    switch (phase) {
+        case 0:
+            BK_CHECK(cudaMemsetAsync(a.norm_bits, 0, sizeof(unsigned long long), st));
+            BK_CHECK(cudaMemsetAsync(a.any_nz, 0, sizeof(int32_t), st));
+            BK_CHECK(cudaMemsetAsync(a.counts, 0, sizeof(int32_t) * NBINS, st));
+            BK_CHECK(cudaMemsetAsync(a.fsum, 0, sizeof(double) * NBINS, st));
+            BK_CHECK(cudaMemsetAsync(a.ubar0, 0, sizeof(double), st));
+            scan_tiles<<<dim3((unsigned)n_tiles, (unsigned)a.nb), SCAN_THREADS, 0, st>>>(a, n_tiles);
+            break;
+        case 1:
+            if (a.tile0 < 0 || a.tile0 + n_tiles > a.n_tiles_g) return -1;
+            scan_tile_prefix<<<(unsigned)a.nb, 1, 0, st>>>(a, a.tiles_g, a.n_tiles_g, a.tile0);
+            BK_LAUNCHED();
+            scan_add<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a, a.tiles_g, a.n_tiles_g, a.tile0);
+            break;
+        case 2:
+            benefit_windows<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a);
+            break;
+        case 3:
+            bin_benefit<<<bk_grid(a.nb * a.Gd * 2, 256), 256, 0, st>>>(a);
+            break;
+        case 4:
+            threshold_scan<<<1, 32, 0, st>>>(a);
+            BK_LAUNCHED();
+            strat_write<<<bk_grid(a.nb * a.Gd, 256), 256, 0, st>>>(a);
+            break;
+        default:
+            return -1;
+    }
     BK_LAUNCHED();
     return 0;
 }

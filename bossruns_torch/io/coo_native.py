@@ -20,10 +20,9 @@ import re
 import numpy as np
 import torch
 
-from bossruns_tpu.io.coo import _pad_len
-
 from ..aligner import native as native_mod
 from ..models.layout import GenomeLayout
+from .coo import _pad_len
 
 _CIG_RE = re.compile(r"(\d+)([MIDNSHP=XB])")
 _OP_CODE = {"M": 0, "=": 0, "X": 0, "I": 1, "S": 1, "D": 2, "N": 2}

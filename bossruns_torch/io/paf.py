@@ -1,22 +1,91 @@
-"""PAF parsing for the port: ``bossruns_tpu.io.paf.parse_paf`` without JAX.
+"""PAF alignment records as columnar NumPy arrays + CIGAR -> coverage COO.
 
-The JAX package's parser reaches its native fast path through
-``bossruns_tpu.aligner``, whose package import pulls in JAX. This copy is
-the same code bound through the port's jax-free loader
-(``bossruns_torch.aligner.native``). The record type and the helpers that
-need no native code are re-exported from the JAX package unchanged.
+The reference models alignments as one Python object per line
+(the reference's boss/paf.py:12-75) and walks dicts of them in every hot loop.
+Here a PAF blob parses into one columnar ``PafRecords`` (struct-of-arrays):
+best-mapper selection, decision lookups and coverage conversion then become
+vectorised array ops, and the COO triplets the device consumes
+(site, symbol, barcode, weight) come straight out of the CIGAR expansion.
+
+CIGAR expansion semantics match CoverageConverter._parse_cigar
+(runs/sequences.py:744-794): M consumes read+target, D consumes target and
+counts as symbol 4 with quality 20, I consumes read only and is dropped,
+S/H are clipped. Reverse-strand reads contribute the reverse complement
+against the forward target coordinates.
 """
 from __future__ import annotations
 
-import ctypes
+import re
+from dataclasses import dataclass
 
 import numpy as np
 
-from bossruns_tpu.io.paf import PafRecords, alignment_coverage, best_per_query
+_CIG_RE = re.compile(r"(\d+)([MIDNSHP=XB])")
 
-from ..aligner import native as native_mod
+# symbol codes
+DEL_SYMBOL = 4
+DEL_QUAL = 20
 
-__all__ = ["PafRecords", "alignment_coverage", "best_per_query", "parse_paf"]
+_COMP = np.arange(256, dtype=np.uint8)
+for a, b in zip(b"ACGTacgt", b"TGCATGCA"):
+    _COMP[a] = b
+
+# read-base mapping: non-ACGT (N, ambiguity codes) -> 4, the same "no-call"
+# class as deletions. NOTE the reference's own read translation garbles such
+# bases into out-of-range ints (sequences.py:666-668 translates only ACGT,
+# then subtracts ord('0')) and would IndexError in its coverage scatter; any
+# defined behaviour is a superset. The reference-GENOME mapping (other -> 0,
+# reference.py:46-68) lives in models/layout.py and is intentionally
+# different.
+_BASE_LUT = np.full(256, 4, dtype=np.uint8)
+for i, b in enumerate(b"ACGT"):
+    _BASE_LUT[b] = i
+    _BASE_LUT[b + 32] = i
+
+_CIG_OP = np.zeros(256, dtype=np.uint8)
+_CIG_OP[ord("M")] = 1
+_CIG_OP[ord("=")] = 1
+_CIG_OP[ord("X")] = 1
+_CIG_OP[ord("D")] = 2
+_CIG_OP[ord("N")] = 2
+_CIG_OP[ord("I")] = 3
+_CIG_OP[ord("S")] = 4
+
+
+def revcomp(seq: str) -> str:
+    arr = np.frombuffer(seq.encode(), dtype=np.uint8)
+    return _COMP[arr][::-1].tobytes().decode()
+
+
+@dataclass
+class PafRecords:
+    """Columnar PAF records. ``cigars`` holds raw cg:Z strings, packed
+    uint32 arrays ((len<<4)|op, the TpuAligner's native format), or None."""
+
+    qname: np.ndarray   # object
+    qlen: np.ndarray    # int64
+    qstart: np.ndarray
+    qend: np.ndarray
+    rev: np.ndarray     # int8 (0 fwd / 1 rev)
+    tname: np.ndarray   # object
+    tlen: np.ndarray
+    tstart: np.ndarray
+    tend: np.ndarray
+    nmatch: np.ndarray
+    blocklen: np.ndarray
+    mapq: np.ndarray
+    align_score: np.ndarray  # AS:i
+    s1: np.ndarray
+    primary: np.ndarray      # tp:A == P
+    cigars: list
+
+    def __len__(self) -> int:
+        return self.qname.shape[0]
+
+    def row(self, i: int) -> dict:
+        return {f: getattr(self, f)[i] for f in (
+            "qname", "qlen", "qstart", "qend", "rev", "tname", "tlen",
+            "tstart", "tend", "mapq", "align_score")}
 
 
 def parse_paf(text: str | bytes, min_len: int = 1, primary_only: bool = True) -> PafRecords:
@@ -38,6 +107,8 @@ def parse_paf(text: str | bytes, min_len: int = 1, primary_only: bool = True) ->
     prims: list[int] = []
 
     def tag_val(rest: str, key: str) -> str | None:
+        # tags always follow a tab; find is one C substring search instead of
+        # splitting the (cigar-bearing) remainder into tag strings
         j = rest.find(key)
         if j < 0:
             return None
@@ -87,6 +158,10 @@ def _parse_paf_native(text: str | bytes, min_len: int, primary_only: bool) -> Pa
     """C fast path; None -> caller falls back to the Python line loop.
     Byte offsets from C index the decoded string directly, so the blob must
     be ASCII (PAF is; a non-ASCII name falls back)."""
+    import ctypes
+
+    from ..aligner import native as native_mod
+
     lib = native_mod._load()
     if not lib or not hasattr(lib, "parse_paf_blob"):
         return None
@@ -141,3 +216,76 @@ def _parse_paf_native(text: str | bytes, min_len: int, primary_only: bool) -> Pa
         align_score=nums[:, 9].copy(), s1=nums[:, 10].copy(),
         primary=flags[:, 1].copy(), cigars=cigars,
     )
+
+
+def best_per_query(rec: PafRecords) -> dict[str, int]:
+    """qname -> row index of its best mapping.
+
+    Tie-break like Paf.choose_best_mapper (boss/paf.py:709-722): max by
+    (mapq, AS); among full ties the record appearing last wins (stable
+    argsort + take-last).
+    """
+    n = len(rec)
+    if n == 0:
+        return {}
+    order = np.lexsort((np.arange(n), rec.align_score, rec.mapq))
+    best: dict[str, int] = {}
+    for i in order:
+        best[rec.qname[i]] = int(i)
+    return best
+
+
+def expand_cigar(cigar, seq_aln: str, qual_aln: str):
+    """Per-target-position (symbol, qual) arrays for one alignment.
+
+    cigar: a cg:Z string, or a packed uint32 array ((len<<4)|op, op 0=M
+    1=I 2=D — the TpuAligner's native format). seq_aln/qual_aln: the aligned
+    slice of the (strand-corrected) read, i.e. read[qstart:qend] on the
+    mapped strand. Returns (symbols uint8 [tspan], quals uint8 [tspan])
+    where symbol 4 marks a deletion.
+    """
+    if isinstance(cigar, np.ndarray):
+        lengths = (cigar >> 4).astype(np.int64)
+        rep = np.repeat((cigar & 0xF).astype(np.uint8), lengths)
+        consumes_read = rep != 2      # M, I
+        consumes_target = rep != 1    # M, D
+    else:
+        parts = _CIG_RE.findall(cigar)
+        lengths = np.array([int(p[0]) for p in parts], dtype=np.int64)
+        ops = _CIG_OP[np.frombuffer("".join(p[1] for p in parts).encode(), dtype=np.uint8)]
+        rep = np.repeat(ops, lengths)
+        consumes_read = rep != 2          # M, I, S
+        consumes_target = (rep == 1) | (rep == 2)
+
+    read_sym = _BASE_LUT[np.frombuffer(seq_aln.encode(), dtype=np.uint8)]
+    read_qual = np.frombuffer(qual_aln.encode(), dtype=np.uint8) - 33
+
+    sym = np.full(rep.shape[0], DEL_SYMBOL, dtype=np.uint8)
+    qual = np.full(rep.shape[0], DEL_QUAL, dtype=np.uint8)
+    n_read = int(consumes_read.sum())
+    sym[consumes_read] = read_sym[:n_read]
+    # no quality string (fasta input) -> fill 40, like the packed C path
+    qual[consumes_read] = read_qual[:n_read] if read_qual.size else 40
+    return sym[consumes_target], qual[consumes_target]
+
+
+def alignment_coverage(
+    rec: PafRecords, i: int, seq: str, qual: str
+) -> tuple[int, int, np.ndarray, np.ndarray]:
+    """(tstart, tend, symbols, quals) of record i given the read's sequence.
+
+    Handles reverse-strand reads by reverse-complementing the read and
+    mirroring the query interval (runs/sequences.py:706-716).
+    """
+    qs, qe, ql = int(rec.qstart[i]), int(rec.qend[i]), int(rec.qlen[i])
+    if rec.rev[i]:
+        seq = revcomp(seq)
+        qual = qual[::-1]
+        qs, qe = ql - qe, ql - qs
+    cigar = rec.cigars[i]
+    if cigar is None:
+        raise ValueError(f"record for {rec.qname[i]} has no cg:Z tag")
+    sym, q = expand_cigar(cigar, seq[qs:qe], qual[qs:qe] if qual else "")
+    ts, te = int(rec.tstart[i]), int(rec.tend[i])
+    assert sym.shape[0] == te - ts, (sym.shape[0], ts, te, rec.qname[i])
+    return ts, te, sym, q

@@ -17,15 +17,49 @@ they make the multi_* decisions reachable on repeat reads.
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 from pathlib import Path
-
-from bossruns_tpu.live.mapper import LIVE_MIN_LEN, Alignment, AlignmentData
 
 from ..device import as_device, require_cuda
 
 logger = logging.getLogger("boss_torch")
 
 __all__ = ["LIVE_MIN_LEN", "Alignment", "AlignmentData", "TorchMapperPlugin"]
+
+#: live chunks are ~400 bases; accept any alignment spanning at least this
+#: much target (mappy reports short hits too — the decision plane should
+#: see them, unlike the update plane's mu/2 floor)
+LIVE_MIN_LEN = 50
+
+
+@dataclass
+class Alignment:
+    """mappy.Alignment-compatible view of one record."""
+
+    ctg: str
+    r_st: int
+    r_en: int
+    strand: int  # readfish/mappy convention: 1 fwd, -1 rev
+    q_st: int
+    q_en: int
+    mapq: int
+    is_primary: bool
+
+
+class AlignmentData:
+    """Container with an .alignments attribute (readfish Result shape)."""
+
+    def __init__(self, alignments: list[Alignment]):
+        self.alignments = alignments
+
+    def __iter__(self):
+        return iter(self.alignments)
+
+    def __len__(self):
+        return len(self.alignments)
+
+    def __bool__(self):
+        return bool(self.alignments)
 
 
 class TorchMapperPlugin:

@@ -16,18 +16,17 @@ from pathlib import Path
 
 import numpy as np
 
-from bossruns_tpu.io import coo as coo_mod
-from bossruns_tpu.io.fastq import FastqBatch
-from bossruns_tpu.io.paf import PafRecords, best_per_query
-from bossruns_tpu.live.sequencer import LiveRun, Sequencer
-from bossruns_tpu.ops.model import make_model
-from bossruns_tpu.utils.readlen import ReadLengthDist
-
 from ..aligner import make_aligner
 from ..device import as_device
+from ..io import coo as coo_mod
 from ..io.coo_native import pack_batch
+from ..io.fastq import FastqBatch
+from ..io.paf import PafRecords, best_per_query
+from ..live.sequencer import LiveRun, Sequencer
+from ..ops.model import make_model
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.misc import make_output_dirs, write_strategy_npz
+from ..utils.readlen import ReadLengthDist
 from .layout import build_layout
 from .runs import RunsConfig, RunsEngine
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from bossruns_tpu.ops.model import ObservationModel, make_model
+from ..ops.model import ObservationModel, make_model
 
 from ..device import as_device
 from ..ops.genome_ops import (
@@ -133,24 +133,33 @@ class RunsEngine(nn.Module):
     def __init__(self, layout: GenomeLayout, model: ObservationModel | None = None,
                  config: RunsConfig = RunsConfig(), *, device):
         super().__init__()
+        consts = self._setup(layout, model, config)
+        dev = as_device(device)
+        self.device = dev
+        self.tables = ScoreTables(self.model, torch.float32, device=dev)
+        for name, (a, dtype) in consts.items():
+            self.register_buffer(name, torch.as_tensor(np.asarray(a), dtype=dtype).to(dev))
+
+    def _setup(self, layout: GenomeLayout, model: ObservationModel | None,
+               config: RunsConfig) -> dict:
+        """Host attributes of the engine; returns the genome constants as
+        {name: (numpy array, torch dtype)}, which the engine places."""
         if config.dtype != "float32" or config.benefit_dtype != "float64":
             raise NotImplementedError(
                 "the port implements dtype float32 scores with a float64 decision path"
             )
         if config.fhat_alpha != 1.0:
             raise NotImplementedError("the port implements fhat_alpha == 1.0 only")
-        dev = as_device(device)
-        self.device = dev
         self.layout = layout
         self.config = config
         self.model = model if model is not None else make_model(ploidy=1)
-        self.tables = ScoreTables(self.model, torch.float32, device=dev)
         self.tiny = float(np.finfo(np.float32).tiny)
         lay = layout
         self.nb = lay.n_barcodes
+        consts = {}
 
         def buf(name, a, dtype):
-            self.register_buffer(name, torch.as_tensor(np.asarray(a), dtype=dtype).to(dev))
+            consts[name] = (a, dtype)
 
         buf("seq", lay.seq_int.astype(np.int8), torch.int8)
         buf("site_valid", lay.site_valid(), torch.bool)
@@ -184,6 +193,7 @@ class RunsEngine(nn.Module):
         denom = np.append(lay.lengths * lay.n_barcodes, 1).astype(np.float32)
         buf("contig_denom", denom.astype(np.float64), torch.float64)
         self.n_real_sites = float(lay.lengths.sum())
+        return consts
 
     # ------------------------------------------------------------- state ----
 
@@ -196,6 +206,20 @@ class RunsEngine(nn.Module):
             read_starts=torch.zeros((lay.Wf_pad, 2), dtype=torch.float32, device=dev),
             strat=self.strat_valid[None, :, None].expand(self.nb, lay.Gd_pad, 2).contiguous(),
         )
+
+    def state_from_numpy(self, d: dict, device=None) -> GenomeState:
+        """State fields as NumPy (a checkpoint, or the JAX engine's state
+        through np.asarray) -> this engine's state on ``device`` (default:
+        the engine's)."""
+        from .convert import state_from_numpy
+
+        return state_from_numpy(d, self.device if device is None else device)
+
+    def state_numpy(self, state: GenomeState) -> dict[str, np.ndarray]:
+        """The state as a dict of NumPy arrays (a copy)."""
+        from .convert import state_to_numpy
+
+        return state_to_numpy(state)
 
     def make_params(self, approx_ccl, time_cost: float) -> StepParams:
         return StepParams(

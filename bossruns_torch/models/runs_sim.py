@@ -13,9 +13,10 @@ aligned live by the port's aligner (``aligner.make_aligner`` on the sim's
 device: seeding kernel H5 on CUDA) in two phases per batch: the mu-sized
 prefix pass decides, and only accepted reads get a full-length pass.
 
-``ReadCache``, ``SimOutcome`` and ``load_reference_contigs`` are ported
-here because the JAX module imports its engine, and so JAX, at its top.
-Mesh sharding is a later slice and raises NotImplementedError.
+With ``mesh_shards=(b, g)`` other than (1, 1) the update step runs in
+``parallel.mesh.ShardedRunsEngine`` (the classic flow only; ``gated=True``
+raises), on an in-process mesh or, after ``parallel.distributed.
+init_from_env``, one shard per process.
 """
 from __future__ import annotations
 
@@ -28,21 +29,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bossruns_tpu.io import coo as coo_mod
-from bossruns_tpu.io.coo import _pad_len
-from bossruns_tpu.io.fastq import read_fastx
-from bossruns_tpu.io.sampler import Sampler
-from bossruns_tpu.ops.model import make_model
-from bossruns_tpu.parallel.distributed import is_primary
-from bossruns_tpu.utils.checkpoint import MetricsWriter
-from bossruns_tpu.utils.readlen import ReadLengthDist
-
 from ..aligner import make_aligner
 from ..device import as_device
+from ..io import coo as coo_mod
+from ..io.coo import _pad_len
 from ..io.coo_native import EX_PAD, build_packed_runs, pack_batch, split_runs_rows
+from ..io.fastq import read_fastx
 from ..io.paf import PafRecords, best_per_query, parse_paf
-from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..io.sampler import Sampler
+from ..ops.model import make_model
+from ..parallel.distributed import is_primary
+from ..utils.checkpoint import MetricsWriter, load_checkpoint, save_checkpoint
 from ..utils.misc import make_output_dirs, random_id, write_strategy_npz
+from ..utils.readlen import ReadLengthDist
 from .convert import tensors_from_numpy
 from .experiment import AbundanceTracker
 from .layout import DS, FHAT_WINDOW, GenomeLayout, build_layout
@@ -165,14 +164,21 @@ class BossRunsSim:
         LAST mu bases, as the reference does).
 
         gated: the gated batch flow (default: on with precomputed PAFs, off
-        when aligning live; the gated flow needs both PAF record sets before
-        the decision and cannot take live alignments)."""
-        if tuple(mesh_shards) != (1, 1):
-            raise NotImplementedError(
-                "mesh_shards: the multi-GPU engine is ROADMAP Queue 1 item 11")
+        when aligning live or sharded; the gated flow needs both PAF record
+        sets before the decision and cannot take live alignments).
+
+        mesh_shards: (barcode_shards, genome_shards); other than (1, 1) the
+        update step runs in ``parallel.mesh.ShardedRunsEngine``: one shard
+        per rank when ``parallel.distributed.init_from_env`` joined a process
+        group, else all shards in this process on ``device``. Checkpoints
+        are written from the gathered state, by the primary rank."""
         live_align = not (paf_full and paf_trunc)
+        bshards, gshards = (int(x) for x in mesh_shards)
+        sharded = (bshards, gshards) != (1, 1)
         if gated and live_align:
             raise ValueError("gated=True needs precomputed PAFs (paf_full and paf_trunc)")
+        if gated and sharded:
+            raise ValueError("gated=True: the sharded step runs the classic flow only")
         self.device = as_device(device)
         self.name = name
         self.out_dir = make_output_dirs(name, out_base)
@@ -191,9 +197,22 @@ class BossRunsSim:
         rejects = set(reject_refs.split(",")) if reject_refs else set()
         self.layout: GenomeLayout = build_layout(
             contigs, n_barcodes=nb, reject_refs=rejects, min_len=min_contig_len,
+            align_chunks=gshards,
         )
         cfg = config or RunsConfig(reference_quirks=reference_quirks)
-        self.engine = RunsEngine(self.layout, make_model(ploidy=ploidy), cfg, device=self.device)
+        if sharded:
+            from ..parallel import mesh as mesh_mod
+            from ..parallel.distributed import is_initialized
+
+            if is_initialized():
+                mesh = mesh_mod.process_group_mesh(bshards, gshards, self.device)
+            else:
+                mesh = mesh_mod.make_mesh([self.device] * (bshards * gshards), bshards)
+            self.engine = mesh_mod.ShardedRunsEngine(self.layout, mesh, make_model(ploidy=ploidy),
+                                                     cfg)
+        else:
+            self.engine = RunsEngine(self.layout, make_model(ploidy=ploidy), cfg,
+                                     device=self.device)
         self.state = self.engine.init_state()
         self.rl_dist = ReadLengthDist()
         self.sampler = Sampler(
@@ -212,9 +231,10 @@ class BossRunsSim:
         self.metrics = MetricsWriter(self.out_dir)
         self.checkpoint_every = 10
         if resume:
-            restored = load_checkpoint(self.out_dir, self.device)
+            restored = load_checkpoint(self.out_dir, self.device, numpy=True)
             if restored is not None:
-                self.state, host, extra = restored
+                fields, host, extra = restored
+                self.state = self.engine.state_from_numpy(fields)
                 self.batch = int(host.get("batch", 0))
                 self.read_cache.time_boss = int(host.get("time_boss", 0))
                 self.read_cache.time_control = int(host.get("time_control", 0))
@@ -229,7 +249,7 @@ class BossRunsSim:
         self._prefetched = None
         # gated flow: both coverage sets upload during prefetch; only the
         # decision bits are uploaded on the critical path
-        self._gated = (not live_align) if gated is None else bool(gated)
+        self._gated = (not live_align and not sharded) if gated is None else bool(gated)
 
     def phase_p50_ms(self, last: int = 5) -> dict[str, float]:
         """Median per-phase wall time (ms) over the last N batches."""
@@ -594,7 +614,7 @@ class BossRunsSim:
         )
         if self.checkpoint_every and self.batch % self.checkpoint_every == 0:
             save_checkpoint(
-                self.out_dir, self.state,
+                self.out_dir, self.engine.state_numpy(self.state),
                 dict(batch=self.batch,
                      time_boss=self.read_cache.time_boss,
                      time_control=self.read_cache.time_control),

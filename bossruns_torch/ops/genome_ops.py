@@ -401,12 +401,9 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
     return scores_ds, fhat_exp
 
 
-def row_stage(**kw):
-    """H3: dropout, sticky zeroing, buckets and the read-start posterior.
-    Same arguments, in-place updates and results as ``row_stage_plain``."""
+def _check_rows(kw) -> None:
+    """Raise unless the arguments of an H3 launch are the tensors it takes."""
     scores = kw["scores"]
-    if scores.device.type == "cpu":
-        return row_stage_plain(**kw)
     if kw["fhat_alpha"] != 1.0:
         raise NotImplementedError("the row_stage kernel implements fhat_alpha == 1 only")
     dev = scores.device
@@ -435,49 +432,70 @@ def row_stage(**kw):
     n_rs = kw["rs_row"].shape[0]
     c(kw["rs_row"], "rs_row", torch.int32, (n_rs,), dev)
     c(kw["rs_strand"], "rs_strand", torch.int32, (n_rs,), dev)
-    gated = kw.get("rs_read") is not None
-    if gated:
+    if kw.get("rs_read") is not None:
         c(kw["rs_read"], "rs_read", torch.int32, (n_rs,), dev)
         c(kw["bits"], "bits", torch.uint8, None, dev)
     else:
         c(kw["rs_w"], "rs_w", torch.float32, (n_rs,), dev)
 
-    scores_ds = torch.empty((nb, Gd), dtype=torch.float64, device=dev)
-    fhat_exp = torch.empty((Gd, 2), dtype=torch.float64, device=dev)
-    i64 = torch.int64
-    scratch = dict(
+
+def row_workspace(scores, contig_denom, n_win_pad: int, read_starts, low: bool = False) -> dict:
+    """Outputs and scratch of H3 for ``scores`` [nb, G]: scores_ds, fhat_exp
+    and the per-contig, per-window and fhat tables; ``low`` adds the
+    per-site mask of the sharded step's low phase."""
+    nb, G = scores.shape
+    dev, i64 = scores.device, torch.int64
+    n_c1, wf = contig_denom.shape[0], read_starts.shape[0]
+    return dict(
+        scores_ds=torch.empty((nb, G // DS), dtype=torch.float64, device=dev),
+        fhat_exp=torch.empty((G // DS, 2), dtype=torch.float64, device=dev),
         per_contig=torch.empty(n_c1, dtype=i64, device=dev),
-        winsums=torch.empty(nb * kw["n_win_pad"], dtype=i64, device=dev),
+        winsums=torch.empty(nb * n_win_pad, dtype=i64, device=dev),
         total=torch.empty(1, dtype=i64, device=dev),
         thr_c=torch.empty(n_c1, dtype=torch.float32, device=dev),
         active_c=torch.empty(n_c1, dtype=torch.uint8, device=dev),
         fhat_w=torch.empty(wf * 2, dtype=torch.float64, device=dev),
         scale=torch.empty(1, dtype=torch.float64, device=dev),
+        low=torch.empty(G, dtype=torch.uint8, device=dev) if low else None,
     )
+
+
+def _row_struct(kw, ws) -> K.RowArgs:
+    nb, G = kw["scores"].shape
     n = kw["n_fhat"]
     alpha, p0 = kw["fhat_alpha"], kw["fhat_p0"]
     beta_denom = 1.0 / (2.0 * n - 1.0)
     bits = kw.get("bits")
-    a = K.RowArgs(
-        nb=nb, G=G, n_c1=n_c1, nw_pad=kw["n_win_pad"], nbk=nbk,
-        n_bits=0 if bits is None else bits.shape[0], n_rs=n_rs, wf=wf,
-        freeze_cov=kw["freeze_cov"], gated=int(gated),
+    return K.RowArgs(
+        nb=nb, G=G, n_c1=kw["contig_denom"].shape[0], nw_pad=kw["n_win_pad"],
+        nbk=kw["bucket_src"].shape[0], n_bits=0 if bits is None else bits.shape[0],
+        n_rs=kw["rs_row"].shape[0], wf=kw["read_starts"].shape[0],
+        freeze_cov=kw["freeze_cov"], gated=int(kw.get("rs_read") is not None),
         dropout_mod=float(kw["dropout_mod"]), dropout_min_mean=kw["dropout_min_mean"],
         bucket_threshold=kw["bucket_threshold"], pad0=0.0,
         c_denom0=2.0 * n * alpha, c_bn0=2.0 * n - 1.0,
         beta_denom=beta_denom if beta_denom != 0 else 1e-20,
         p0_bit=p0 / (p0 + (1.0 - p0)), alpha=alpha, on_target=kw["on_target"],
         n_real_sites=kw["n_real_sites"],
-        scores_ds=scores_ds.data_ptr(), fhat_exp=fhat_exp.data_ptr(),
         **{k: K.ptr(kw.get(k)) for k in (
             "covsum", "changed", "site_valid", "contig_id_ds", "contig_denom",
             "win_id_ds", "bucket_src", "bucket_valid", "rs_row", "rs_strand", "rs_w",
             "rs_read", "bits", "fhat_valid", "fhat_rows", "fhat_idx", "scores",
             "zeroed", "bucket_on", "read_starts", "aux")},
-        **{k: v.data_ptr() for k, v in scratch.items()},
+        **{k: K.ptr(v) for k, v in ws.items()},
     )
-    K.KERNELS["row_stage"](a, K.stream_ptr(scores))
-    return scores_ds, fhat_exp
+
+
+def row_stage(**kw):
+    """H3: dropout, sticky zeroing, buckets and the read-start posterior.
+    Same arguments, in-place updates and results as ``row_stage_plain``."""
+    scores = kw["scores"]
+    if scores.device.type == "cpu":
+        return row_stage_plain(**kw)
+    _check_rows(kw)
+    ws = row_workspace(scores, kw["contig_denom"], kw["n_win_pad"], kw["read_starts"])
+    K.KERNELS["row_stage"](_row_struct(kw, ws), K.stream_ptr(scores))
+    return ws["scores_ds"], ws["fhat_exp"]
 
 
 # ===================================================== H4: benefit_strategy ==
@@ -504,13 +522,10 @@ def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on
     return smu, benefit, res.threshold
 
 
-def benefit_strategy(**kw):
-    """H4: benefit windows, exponent-binned threshold and the gated strategy
-    write. Same arguments, in-place updates and results as
-    ``benefit_strategy_plain``."""
+def _check_benefit(kw) -> tuple[int, list[int]]:
+    """Raise unless the arguments of an H4 launch are the tensors it takes;
+    returns the bucket count and the 10 CCL windows (>= 1)."""
     scores_ds = kw["scores_ds"]
-    if scores_ds.device.type == "cpu":
-        return benefit_strategy_plain(**kw)
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
     c = K.check
@@ -526,6 +541,19 @@ def benefit_strategy(**kw):
     windows = [max(int(w), 1) for w in kw["windows"]]
     if len(windows) != 10:
         raise ValueError("expected 10 CCL windows")
+    return nbk, windows
+
+
+def benefit_strategy(**kw):
+    """H4: benefit windows, exponent-binned threshold and the gated strategy
+    write. Same arguments, in-place updates and results as
+    ``benefit_strategy_plain``."""
+    scores_ds = kw["scores_ds"]
+    if scores_ds.device.type == "cpu":
+        return benefit_strategy_plain(**kw)
+    dev = scores_ds.device
+    nb, Gd = scores_ds.shape
+    nbk, windows = _check_benefit(kw)
 
     f64 = torch.float64
     smu = torch.empty((nb, Gd, 2), dtype=f64, device=dev)
@@ -552,9 +580,365 @@ def benefit_strategy(**kw):
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
             "strat_valid", "strat", "aux")},
         **{k: v.data_ptr() for k, v in scratch.items()},
+        row0=0, halo=0, cs_stride=Gd + 1, n_tiles_g=n_tiles, tile0=0,
+        ext=scratch["cs"].data_ptr(), tiles_g=scratch["tile_sums"].data_ptr(),
     )
     K.KERNELS["benefit_strategy"](a, K.stream_ptr(scores_ds))
     return smu, benefit, threshold
+
+
+# ================================== H8: one shard of the sharded update step ==
+#
+# The sharded step (parallel/mesh.py) splits H1, H3 and H4 at the
+# collectives of bossruns_tpu/parallel/mesh.py:209 (K11). Each wrapper below
+# runs one shard, one phase per call, on the shard's blocks: coverage
+# [nb_l, 5, Gl], scores [nb_l, Gl], ds rows [nb_l, Gdl], with b0, g0 and row0
+# the shard's global barcode, site and ds-row offsets. Phases keep their
+# outputs in a workspace dict that the caller reduces across shards in
+# between. CPU tensors take the plain versions, CUDA tensors the kernels.
+
+ROW_PHASES = ("sums", "tables", "low", "apply")
+BENEFIT_PHASES = ("scan", "prefix", "windows", "bins", "threshold")
+#: rows per tile of H4's scan; the plain version scans a shard as one tile
+SCAN_TILE = 4096
+
+
+def local_run_indices(mr_bc, mr_g, mr_len, b0: int, g0: int, nb_l: int, Gl: int):
+    """Shard-local flat indices of the match-run start and end markers
+    (int64), with nb_l*Gl marking rows whose marker lies outside the shard.
+    Positions wrap in uint32 as in bossruns_tpu.parallel.mesh: a position
+    left of the shard wraps to a huge value and fails the ``< Gl`` test."""
+    oob = nb_l * Gl
+    bc_l = mr_bc.long() - b0
+    ln = widen(mr_len).long()
+    on_row = (bc_l >= 0) & (bc_l < nb_l) & (ln > 0)
+    g = widen(mr_g).long()
+    st_u = (g - g0) & 0xFFFFFFFF
+    en_u = (g + ln - g0) & 0xFFFFFFFF
+    idx_s = torch.where(on_row & (st_u < Gl), bc_l * Gl + st_u, oob)
+    idx_e = torch.where(on_row & (en_u < Gl), bc_l * Gl + en_u, oob)
+    return idx_s, idx_e
+
+
+def local_ex_indices(ex_bcsym, ex_g, b0: int, g0: int, nb_l: int, Gl: int):
+    """Shard-local flat indices ((bc_l*5 + sym)*Gl + g_l) of explicit
+    observations (int64), with nb_l*5*Gl marking rows outside the shard;
+    EX_PAD rows wrap to a huge local position and fail the ``< Gl`` test."""
+    oob = nb_l * 5 * Gl
+    bsym = widen(ex_bcsym).long()
+    bc_e = bsym // 5 - b0
+    g_ue = (widen(ex_g).long() - g0) & 0xFFFFFFFF
+    ok = (bc_e >= 0) & (bc_e < nb_l) & (g_ue < Gl)
+    return torch.where(ok, (bc_e * 5 + bsym % 5) * Gl + g_ue, oob)
+
+
+def shard_coverage_plain(coverage, seq, full: CovRows, b0: int, g0: int):
+    """Plain version of H8's coverage entry: ``coverage_update`` of one
+    shard (ungated), rows in global barcodes and positions. The markers of
+    ``local_run_indices`` plus a carry at the shard's first site: the runs
+    that start left of it and end in it or right of it, which the
+    replicated batch gives each shard directly (the JAX step all-gathers
+    the shards' net marker counts instead)."""
+    nb, _, G = coverage.shape
+    dev = coverage.device
+    oob = nb * G
+    idx_s, idx_e = local_run_indices(full.mr_bc, full.mr_g, full.mr_len, b0, g0, nb, G)
+    bounds = torch.zeros(oob + 1, dtype=torch.int64, device=dev)
+    bounds.index_add_(0, idx_s, torch.ones_like(idx_s))
+    bounds.index_add_(0, idx_e, -torch.ones_like(idx_e))
+    bounds = bounds[:oob].reshape(nb, G)
+    bc_l = full.mr_bc.long() - b0
+    g = widen(full.mr_g).long()
+    ln = widen(full.mr_len).long()
+    carried = (bc_l >= 0) & (bc_l < nb) & (ln > 0) & (g < g0) & (g + ln >= g0)
+    bounds[:, 0] += torch.bincount(bc_l[carried], minlength=nb)[:nb]
+    match = torch.cumsum(bounds, dim=1)
+    idx = local_ex_indices(full.ex_bcsym, full.ex_g, b0, g0, nb, G)
+    ex = torch.zeros(nb * 5 * G + 1, dtype=torch.int64, device=dev)
+    ex.index_add_(0, idx, torch.ones_like(idx))
+    ex = ex[:-1].reshape(nb, 5, G)
+    onehot = seq.long()[None, :] == torch.arange(5, device=dev)[:, None]
+    new = torch.clamp_max(widen(coverage).long() + ex + onehot[None] * match[:, None, :], 65535)
+    coverage.view(torch.int16).copy_((new - 65536 * (new > 32767)).to(torch.int16))
+    return (ex != 0).any(dim=1).any(dim=0) | (match != 0).any(dim=0)
+
+
+def shard_coverage(coverage, seq, full: CovRows, b0: int, g0: int):
+    """H8, coverage: add the batch's rows that fall in this shard's window
+    (barcodes [b0, b0+nb_l), sites [g0, g0+Gl)) into its coverage block in
+    place and return its changed [Gl] flags. Runs are clipped to the
+    window; per-base adds need no carry across shards."""
+    if coverage.device.type == "cpu":
+        return shard_coverage_plain(coverage, seq, full, b0, g0)
+    nb, _, G = coverage.shape
+    dev = coverage.device
+    K.check(coverage, "coverage", torch.uint16, (nb, 5, G))
+    K.check(seq, "seq", torch.int8, (G,), dev)
+    n_mr, n_ex = full.mr_len.shape[0], full.ex_g.shape[0]
+    K.check(full.mr_bc, "mr_bc", torch.uint8, (n_mr,), dev)
+    K.check(full.mr_g, "mr_g", torch.uint32, (n_mr,), dev)
+    K.check(full.mr_len, "mr_len", torch.uint16, (n_mr,), dev)
+    K.check(full.ex_bcsym, "ex_bcsym", torch.uint16, (n_ex,), dev)
+    K.check(full.ex_g, "ex_g", torch.uint32, (n_ex,), dev)
+    changed = torch.empty(G, dtype=torch.bool, device=dev)
+    match = torch.empty(nb * G, dtype=torch.int32, device=dev)
+    ex = torch.empty(nb * 5 * G, dtype=torch.int32, device=dev)
+    p = K.ptr
+    K.KERNELS["shard_coverage"](
+        p(full.mr_bc), p(full.mr_g), p(full.mr_len), n_mr, p(full.ex_bcsym), p(full.ex_g), n_ex,
+        p(seq), p(coverage), p(changed), p(match), p(ex), int(b0), int(g0), nb, G,
+        K.stream_ptr(coverage),
+    )
+    return changed
+
+
+def shard_rows_plain(phase: str, ws: dict, **kw) -> None:
+    """Plain version of H8's row entry: one phase of ``row_stage_plain`` on
+    one shard (arguments as row_stage's), its outputs in ``ws``
+    (``row_workspace``). sums: per_contig, winsums and total in int64;
+    tables: the dropout and fhat tables, bucket switches, read starts,
+    aux[0] and aux[3]; low: the any-barcode low mask; apply: the zeroing,
+    scores_ds and fhat_exp (reading ws["low"] when it exists)."""
+    f64 = torch.float64
+    scores, covsum = kw["scores"], kw["covsum"]
+    nb, G = scores.shape
+    Gd = G // DS
+    dev = scores.device
+    cid = kw["contig_id_ds"].long()
+    if phase == "sums":
+        covsum_ds = covsum.long().reshape(nb, Gd, DS).sum(dim=2)
+        ws["per_contig"].zero_().index_add_(0, cid, covsum_ds.sum(dim=0))
+        nw = kw["n_win_pad"]
+        win = kw["win_id_ds"].long()
+        row_off = torch.arange(nb, device=dev)[:, None] * nw
+        win_idx = torch.where((win >= 0)[None, :], win[None, :] + row_off, nb * nw)
+        sums = torch.zeros(nb * nw + 1, dtype=torch.int64, device=dev)
+        sums.index_add_(0, win_idx.reshape(-1), covsum_ds.reshape(-1))
+        ws["winsums"].copy_(sums[:-1])
+        ws["total"].copy_(covsum_ds.sum().reshape(1))
+    elif phase == "tables":
+        contig_mean = (ws["per_contig"].to(f64) / kw["contig_denom"]).float()
+        ws["thr_c"].copy_(torch.floor(contig_mean / kw["dropout_mod"]))
+        ws["active_c"].copy_(contig_mean > kw["dropout_min_mean"])
+        winsums = ws["winsums"].to(f64).reshape(nb, kw["n_win_pad"])
+        src = kw["bucket_src"].long()
+        wsum = winsums[:, torch.clamp_min(src, 0)]
+        bucket_mean = torch.where((src >= 0)[None, :], wsum / BUCKET, 0.0).float()
+        bucket_on = kw["bucket_on"]
+        bucket_on |= (bucket_mean >= kw["bucket_threshold"]) & kw["bucket_valid"][None, :]
+        aux = kw["aux"]
+        aux[0] = bucket_on.any().float()
+        read_starts = kw["read_starts"]
+        rs_read = kw.get("rs_read")
+        w = kw["rs_w"] if rs_read is None else _gate(rs_read, kw["bits"], True).float()
+        row, st = kw["rs_row"].long(), kw["rs_strand"].long()
+        ok = (row >= 0) & (row < read_starts.shape[0]) & (st >= 0) & (st < 2)
+        read_starts.view(-1).index_add_(0, (row * 2 + st)[ok], w[ok])
+        fhat_w = fhat_pointmass(read_starts.to(f64), kw["fhat_valid"], kw["n_fhat"],
+                                kw["fhat_alpha"], kw["fhat_p0"])
+        tot = torch.sum(fhat_w * kw["fhat_rows"][:, None])
+        ws["fhat_w"].copy_(fhat_w.reshape(-1))
+        ws["scale"].copy_(torch.where(tot > 0, kw["on_target"] / tot, 0.0).reshape(1))
+        aux[3] = (ws["total"].to(f64)[0] / kw["n_real_sites"]).float()
+    elif phase == "low":
+        thr_ds = ws["thr_c"][cid]
+        low = (covsum.float().reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
+        ws["low"].copy_(low.reshape(G))
+    elif phase == "apply":
+        if ws.get("low") is not None:
+            low = ws["low"].bool().reshape(Gd, DS)
+        else:
+            thr_ds = ws["thr_c"][cid]
+            low = (covsum.float().reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
+        active_ds = ws["active_c"].bool()[cid]
+        drop_site = (low & active_ds[:, None]).reshape(G) & kw["site_valid"]
+        recomputed = kw["changed"][None, :] & ~(covsum >= kw["freeze_cov"])
+        zeroed = kw["zeroed"]
+        zero = (zeroed & ~recomputed) | drop_site[None, :]
+        scores.masked_fill_(zero, 0.0)
+        zeroed.copy_(zero)
+        ws["scores_ds"].copy_(scores.reshape(nb, Gd, DS).sum(dim=2, dtype=f64))
+        fidx = kw["fhat_idx"].long()
+        fhat_w = ws["fhat_w"].reshape(-1, 2)
+        fhat_exp = torch.where((fidx >= 0)[:, None], fhat_w[torch.clamp_min(fidx, 0)], 0.0)
+        ws["fhat_exp"].copy_((fhat_exp * ws["scale"]).float().to(f64))
+    else:
+        raise ValueError(f"unknown row phase {phase!r}")
+
+
+def shard_rows(phase: str, ws: dict, **kw) -> None:
+    """H8, rows: one phase (``ROW_PHASES``) of H3 on one shard. Same
+    arguments, in-place updates and workspace as ``shard_rows_plain``."""
+    scores = kw["scores"]
+    if scores.device.type == "cpu":
+        return shard_rows_plain(phase, ws, **kw)
+    if phase not in ROW_PHASES:
+        raise ValueError(f"unknown row phase {phase!r}")
+    if phase == "low" and ws.get("low") is None:
+        raise ValueError("the low phase needs a workspace made with low=True")
+    _check_rows(kw)
+    K.KERNELS["shard_rows"](_row_struct(kw, ws), ROW_PHASES.index(phase),
+                            K.stream_ptr(scores))
+    return None
+
+
+def benefit_workspace(scores_ds) -> dict:
+    """Outputs and scratch of H8's benefit entry for scores_ds [nb_l, Gdl]:
+    the tile-local cumsum and its tile totals (H4's 4096-row tiles), smu,
+    benefit, the norm (f64, reduced as a max), any-nonzero,
+    the bins, ubar0 and the threshold. The caller adds ``tiles_g`` (the
+    gathered tile totals), ``tile0`` (this shard's first tile in it) and
+    ``ext`` (the halo-extended cumsum)."""
+    nb, Gd = scores_ds.shape
+    dev, f64 = scores_ds.device, torch.float64
+    n_tiles = -(-Gd // SCAN_TILE)
+    return dict(
+        cs=torch.empty((nb, Gd + 1), dtype=f64, device=dev),
+        tile_sums=torch.empty((nb, n_tiles), dtype=f64, device=dev),
+        smu=torch.empty((nb, Gd, 2), dtype=f64, device=dev),
+        benefit=torch.empty((nb, Gd, 2), dtype=f64, device=dev),
+        norm=torch.empty(1, dtype=f64, device=dev),
+        any_nz=torch.empty(1, dtype=torch.int32, device=dev),
+        counts=torch.empty(NBINS, dtype=torch.int32, device=dev),
+        fsum=torch.empty(NBINS, dtype=f64, device=dev),
+        ubar0=torch.empty(1, dtype=f64, device=dev),
+        threshold=torch.empty((), dtype=f64, device=dev),
+        tiles_g=None, tile0=0, ext=None,
+    )
+
+
+def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, fhat_exp,
+                        bucket_on, bucket_idx, strat_valid, strat, aux, mu_ds: int, windows,
+                        time_cost: float, row0: int, halo: int,
+                        reference_quirks: bool = False) -> None:
+    """Plain version of H8's benefit entry: one phase of
+    ``benefit_strategy_plain`` on one shard, its outputs in ``ws``
+    (``benefit_workspace``). seg_start/seg_end hold global ds rows; windows
+    are at most ``halo`` rows. scan: the cumsum of each SCAN_TILE-row tile
+    from zero, and the tile totals; prefix: add each tile's exclusive
+    prefix over the gathered totals (global tile order, summed
+    sequentially); windows: smu, benefit,
+    norm, any-nonzero and ubar0 from the halo-extended cumsum; bins: counts
+    and fsum against the (reduced) norm; threshold: the threshold scan and
+    the gated strategy write."""
+    f64 = torch.float64
+    nb, Gd = scores_ds.shape
+    n_tiles = ws["tile_sums"].shape[1]
+    if phase == "scan":
+        x = torch.zeros((nb, n_tiles * SCAN_TILE), dtype=f64, device=scores_ds.device)
+        x[:, :Gd] = scores_ds
+        cs = torch.cumsum(x.reshape(nb, n_tiles, SCAN_TILE), dim=2)
+        ws["cs"][:, 1:] = cs.reshape(nb, -1)[:, :Gd]  # column 0 is set by the prefix
+        ws["tile_sums"].copy_(cs[:, :, -1])
+        for k in ("norm", "any_nz", "counts", "fsum", "ubar0"):  # as the kernel's memsets
+            ws[k].zero_()
+    elif phase == "prefix":
+        # in place, as the kernel: the gathered totals become their
+        # exclusive prefix, summed sequentially in global tile order
+        tiles, t0 = ws["tiles_g"], ws["tile0"]
+        run = torch.zeros(nb, dtype=f64, device=tiles.device)
+        for t in range(tiles.shape[1]):
+            total = tiles[:, t].clone()
+            tiles[:, t] = run
+            run = run + total
+        pre = tiles[:, t0: t0 + n_tiles]
+        ws["cs"][:, 1:] += pre.repeat_interleave(SCAN_TILE, dim=1)[:, :Gd]
+        ws["cs"][:, 0] = pre[:, 0]
+    elif phase == "windows":
+        ext = ws["ext"]
+        dev = ext.device
+        rows_g = row0 + torch.arange(Gd, device=dev)
+        seg_s, seg_e = seg_start.long(), seg_end.long()
+        # a segment bound beyond the halo is never selected (a window stops
+        # inside the halo), so its clamped gather is a placeholder
+        off, last = halo - row0, ext.shape[1] - 1
+        cs_end = ext[:, torch.clamp(seg_e + off, 0, last)]
+        cs_start = ext[:, torch.clamp(seg_s + off, 0, last)]
+        base = ext[:, halo: halo + Gd]
+        base1 = ext[:, halo + 1: halo + 1 + Gd]
+
+        def fwd(w):
+            shifted = ext[:, halo + w: halo + w + Gd]
+            return torch.where(rows_g + w <= seg_e, shifted, cs_end) - base
+
+        def rev(w):
+            shifted = ext[:, halo + 1 - w: halo + 1 - w + Gd]
+            return base1 - torch.where(rows_g + 1 - w >= seg_s, shifted, cs_start)
+
+        smu = torch.stack([fwd(mu_ds), rev(mu_ds)], dim=-1)
+        ebf = CCL_WEIGHTS[0] * fwd(windows[0])
+        ebr = CCL_WEIGHTS[0] * rev(windows[0])
+        for k in range(1, 10):
+            ebf = ebf + CCL_WEIGHTS[k] * fwd(windows[k])
+            ebr = ebr + CCL_WEIGHTS[k] * rev(windows[k])
+        benefit = torch.clamp_min(torch.stack([ebf, ebr], dim=-1) - smu, 0.0)
+        ws["smu"].copy_(smu)
+        ws["benefit"].copy_(benefit)
+        ws["norm"].copy_(benefit.max().reshape(1))
+        ws["any_nz"].copy_((benefit > 0).any().reshape(1))
+        fhat_b = fhat_exp[None].expand_as(benefit)
+        ws["ubar0"].copy_(ubar0_partial(fhat_b, benefit if reference_quirks else smu, f64)
+                          .reshape(1))
+    elif phase == "bins":
+        benefit = ws["benefit"]
+        counts, fsum = bin_benefit(benefit, fhat_exp[None].expand_as(benefit), ws["norm"][0],
+                                   NBINS)
+        ws["counts"].copy_(counts)
+        ws["fsum"].copy_(fsum)
+    elif phase == "threshold":
+        threshold = threshold_from_bins(ws["counts"].to(f64), ws["fsum"], ws["norm"][0],
+                                        ws["ubar0"][0], time_cost, NBINS)
+        bidx = bucket_idx.long()
+        gate = bucket_on[:, torch.clamp_min(bidx, 0)] & (bidx >= 0)[None, :]
+        do_update = (aux[0] > 0) & (ws["any_nz"][0] > 0)
+        write = do_update & gate & strat_valid[None, :]
+        strat.copy_(torch.where(write[:, :, None], ws["benefit"] >= threshold, strat))
+        aux[1] = do_update.float()
+        aux[2] = threshold.float()
+        ws["threshold"].copy_(threshold)
+    else:
+        raise ValueError(f"unknown benefit phase {phase!r}")
+
+
+def shard_benefit(phase: str, ws: dict, **kw) -> None:
+    """H8, benefit: one phase (``BENEFIT_PHASES``) of H4 on one shard.
+    Same arguments, in-place updates and workspace as
+    ``shard_benefit_plain``."""
+    scores_ds = kw["scores_ds"]
+    if scores_ds.device.type == "cpu":
+        return shard_benefit_plain(phase, ws, **kw)
+    if phase not in BENEFIT_PHASES:
+        raise ValueError(f"unknown benefit phase {phase!r}")
+    dev = scores_ds.device
+    nb, Gd = scores_ds.shape
+    nbk, windows = _check_benefit(kw)
+    halo = int(kw["halo"])
+    if max(windows + [int(kw["mu_ds"])]) > max(halo, 1):
+        raise ValueError("the CCL windows must be at most halo rows")
+    ext, tiles = ws["ext"], ws["tiles_g"]
+    if phase == "prefix":
+        K.check(tiles, "tiles_g", torch.float64, (nb, tiles.shape[1]), dev)
+    if phase == "windows":
+        K.check(ext, "ext", torch.float64, (nb, Gd + 1 + 2 * halo), dev)
+    a = K.StratArgs(
+        nb=nb, Gd=Gd, nbk=nbk, mu_ds=int(kw["mu_ds"]),
+        quirks=int(kw.get("reference_quirks", False)),
+        win=(ctypes.c_int32 * 10)(*windows),
+        weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
+        tc=float(kw["time_cost"]) // 100,
+        **{k: kw[k].data_ptr() for k in (
+            "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
+            "strat_valid", "strat", "aux")},
+        **{k: ws[k].data_ptr() for k in (
+            "smu", "benefit", "threshold", "cs", "tile_sums", "any_nz", "counts", "fsum",
+            "ubar0")},
+        norm_bits=ws["norm"].data_ptr(),
+        row0=int(kw["row0"]), halo=halo, cs_stride=Gd + 1 + 2 * halo,
+        n_tiles_g=0 if tiles is None else tiles.shape[1], tile0=int(ws["tile0"]),
+        ext=K.ptr(ext), tiles_g=K.ptr(tiles),
+    )
+    K.KERNELS["shard_benefit"](a, BENEFIT_PHASES.index(phase), K.stream_ptr(scores_ds))
+    return None
 
 
 # ------------------------------------------------------------- host helper --

@@ -54,7 +54,7 @@ class RowArgs(ctypes.Structure):
             "rs_w", "rs_read", "bits", "fhat_valid", "fhat_rows", "fhat_idx",
             "scores", "zeroed", "bucket_on", "read_starts",
             "scores_ds", "fhat_exp", "aux",
-            "per_contig", "winsums", "total", "thr_c", "active_c", "fhat_w", "scale",
+            "per_contig", "winsums", "total", "thr_c", "active_c", "fhat_w", "scale", "low",
         )],
     ]
 
@@ -74,6 +74,8 @@ class StratArgs(ctypes.Structure):
             "threshold", "cs", "tile_sums", "norm_bits", "any_nz", "counts",
             "fsum", "ubar0",
         )],
+        *[(n, _I64) for n in ("row0", "halo", "cs_stride", "n_tiles_g", "tile0")],
+        ("ext", _P), ("tiles_g", _P),
     ]
 
 
@@ -139,6 +141,18 @@ KERNELS = {
     ),
     "aeons_strategy": Kernel(
         "aeons_strategy", "bk_aeons_strategy", [ctypes.POINTER(AeonsArgs), _P]
+    ),
+    # H8: the sharded step's entry points into H1, H3 and H4 (one shard, one
+    # phase per call; the collectives run between the calls)
+    "shard_coverage": Kernel(
+        "shard_coverage", "bk_shard_coverage",
+        [_P, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    ),
+    "shard_rows": Kernel(
+        "shard_rows", "bk_shard_rows", [ctypes.POINTER(RowArgs), ctypes.c_int, _P]
+    ),
+    "shard_benefit": Kernel(
+        "shard_benefit", "bk_shard_benefit", [ctypes.POINTER(StratArgs), ctypes.c_int, _P]
     ),
 }
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from bossruns_tpu.ops.model import ObservationModel
+from .model import ObservationModel
 
 from . import kernels as K
 from .genome_ops import widen

@@ -36,11 +36,25 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      and H7 launched, per-stage p50 times, and H7 exact against its plain
      version and the host path on the sim's final contigs;
  12. one live BossAeons.process_batch over two fastq files after an initial
-     assembly.
-Each driven path (4, 7, 8, 11, 12) runs with the launch counts set to 0
-just before it and read just after. The last three lines are the kernel
-table, the card and {"ok": true, "device": ...}. Nothing here imports JAX
-or the JAX package.
+     assembly;
+ 13. the sharded step's kernel H8 (the shard entry points of H1, H3 and
+     H4) against its plain versions, phase by phase, on shard (b 1, g 1)
+     of a (2, 4) in-process mesh over a human-chr1-sized genome
+     (248,956,422 sites, ploidy 2, two barcodes), with times of both;
+ 14. the sharded engine on a (1, 4) mesh, all shards on the card, against
+     the single-device engine on that genome with one barcode: 4 steps of
+     4000-read batches, bit-identical state, aux and threshold, the step
+     p50 and peak memory of each, and H8's launches in the sharded run
+     (whose shards have phase 13's shapes);
+ 15. a (2, 2) mesh with two barcodes on the 8.05 Mb genome against the
+     single engine, and BossRunsSim(mesh_shards=(1, 4)) over the corpus
+     of phase 4 against the unsharded sims (6 batches, every bit).
+Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15) runs with the
+launch counts set to 0 just before it and read just after. The last three
+lines are the kernel table (with each kernel's bound from the bytes it
+must move), the card and
+{"ok": true, "device": ...}. Nothing here imports JAX or the JAX package,
+and the run checks that neither was loaded.
 The port's decisions are held against the f64 NumPy oracle by
 tests/test_torch_engine.py (CPU) and tests/test_torch_cuda.py (on a card).
 """
@@ -105,11 +119,19 @@ def clone(d: dict) -> dict:
     return out
 
 
-def exact(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+def differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Where a and b differ (two NaNs, as in never-written scratch, agree)."""
     if a.dtype == torch.uint16:
         a, b = a.view(torch.int16), b.view(torch.int16)
-    if a.shape != b.shape or not torch.equal(a, b):
-        n = int((a != b).sum()) if a.shape == b.shape else -1
+    d = a != b
+    if a.is_floating_point():
+        d &= ~(torch.isnan(a) & torch.isnan(b))
+    return d
+
+
+def exact(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.shape != b.shape or bool(differ(a, b).any()):
+        n = int(differ(a, b).sum()) if a.shape == b.shape else -1
         raise AssertionError(f"{name}: kernel and plain differ ({n} elements)")
 
 
@@ -117,10 +139,157 @@ def max_abs_err(*pairs) -> float:
     """Largest |a - b| over pairs of same-shape tensors, in f64."""
     worst = 0.0
     for a, b in pairs:
+        d = differ(a, b)
+        if not bool(d.any()):
+            continue
         if a.dtype == torch.uint16:
             a, b = (x.view(torch.int16).to(torch.int32) & 0xFFFF for x in (a, b))
-        worst = max(worst, float((a.to(torch.float64) - b.to(torch.float64)).abs().max()))
+        worst = max(worst, float((a.to(torch.float64) - b.to(torch.float64))[d].abs().max()))
     return worst
+
+
+def nbytes(*objs) -> int:
+    """Bytes of the distinct tensors in objs (nested tuples, lists, dicts
+    and objects' attributes): each counted once."""
+    seen, total = set(), 0
+
+    def walk(o):
+        nonlocal total
+        if isinstance(o, torch.Tensor):
+            key = (o.data_ptr(), o.numel(), o.dtype)
+            if key not in seen:
+                seen.add(key)
+                total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+        elif hasattr(o, "__dict__") and not isinstance(o, type):
+            walk(vars(o))
+
+    for o in objs:
+        walk(o)
+    return total
+
+
+#: HBM rate of one H100 SXM (NVIDIA's data sheet, 700 W)
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+
+
+def bound(bytes_moved: int) -> dict:
+    """The least time the card could take to move the bytes a function
+    must read and write once, from the HBM rate. Every kernel here does a
+    few operations per byte (integer adds, compares, f64 adds), far below
+    the card's operations-per-byte line, so bytes bound them."""
+    return dict(bytes=int(bytes_moved), bound_ms=bytes_moved / HBM_BYTES_PER_MS, bound_by="bytes")
+
+
+def deep_clone(o):
+    """Copies of every tensor in o (dicts, lists, tuples, NamedTuples)."""
+    if isinstance(o, torch.Tensor):
+        return o.clone()
+    if isinstance(o, dict):
+        return {k: deep_clone(v) for k, v in o.items()}
+    if isinstance(o, tuple) and hasattr(o, "_fields"):
+        return type(o)(*[deep_clone(v) for v in o])
+    if isinstance(o, (list, tuple)):
+        return type(o)(deep_clone(v) for v in o)
+    return o
+
+
+SHARD_KERNELS = ("shard_coverage", "shard_rows", "shard_benefit")
+#: in-place keyword tensors of H8's phased entry points, besides their
+#: workspace (shard_coverage writes its positional coverage and returns changed)
+SHARD_WRITES = {"shard_rows": ("scores", "zeroed", "bucket_on", "read_starts", "aux"),
+                "shard_benefit": ("strat", "aux")}
+
+
+class ShardProbe:
+    """ShardedRunsEngine.probe: before each H8 call of the chosen shards,
+    runs the kernel and its plain version on copies of the arguments,
+    compares them, and (with ``timed``) times both with CUDA events.
+
+    Everything is exact except the f64 sums of non-integers (``_approx``),
+    which other summation orders move by ulps of the running total: there
+    the bar is rtol 1e-12 + 256 eps * the largest value (the bar of the H4
+    check). Inputs of each phase are the engine's
+    own, so the decision phases are compared exactly given equal inputs."""
+
+    def __init__(self, shards, timed: bool = True):
+        self.shards = set(shards)
+        self.timed = timed
+        self.err = {k: 0.0 for k in SHARD_KERNELS}
+        self.ms = {k: 0.0 for k in SHARD_KERNELS}
+        self.plain_ms = {k: 0.0 for k in SHARD_KERNELS}
+        self.read = {k: {} for k in SHARD_KERNELS}
+        self.written = {k: {} for k in SHARD_KERNELS}
+        self.calls = []
+
+    def _tally(self, name, args, kw, outs):
+        def add(d, t):
+            if isinstance(t, torch.Tensor):
+                d[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
+
+        ins = [v for v in (*args, *kw.values()) if not isinstance(v, dict)]
+        for t in ins:
+            for x in (t if isinstance(t, (list, tuple)) else [t]):
+                add(self.read[name], x)
+        for t in outs:
+            add(self.written[name], t)
+
+    @staticmethod
+    def _approx(name, phase, key, t) -> bool:
+        """The f64 sums of non-integers, which other orders move by ulps:
+        the benefit phases' scan, windows and bins, and H3's fhat
+        normaliser (a fixed-order block reduction against torch.sum)."""
+        if t.dtype != torch.float64:
+            return False
+        if name == "shard_benefit":
+            return phase in ("scan", "prefix", "windows", "bins")
+        return name == "shard_rows" and phase == "tables" and key == "scale"
+
+    def bytes(self, name) -> int:
+        return sum(self.read[name].values()) + sum(self.written[name].values())
+
+    def __call__(self, fn, i, args, kw):
+        from bossruns_torch.ops import genome_ops as gops
+
+        name = fn.__name__
+        if name not in SHARD_KERNELS or i not in self.shards:
+            return
+        plain = getattr(gops, name + "_plain")
+        a1, k1, a2, k2 = deep_clone(args), deep_clone(kw), deep_clone(args), deep_clone(kw)
+        o1 = fn(*a1, **k1)
+        o2 = plain(*a2, **k2)
+        torch.cuda.synchronize()
+        phase = a1[0] if name != "shard_coverage" else "all"
+        if name == "shard_coverage":
+            pairs = [("coverage", a1[0], a2[0], True), ("changed", o1, o2, True)]
+            outs = [args[0], o1]
+        else:
+            ws = a1[1]
+            pairs = [(k, v, a2[1][k], not self._approx(name, phase, k, v))
+                     for k, v in ws.items() if isinstance(v, torch.Tensor)]
+            pairs += [(k, k1[k], k2[k], True) for k in SHARD_WRITES[name]]
+            outs = [*ws.values(), *(kw.get(k) for k in SHARD_WRITES[name])]
+        for k, x, y, want_exact in pairs:
+            if want_exact:
+                exact(f"{name} {phase} {k} (shard {i})", x, y)
+            elif bool(differ(x, y).any()):
+                d = differ(x, y)
+                e = (x - y).abs()[d]
+                tol = (1e-12 * y.abs() + 256 * np.finfo(np.float64).eps
+                       * float(y[~torch.isnan(y)].abs().max()))[d]
+                if not bool((e <= tol).all()):
+                    raise AssertionError(f"{name} {phase} {k} (shard {i}): max err {float(e.max())}")
+            self.err[name] = max(self.err[name], max_abs_err((x, y)))
+        self._tally(name, args, kw, outs)
+        if self.timed:
+            self.ms[name] += time_ms(lambda: fn(*a1, **k1), reps=5, warm=1)
+            self.plain_ms[name] += time_ms(lambda: plain(*a2, **k2), reps=3, warm=1)
+        self.calls.append((name, phase, i))
 
 
 def build_inputs(rng):
@@ -219,7 +388,8 @@ def check_kernels(dev, card: str) -> dict:
     ak, ap = clone(args), clone(args)
     res["coverage_update"] = dict(
         ms=time_ms(lambda: gops.coverage_update(**ak)),
-        plain_ms=time_ms(lambda: gops.coverage_update_plain(**ap)), max_abs_err=h1_err)
+        plain_ms=time_ms(lambda: gops.coverage_update_plain(**ap)), max_abs_err=h1_err,
+        **bound(nbytes(args) + nbytes(args["coverage"], ch_k)))
 
     # the stages below take the kernel outputs of the stage before
     changed = gops.coverage_update(**eng.coverage_args(state, full))
@@ -236,7 +406,8 @@ def check_kernels(dev, card: str) -> dict:
         raise AssertionError(f"H2 scores outside rtol 1e-5 / atol 1e-6: max err {float(err.max())}")
     res["site_scores"] = dict(ms=time_ms(lambda: sc.site_scores(**args)),
                               plain_ms=time_ms(lambda: sc.site_scores_plain(**args)),
-                              max_abs_err=float(err.max()))
+                              max_abs_err=float(err.max()),
+                              **bound(nbytes(args) + nbytes(s_k, cs_k)))
     log(f"H2 site_scores: covsum exact, scores max abs err {float(err.max()):.3g} "
         "(rtol 1e-5, atol 1e-6: same f32 closed form, other summation order)")
 
@@ -266,7 +437,10 @@ def check_kernels(dev, card: str) -> dict:
     gk, gp = clone(args), clone(args)
     res["row_stage"] = dict(ms=time_ms(lambda: gops.row_stage(**gk)),
                             plain_ms=time_ms(lambda: gops.row_stage_plain(**gp)),
-                            max_abs_err=h3_err)
+                            max_abs_err=h3_err,
+                            **bound(nbytes(args) + nbytes(
+                                ds_k, fe_k, *(args[k] for k in ("scores", "zeroed", "bucket_on",
+                                                               "read_starts", "aux")))))
 
     # H4: windows within tolerance; threshold and strat exact given equal inputs
     args = eng.benefit_args(state, ds_k, fe_k, ak["aux"], params)
@@ -300,7 +474,8 @@ def check_kernels(dev, card: str) -> dict:
     ck, cp = clone(args), clone(args)
     res["benefit_strategy"] = dict(
         ms=time_ms(lambda: gops.benefit_strategy(**ck)),
-        plain_ms=time_ms(lambda: gops.benefit_strategy_plain(**cp)), max_abs_err=worst)
+        plain_ms=time_ms(lambda: gops.benefit_strategy_plain(**cp)), max_abs_err=worst,
+        **bound(nbytes(args) + nbytes(smu_k, ben_k, thr_k, args["strat"], args["aux"])))
 
     # the whole device step (host clock around step + the aux pull)
     st_times = []
@@ -396,7 +571,7 @@ def run_slice(dev, card: str, work: Path, paths: dict) -> dict:
         raise AssertionError(f"a kernel of the classic sim never launched: {classic}")
     csim.cleanup()
 
-    return dict(launches=launches, phase=phase, sim_s=sim_s)
+    return dict(launches=launches, phase=phase, sim_s=sim_s, snaps=snaps)
 
 
 def read_corpus_reads(paths: dict, n: int) -> dict:
@@ -455,7 +630,7 @@ def check_seed_kernel(dev, card: str, paths: dict, seqs: dict) -> dict:
             log(f"H5 seed_topn k{k} w{w} {label} L={L} R={len(reads)} budget {b}: all 24 rows exact, "
                 f"candidate 0 voted >= 3 for {mapped:.3f} of reads; kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms [{card}]")
-            res[(k, w, label)] = dict(ms=ms, plain_ms=plain_ms)
+            res[(k, w, label)] = dict(ms=ms, plain_ms=plain_ms, **bound(nbytes(x, di) + nbytes(got)))
     # the main path's shape: the sim's decision pass (k13/w5, prefixes)
     return dict(res[(13, 5, "prefixes")], max_abs_err=worst)
 
@@ -650,7 +825,7 @@ def check_ava(dev, card: str) -> dict:
         log(f"H6 seed_candidates L={L} R={len(q)} tol {tol}: all 48 entries of every row exact, "
             f"{hit:.3f} of reads with a cluster of >= 4 votes; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms [{card}]")
-        res[L] = dict(ms=ms, plain_ms=plain_ms)
+        res[L] = dict(ms=ms, plain_ms=plain_ms, **bound(nbytes(x, di) + nbytes(got)))
         queries = {r.rid: r.seq for r in q}
         find_overlaps(queries, pidx)  # warm-up
         td, th = [], []
@@ -726,7 +901,8 @@ def check_aeons_strategy(dev, card: str) -> dict:
                 f"{plain_ms:.4f} ms, host path {1000 * statistics.median(hs):.2f} ms; "
                 f"contig_strategies device {1000 * statistics.median(ed):.1f} ms, host "
                 f"{1000 * statistics.median(eh):.1f} ms [{card}]")
-            res[(n_contigs, hi)] = dict(ms=ms, plain_ms=plain_ms)
+            res[(n_contigs, hi)] = dict(ms=ms, plain_ms=plain_ms,
+                                        **bound(nbytes(args) + nbytes(mk, bk)))
     # the main path's shape is a few small contigs; report the 8 Mb pool
     return dict(res[(40, 22)], max_abs_err=worst)
 
@@ -848,6 +1024,281 @@ def run_aeons_live(dev, card: str, work: Path, paths: dict) -> None:
         f"{time.perf_counter() - t0:.2f} s, {len(exp.strat)} contigs; launches {launches} [{card}]")
 
 
+# ------------------------------------------- the sharded engine (K11 -> H8) --
+
+#: GRCh38 chr1's length, in two contigs of equal halves (BASELINE config 3)
+CHR1_SITES = 248_956_422
+CHR1 = {"chr1p": CHR1_SITES // 2, "chr1q": CHR1_SITES - CHR1_SITES // 2}
+N_CHR_STEPS = 4
+
+
+def chrom_batches(rng, layout, n_batches: int, hot: tuple, hot_share: float, nb: int):
+    """4000-read batches (mean 3500, 5% errors) on the chromosome layout:
+    ``hot_share`` of the reads start in the global window ``hot``, which
+    straddles a shard edge; the rest are uniform over the contigs."""
+    from bossruns_torch.io.coo_native import pad_split, split_runs
+
+    lens = layout.lengths
+    out = []
+    for _ in range(n_batches):
+        rlen = np.clip(rng.normal(MEAN_LEN, 2000, N_READS), 400, 20000).astype(np.int64)
+        n_hot = int(N_READS * hot_share)
+        cid = rng.choice(len(lens), N_READS - n_hot, p=lens / lens.sum())
+        uni = layout.offsets[cid] + (rng.random(N_READS - n_hot) * (lens[cid] - rlen[n_hot:]))
+        hs = hot[0] + rng.random(n_hot) * (hot[1] - hot[0] - rlen[:n_hot])
+        rstart = np.concatenate([hs, uni]).astype(np.int64)
+        pos = np.concatenate([s0 + np.arange(n) for s0, n in zip(rstart, rlen)])
+        sym = layout.seq_int[pos].astype(np.int8)
+        flip = rng.random(pos.shape[0]) < 0.05
+        sym[flip] = rng.integers(0, 5, int(flip.sum()))
+        split = split_runs(layout, sym, np.full(pos.shape[0], 40, np.int8), rstart,
+                           rlen.astype(np.int32), rng.integers(0, nb, N_READS).astype(np.int32))
+        out.append(dict(pad_split(split),
+                        rs_row=rng.integers(0, layout.n_fhat, N_READS).astype(np.int32),
+                        rs_strand=rng.integers(0, 2, N_READS).astype(np.int32),
+                        rs_w=np.ones(N_READS, np.float32)))
+    return out
+
+
+def chrom_genome(rng) -> dict:
+    return {n: rng.integers(0, 4, L, dtype=np.uint8) for n, L in CHR1.items()}
+
+
+def check_shard_kernels(dev, card: str, genome: dict) -> dict:
+    """Phase 13: H8's entry points against their plain versions on shard
+    (b 1, g 1) of a (2, 4) mesh over the chromosome with two barcodes (so
+    the barcode-axis reductions of changed and the low mask run), with the
+    halo and offsets of an inner shard, and times of both. Each shard holds
+    one barcode over G_pad / 4 sites, the shapes of phase 14's shards."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.ops.model import make_model
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    t0 = time.perf_counter()
+    layout = build_layout(genome, n_barcodes=2, align_chunks=4)
+    eng = ShardedRunsEngine(layout, make_mesh([dev] * 8, barcode_shards=2), make_model(ploidy=2))
+    Gl = eng.Gl
+    rng = np.random.default_rng(13)
+    # every read in a 2 Mb window across the edge of genome shards 0 and 1:
+    # ~3.5x per barcode and step, so the buckets there switch on in step 2
+    batches = chrom_batches(rng, layout, 2, (Gl - 1_000_000, Gl + 1_000_000), 1.0, 2)
+    target = next(i for i, sh in enumerate(eng.shards) if (sh.b, sh.g) == (1, 1))
+    log(f"H8 check: {layout.G_pad} sites, mesh {eng.mesh.shape}, shard (1, 1): Gl {Gl}, "
+        f"Gdl {eng.Gdl}, halo {eng.halo}, g0 {eng.shards[target].g0}; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state = eng.init_state()
+    params = eng.make_params(CCL, TIME_COST)
+    state, _ = eng.step(state, batch_from_numpy(batches[0], dev), params)
+    probe = ShardProbe([target])
+    eng.probe = probe
+    state, aux = eng.step(state, batch_from_numpy(batches[1], dev), params)
+    eng.probe = None
+    torch.cuda.synchronize()
+    ah = eng.pull_aux(aux)
+    seen = sorted({(n, ph) for n, ph, _ in probe.calls})
+    if len(seen) != 1 + 4 + 5:
+        raise AssertionError(f"H8 check: phases seen {seen}")
+    res = {}
+    for k in SHARD_KERNELS:
+        res[k] = dict(ms=probe.ms[k], plain_ms=probe.plain_ms[k], max_abs_err=probe.err[k],
+                      **bound(probe.bytes(k)))
+        log(f"H8 {k} (shard (1, 1), all phases): exact vs plain"
+            f"{'' if k == 'shard_coverage' else ' (f64 sums of non-integers within rtol 1e-12 + 256 eps of the total)'}"
+            f", max abs err {probe.err[k]:.3g}; kernel {probe.ms[k]:.4f} ms, plain "
+            f"{probe.plain_ms[k]:.4f} ms, bound {res[k]['bound_ms']:.4f} ms "
+            f"({res[k]['bytes']} bytes) [{card}]")
+    log(f"H8 check state: any_on={ah.any_on} updated={ah.updated} threshold={ah.threshold!r}")
+    if not ah.any_on:
+        raise AssertionError("H8 check: buckets never switched on")
+    return res
+
+
+def _run_engine(make, batches, dev) -> dict:
+    """Build an engine with ``make()`` and step it over device batches:
+    per-step host-clock times (step + aux pull), per-step aux and
+    thresholds, and its peak memory (constants, state and the steps'
+    scratch) above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = make()
+    params = eng.make_params(CCL, TIME_COST)
+    state = eng.init_state()
+    times, auxes = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = eng.step(state, b, params)
+        ah = eng.pull_aux(aux)
+        times.append((time.perf_counter() - t0) * 1000.0)
+        auxes.append((aux.vec.clone(), float(aux.threshold), ah))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return dict(engine=eng, state=state, times=times, auxes=auxes, peak=peak)
+
+
+def coverage_checksum(parts) -> int:
+    """Sum over sites of coverage * (site % 1021 + 1) in int64 (a checksum
+    that moves with any count at any position)."""
+    total = 0
+    for cov, g0 in parts:
+        w = (torch.arange(cov.shape[-1], device=cov.device, dtype=torch.int64) + g0) % 1021 + 1
+        total += int(((cov.view(torch.int16).to(torch.int64) & 0xFFFF) * w).sum())
+    return total
+
+
+def compare_engines(what: str, s_res, m_res) -> None:
+    """Every state field and every step's aux and threshold, bit for bit."""
+    sharded = m_res["engine"]
+    for i, ((v1, t1, _), (v2, t2, _)) in enumerate(zip(s_res["auxes"], m_res["auxes"])):
+        if t1 != t2 or not torch.equal(v1, v2):
+            raise AssertionError(f"{what} step {i}: threshold {t2!r} vs single {t1!r}, "
+                                 f"aux {v2.tolist()} vs {v1.tolist()}")
+    ss, ms = s_res["state"], m_res["state"]
+    for i, sh in enumerate(sharded.shards):
+        for k, idx in sharded._blocks(sh.b, sh.g).items():
+            exact(f"{what} {k} shard {(sh.b, sh.g)}", getattr(ms, k)[i], getattr(ss, k)[idx])
+
+
+def run_chromosome(dev, card: str, genome: dict) -> dict:
+    """Phase 14: the sharded engine on a (1, 4) in-process mesh, all shards
+    on the card, against the single-device engine at human-chr1 scale
+    (248,956,422 sites, ploidy 2, one barcode): bit-identical decisions,
+    threshold and coverage; step p50 and peak memory of each engine."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.models.runs import RunsEngine
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.ops.model import make_model
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    t0 = time.perf_counter()
+    layout = build_layout(genome, n_barcodes=1, align_chunks=4)
+    Gl = layout.G_pad // 4
+    rng = np.random.default_rng(14)
+    # 3/4 of the reads in a 6 Mb window across the edge of shards 0 and 1
+    batches = [batch_from_numpy(b, dev) for b in
+               chrom_batches(rng, layout, N_CHR_STEPS, (Gl - 3_000_000, Gl + 3_000_000), 0.75, 1)]
+    params_model = make_model(ploidy=2)
+    log(f"chromosome: {layout.G_pad} sites ({CHR1_SITES} real, 2 contigs), ploidy 2, "
+        f"{N_CHR_STEPS} batches of {N_READS} reads; tile-aligned shards: "
+        f"{(layout.Gd_pad // 4) % 4096 == 0}; set up in {time.perf_counter() - t0:.1f} s")
+    s_res = _run_engine(lambda: RunsEngine(layout, params_model, device=dev), batches, dev)
+    kernels.reset_launches()
+    m_res = _run_engine(lambda: ShardedRunsEngine(layout, make_mesh([dev] * 4), params_model),
+                        batches, dev)
+    launches = kernels.launches()
+    sharded = m_res["engine"]
+    compare_engines("chromosome", s_res, m_res)
+    ck1 = coverage_checksum([(s_res["state"].coverage, 0)])
+    ck4 = coverage_checksum([(c, sh.g0) for c, sh in zip(m_res["state"].coverage,
+                                                          sharded.shards)])
+    if ck1 != ck4:
+        raise AssertionError(f"chromosome coverage checksum {ck4} != {ck1}")
+    last = m_res["auxes"][-1][2]
+    if not any(a[2].updated for a in m_res["auxes"]):
+        raise AssertionError("chromosome: the strategy never updated")
+    out = {}
+    for name, r in (("single", s_res), ("sharded (1, 4)", m_res)):
+        out[name] = dict(p50=statistics.median(r["times"]), peak=r["peak"])
+        log(f"chromosome {name}: step p50 {out[name]['p50']:.2f} ms (steps "
+            f"{', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux pull), peak "
+            f"memory {r['peak'] / 2**30:.2f} GiB above resident [{card}]")
+    log(f"chromosome: sharded == single bit for bit over {N_CHR_STEPS} steps (coverage "
+        f"checksum {ck1}, zeroed, bucket_on, read_starts, strat, aux, threshold "
+        f"{last.threshold!r}); updated={last.updated}")
+    shard_counts = {k: launches[k] for k in (*SHARD_KERNELS, "site_scores")}
+    log(f"chromosome sharded run: kernel launches {shard_counts}")
+    if min(shard_counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the sharded chromosome run never launched: {launches}")
+    if any(launches[k] for k in ("coverage_update", "row_stage", "benefit_strategy")):
+        raise AssertionError(f"the sharded engine launched a single-device entry point: {launches}")
+    del s_res, m_res, sharded
+    torch.cuda.empty_cache()
+    return dict(out, launches=launches)
+
+
+def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
+    """Phase 15: the (2, 2) mesh with two barcodes on the 8.05 Mb genome
+    against the single engine, and BossRunsSim(mesh_shards=(1, 4)) over the
+    corpus against the unsharded sims of phase 4 (gated == classic there)."""
+    from bossruns_torch.io.coo_native import pad_split, split_runs
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.models.runs import RunsEngine
+    from bossruns_torch.models.runs_sim import BossRunsSim
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+    from bossruns_torch.utils.misc import read_strategy_npz
+
+    rng = np.random.default_rng(15)
+    contigs = {n: rng.integers(0, 4, L).astype(np.uint8) for n, L in GENOME.items()}
+    layout = build_layout(contigs, n_barcodes=2, align_chunks=2)
+    batches = []
+    lens = layout.lengths
+    for _ in range(3):
+        cid = rng.choice(len(lens), N_READS, p=lens / lens.sum())
+        rlen = np.clip(rng.normal(MEAN_LEN, 2000, N_READS), 400, 20000).astype(np.int64)
+        rstart = (layout.offsets[cid] + rng.random(N_READS) * (lens[cid] - rlen)).astype(np.int64)
+        pos = np.concatenate([s0 + np.arange(n) for s0, n in zip(rstart, rlen)])
+        sym = layout.seq_int[pos].astype(np.int8)
+        flip = rng.random(pos.shape[0]) < 0.05
+        sym[flip] = rng.integers(0, 5, int(flip.sum()))
+        split = split_runs(layout, sym, np.full(pos.shape[0], 40, np.int8), rstart,
+                           rlen.astype(np.int32), rng.integers(0, 2, N_READS).astype(np.int32))
+        batches.append(batch_from_numpy(dict(
+            pad_split(split), rs_row=rng.integers(0, layout.n_fhat, N_READS).astype(np.int32),
+            rs_strand=rng.integers(0, 2, N_READS).astype(np.int32),
+            rs_w=np.ones(N_READS, np.float32)), dev))
+    s_res = _run_engine(lambda: RunsEngine(layout, device=dev), batches, dev)
+    m_res = _run_engine(lambda: ShardedRunsEngine(layout, make_mesh([dev] * 4, barcode_shards=2)),
+                        batches, dev)
+    compare_engines("(2, 2) mesh", s_res, m_res)
+    ah = m_res["auxes"][-1][2]
+    log(f"(2, 2) mesh, 2 barcodes, 8.05 Mb: == single engine bit for bit over 3 steps "
+        f"(threshold {ah.threshold!r}, updated={ah.updated}); step p50 "
+        f"{statistics.median(m_res['times']):.2f} ms vs single "
+        f"{statistics.median(s_res['times']):.2f} ms [{card}]")
+    del s_res, m_res
+
+    sim = BossRunsSim(ref=paths["ref"], fq=paths["fq"], paf_full=paths["paf_full"],
+                      paf_trunc=paths["paf_trunc"], name="mesh", batchsize=N_READS,
+                      maxb=N_BATCHES, out_base=work / "mesh", mesh_shards=(1, 4), device=dev)
+    if sim._gated or not isinstance(sim.engine, ShardedRunsEngine):
+        raise AssertionError("the mesh sim must run the sharded engine in the classic flow")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for i, snap in enumerate(sl["snaps"]):
+        sim.process_batch()
+        got = sim.engine.state_numpy(sim.state, ("coverage", "strat", "read_starts"))
+        for k, key in (("coverage", "cov"), ("strat", "strat"), ("read_starts", "rs")):
+            if not np.array_equal(got[k], snap[key].cpu().numpy()):
+                raise AssertionError(f"mesh sim {k}, batch {i}: != unsharded sim")
+        if (sim.read_cache.time_boss, sim.read_cache.time_control) != (snap["tb"], snap["tc"]):
+            raise AssertionError(f"mesh sim pseudotime, batch {i}")
+        if sim._last_decisions != snap["dec"]:
+            raise AssertionError(f"mesh sim decisions, batch {i}")
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    launches = kernels.launches()
+    masks = read_strategy_npz(sim.out_dir / "masks" / "boss.npz")
+    ref = read_strategy_npz(work / "gated" / "out_gated" / "masks" / "boss.npz")
+    if set(masks) != set(ref) or any(not np.array_equal(masks[k], ref[k]) for k in ref):
+        raise AssertionError("mesh sim masks != unsharded sim masks")
+    shard_counts = {k: launches[k] for k in (*SHARD_KERNELS, "site_scores")}
+    log(f"mesh sim (1, 4): {N_BATCHES} batches of {N_READS} reads in {sim_s:.2f} s == "
+        f"unsharded sim exactly (coverage, strat, read_starts, pseudotime, decisions, masks); "
+        f"shard kernel launches {shard_counts}; phase p50 ms {json.dumps(sim.phase_p50_ms())} "
+        f"[{card}]")
+    if min(shard_counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the mesh sim never launched: {launches}")
+    if any(launches[k] for k in ("coverage_update", "row_stage", "benefit_strategy")):
+        raise AssertionError(f"the mesh sim launched a single-device entry point: {launches}")
+    sim.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -888,8 +1339,16 @@ def main() -> int:
         res["aeons_strategy"] = check_aeons_strategy(dev, card)
         aeons = run_aeons_sim(dev, card, work)
         run_aeons_live(dev, card, work, aeons["paths"])
-    if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+        t0 = time.perf_counter()
+        genome = chrom_genome(np.random.default_rng(12))
+        log(f"chromosome genome: {CHR1_SITES} sites made in {time.perf_counter() - t0:.1f} s")
+        res.update(check_shard_kernels(dev, card, genome))
+        chrom = run_chromosome(dev, card, genome)
+        del genome
+        run_mesh_paths(dev, card, work, paths, sl)
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
+    if loaded:
+        raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")
 
     meta = {
         "coverage_update": ("csrc/coverage.cu", "bossruns_tpu/models/runs.py:518"),
@@ -899,18 +1358,29 @@ def main() -> int:
         "seed_topn": ("csrc/seed.cu", "bossruns_tpu/aligner/seed.py:273"),
         "seed_candidates": ("csrc/seed.cu", "bossruns_tpu/aligner/seed.py:410"),
         "aeons_strategy": ("csrc/aeons_strategy.cu", "bossruns_tpu/aeons/benefit.py:53"),
+        "shard_coverage": ("csrc/coverage.cu", "bossruns_tpu/parallel/mesh.py:209"),
+        "shard_rows": ("csrc/rows.cu", "bossruns_tpu/parallel/mesh.py:209"),
+        "shard_benefit": ("csrc/strategy.cu", "bossruns_tpu/parallel/mesh.py:209"),
     }
     # H1-H4 count the gated sim's launches (path 4), H5 the live-alignment
-    # sim's (path 7), H6 and H7 the AEONS sim's (path 11)
+    # sim's (path 7), H6 and H7 the AEONS sim's (path 11), H8 the sharded
+    # chromosome run's (path 14, whose shards have phase 13's shapes; the
+    # mesh sim of path 15 is checked to launch H8 too). No single PyTorch
+    # call computes any of these functions, so library_ms is null throughout.
     counts = dict(sl["launches"], seed_topn=live["launches"]["seed_topn"],
                   seed_candidates=aeons["launches"]["seed_candidates"],
-                  aeons_strategy=aeons["launches"]["aeons_strategy"])
+                  aeons_strategy=aeons["launches"]["aeons_strategy"],
+                  **{k: chrom["launches"][k] for k in SHARD_KERNELS})
     table = {"kernels": [
         {"name": k, "route": "cuda", "source": f"bossruns_torch/{src}", "replaces": rep,
          "launches": counts[k], "max_abs_err": res[k]["max_abs_err"],
-         "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"]}
+         "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
+         "bound_by": res[k]["bound_by"], "library_ms": None}
         for k, (src, rep) in meta.items()
     ]}
+    for k in meta:
+        log(f"bound {k}: {res[k]['bytes']} bytes -> {res[k]['bound_ms']:.4f} ms at 3.35 TB/s; "
+            f"kernel {res[k]['ms']:.4f} ms")
     print(json.dumps(table), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

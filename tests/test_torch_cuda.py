@@ -320,3 +320,64 @@ def test_aeons_sim_on_card_matches_cpu(dev, tmp_path, monkeypatch):
             cpu.read_cache.time_boss, cpu.read_cache.time_control)
     n = kernels.launches()
     assert n["seed_candidates"] > 0 and n["aeons_strategy"] > 0 and n["seed_topn"] > 0
+
+
+def _mesh_world(nb: int, seed: int):
+    """A 16-chunk genome (1.6 Mb: shards of 4 or 8 chunks fall on H4's
+    4096-row scan tiles) and batches concentrated on a window across the
+    edge of genome shards 0 and 1 of a 4-way split."""
+    rng = np.random.default_rng(seed)
+    lay = build_layout({"a": rng.integers(0, 4, 1_000_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 600_000).astype(np.uint8)}, n_barcodes=nb,
+                       align_chunks=4)
+    edge = lay.G_pad // 4
+    batches = []
+    for _ in range(3):
+        b = _random_batch(rng, lay, n_obs=1_200_000, nb=nb, run_len=400)
+        g = b["mr_g"].astype(np.int64)
+        # move every run into [edge - 100 kb, edge + 100 kb)
+        moved = (edge - 100_000 + (g % 199_000)).astype(np.uint32)
+        b["mr_g"] = np.where(b["mr_len"] > 0, moved, b["mr_g"])
+        batches.append(b)
+    return lay, batches
+
+
+def test_shard_kernels_exact_on_card(dev):
+    """H8: every phase of every shard of a (2, 4) mesh with two barcodes,
+    kernel against plain version on the same inputs (chip_smoke's probe)."""
+    from chip_smoke import ShardProbe
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    lay, batches = _mesh_world(2, 41)
+    eng = ShardedRunsEngine(lay, make_mesh([dev] * 8, barcode_shards=2))
+    probe = ShardProbe(range(8), timed=False)
+    eng.probe = probe
+    state = eng.init_state()
+    params = eng.make_params(CCL, 5300.0)
+    for b in batches:
+        state, aux = eng.step(state, batch_from_numpy(b, dev), params)
+    torch.cuda.synchronize()
+    assert len(probe.calls) == 3 * 8 * (1 + 4 + 5)
+    assert bool(aux.any_on)
+
+
+@pytest.mark.parametrize("Sb,Sg", [(1, 4), (2, 2)])
+def test_sharded_engine_on_card_matches_single(dev, Sb, Sg):
+    """Tile-aligned shards: the sharded engine on the card equals the
+    single engine on the card bit for bit, threshold included."""
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    lay, batches = _mesh_world(2, 42)
+    single = truns.RunsEngine(lay, device=dev)
+    sharded = ShardedRunsEngine(lay, make_mesh([dev] * (Sb * Sg), barcode_shards=Sb))
+    s1, ss = single.init_state(), sharded.init_state()
+    params = single.make_params(CCL, 5300.0)
+    for i, b in enumerate(batches):
+        s1, a1 = single.step(s1, batch_from_numpy(b, dev), params)
+        ss, a_s = sharded.step(ss, batch_from_numpy(b, dev), params)
+        assert float(a_s.threshold) == float(a1.threshold), i
+        assert torch.equal(a_s.vec, a1.vec), i
+    got, want = sharded.state_numpy(ss), single.state_numpy(s1)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert bool(a1.updated)

@@ -2,12 +2,15 @@
 
 * parse_paf, split_runs, split_runs_rows and pack_batch of the port give
   the same arrays as the bossruns_tpu functions on the corpus;
-* a subprocess in which ``jax`` cannot be imported imports the whole port
-  and runs two simulation batches on the CPU;
+* a subprocess in which neither ``jax`` nor ``bossruns_tpu`` can be
+  imported imports the whole port and runs two simulation batches on the
+  CPU;
 * ``python -m bossruns_torch --toml ... --device cpu`` runs a simulation
-  with live alignment in a subprocess in which ``jax`` cannot be imported
-  (the AEONS simulation's twin is in test_torch_aeons_sim.py); a device
-  mesh raises NotImplementedError;
+  with live alignment in such a subprocess (the AEONS simulation's twin is
+  in test_torch_aeons_sim.py); a mesh TOML runs the sharded simulation and
+  the AEONS modes ignore ``[tpu]``;
+* no source file of the port, nor chip_smoke.py, imports jax or
+  bossruns_tpu;
 * the kernel build raises a clear error without nvcc instead of falling
   back, and a wrapper given a tensor on neither the CPU nor CUDA raises.
 """
@@ -99,7 +102,7 @@ JAX_BLOCKED = textwrap.dedent("""
 
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu"):
                 raise ImportError(f"blocked: {name}")
             return None
 
@@ -121,7 +124,7 @@ JAX_BLOCKED = textwrap.dedent("""
                       out_base=sys.argv[6], device="cpu")
     sim.run(2)
     assert sim.batch == 2 and int(sim.state.coverage.to(torch.int32).sum()) > 0
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     assert not loaded, loaded
     print("NOJAX_OK")
 """)
@@ -142,7 +145,7 @@ CLI_JAX_BLOCKED = textwrap.dedent("""
 
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu"):
                 raise ImportError(f"blocked: {name}")
             return None
 
@@ -156,7 +159,7 @@ CLI_JAX_BLOCKED = textwrap.dedent("""
         runpy.run_module("bossruns_torch", run_name="__main__")
     except SystemExit as e:
         assert e.code == 0, e.code
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     assert not loaded, loaded
     print("CLI_OK")
 """)
@@ -181,24 +184,38 @@ def test_cli_runs_live_alignment_sim_without_jax(corpus, tmp_path):
 
 
 def test_cli_refuses_aeons_and_mesh(corpus, tmp_path, monkeypatch):
-    """Only a device mesh is refused now: RUNS and AEONS TOMLs with one."""
+    """Nothing is refused any more: a RUNS TOML with a device mesh runs the
+    sharded simulation on the CPU, and an AEONS TOML with one ignores
+    ``[tpu]``, as the JAX package's CLI does."""
     from bossruns_torch.__main__ import main
+    from bossruns_torch.models import runs_sim
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine
 
     monkeypatch.chdir(tmp_path)
-    aeons = _toml(tmp_path / "aeons.toml", "a", simulation=dict(fq=corpus["fq"]),
-                  tpu=dict(mesh_barcode=2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--toml", str(aeons), "--device", "cpu"])
+    made = []
+    monkeypatch.setattr(runs_sim.BossRunsSim, "cleanup",
+                        lambda self, _f=runs_sim.BossRunsSim.cleanup: (made.append(self), _f(self)))
     mesh = _toml(tmp_path / "mesh.toml", "m", ref=corpus["ref"],
-                 simulation=dict(fq=corpus["fq"]), tpu=dict(mesh_genome=2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--toml", str(mesh), "--device", "cpu"])
+                 simulation=dict(fq=corpus["fq"], paf_full=corpus["paf_full"],
+                                 paf_trunc=corpus["paf_trunc"], batchsize=100, maxb=2),
+                 tpu=dict(mesh_genome=2))
+    assert main(["--toml", str(mesh), "--device", "cpu"]) == 0
+    (sim,) = made
+    assert isinstance(sim.engine, ShardedRunsEngine) and sim.engine.mesh.shape == {"b": 1, "g": 2}
+    assert sim.batch == 2 and (tmp_path / "out_m" / "masks" / "boss.npz").exists()
+    aeons = _toml(tmp_path / "aeons.toml", "a",
+                  simulation=dict(fq=corpus["fq"], batchsize=150, maxb=1, binit=2),
+                  tpu=dict(mesh_barcode=2))
+    assert main(["--toml", str(aeons), "--device", "cpu"]) == 0
+    assert (tmp_path / "out_a" / "masks" / "boss.npz").exists()
 
 
 def test_port_source_has_no_jax_import():
+    """No import statement of jax or of the JAX package in the port's
+    sources or in chip_smoke.py (the port keeps copies of the host code)."""
     import re
 
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bossruns_tpu)\b", re.M)
     files = list((REPO / "bossruns_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     bad = [str(p) for p in files if pat.search(p.read_text())]
     assert not bad, bad

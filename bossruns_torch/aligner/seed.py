@@ -90,6 +90,13 @@ class DeviceIndex:
     fewer: a fixed stride per key turns the anchor fetch into one
     contiguous 16-byte load indexed by the key's rank. An empty index keeps
     one INT32_MAX key with no occurrence, which no 30-bit query matches.
+
+    ``bucket_off`` [2^T + 1] int32 is a direct-address table on the keys'
+    top T bits (T about log2 of the key count, at most 2k): the keys whose
+    code >> ``shift`` is j are ``keys[bucket_off[j]:bucket_off[j + 1]]``, so
+    the kernels find a key in a bucket of about one key instead of a search
+    of the whole table.
+    ``max_pos`` is the largest indexed position.
     """
 
     def __init__(self, idx: MinimizerIndex, device: str | torch.device):
@@ -110,6 +117,14 @@ class DeviceIndex:
             packed[rows, c] = (pos_u[src] << np.uint32(1)) | str_u[src]
         self.keys = torch.from_numpy(keys).to(device)
         self.pos_packed = torch.from_numpy(packed.view(np.int32)).to(device)
+        self.max_pos = int(idx.positions.max(initial=0))
+        bits = 2 * self.k
+        t = min(bits, max(8, nk.bit_length()))
+        self.shift = bits - t
+        nbk = 1 << t
+        # the padding key of an empty index lands in the last bucket
+        cnt = torch.bincount((self.keys.long() >> self.shift).clamp_max(nbk - 1), minlength=nbk)
+        self.bucket_off = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)]).to(torch.int32)
 
 
 # ------------------------------------------------------------ plain stages --
@@ -177,6 +192,19 @@ def lookup(keys: torch.Tensor, ck: torch.Tensor, valid: torch.Tensor):
     rank = rank.clamp_min(0)
     hit = valid & (keys.to(torch.int64)[rank] == ck)
     return hit, rank
+
+
+def _check_index(dev_index: DeviceIndex, L: int, dev) -> None:
+    """Raise unless the index is on ``dev`` in the layout the kernels read,
+    with every reverse-space diagonal (position + read offset) below
+    SENTINEL, which the kernels' anchor compaction assumes."""
+    K.check(dev_index.keys, "keys", torch.int32, None, dev)
+    K.check(dev_index.pos_packed, "pos_packed", torch.int32,
+            (dev_index.keys.shape[0], OCC_CAP), dev)
+    K.check(dev_index.bucket_off, "bucket_off", torch.int32, None, dev)
+    if dev_index.max_pos + L >= SENTINEL:
+        raise ValueError(f"index positions up to {dev_index.max_pos} + read length {L} reach "
+                         f"the diagonal sentinel {SENTINEL}")
 
 
 def _floor_div(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -266,17 +294,15 @@ def seed_topn(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
               budget: int, L: int, ncand: int = NCAND) -> torch.Tensor:
     """H5: top-``ncand`` diagonal clusters per read, int32
     [len(SEED_FIELDS) * ncand, R]. A CPU tensor takes the plain version; a
-    CUDA tensor launches csrc/seed.cu (two launches) or raises."""
+    CUDA tensor launches csrc/seed.cu (one launch) or raises."""
     if reads.device.type == "cpu":
         return seed_topn_plain(reads, dev_index, k, w, budget, L, ncand)
     r = reads.shape[0]
     dev = reads.device
     n = L - k + 1
     K.check(reads, "reads", torch.int8, (r, L))
-    K.check(dev_index.keys, "keys", torch.int32, None, dev)
-    K.check(dev_index.pos_packed, "pos_packed", torch.int32,
-            (dev_index.keys.shape[0], OCC_CAP), dev)
-    if not (1 <= k <= 15 and 1 <= w <= 16 and w <= n and budget <= n
+    _check_index(dev_index, L, dev)
+    if not (1 <= k <= 15 and k == dev_index.k and 1 <= w <= 16 and w <= n and budget <= n
             and budget >= 64 and budget & (budget - 1) == 0 and budget <= ANCHOR_BUDGET
             and 1 <= ncand <= 8 and L % 8 == 0):
         raise ValueError(f"seed_topn: unsupported k={k} w={w} budget={budget} L={L} "
@@ -284,11 +310,10 @@ def seed_topn(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
     out = torch.empty((len(SEED_FIELDS) * ncand, r), dtype=torch.int32, device=dev)
     if r == 0:
         return out
-    mins = torch.empty((r, n), dtype=torch.int32, device=dev)
     K.KERNELS["seed_topn"](
         K.ptr(reads), r, L, k, w, budget, ncand, K.ptr(dev_index.keys),
-        dev_index.keys.shape[0], K.ptr(dev_index.pos_packed), K.ptr(mins), K.ptr(out),
-        K.stream_ptr(reads),
+        K.ptr(dev_index.bucket_off), dev_index.shift, dev_index.bucket_off.shape[0] - 1,
+        K.ptr(dev_index.pos_packed), K.ptr(out), K.stream_ptr(reads),
     )
     return out
 
@@ -353,7 +378,7 @@ def seed_candidates(reads: torch.Tensor, dev_index: DeviceIndex, ncand: int = NC
     """H6: top-``ncand`` diagonal clusters per strand space, int32
     [R, len(CAND_FIELDS), 2 * ncand]; tol defaults to candidate_tol(L). A
     CPU tensor takes the plain version; a CUDA tensor launches
-    csrc/seed.cu (two launches) or raises."""
+    csrc/seed.cu (one launch) or raises."""
     r, L = reads.shape
     tol = candidate_tol(L) if tol is None else int(tol)
     if reads.device.type == "cpu":
@@ -363,9 +388,7 @@ def seed_candidates(reads: torch.Tensor, dev_index: DeviceIndex, ncand: int = NC
     n = L - k + 1
     budget = anchor_budget(L, w)
     K.check(reads, "reads", torch.int8, (r, L))
-    K.check(dev_index.keys, "keys", torch.int32, None, dev)
-    K.check(dev_index.pos_packed, "pos_packed", torch.int32,
-            (dev_index.keys.shape[0], OCC_CAP), dev)
+    _check_index(dev_index, L, dev)
     if not (1 <= k <= 15 and 1 <= w <= 16 and w <= n and budget <= n
             and budget >= 64 and budget & (budget - 1) == 0 and budget <= ANCHOR_BUDGET
             and 1 <= ncand <= 8 and 1 <= tol <= (1 << 24) and L % 8 == 0):
@@ -374,10 +397,9 @@ def seed_candidates(reads: torch.Tensor, dev_index: DeviceIndex, ncand: int = NC
     out = torch.empty((r, len(CAND_FIELDS), 2 * ncand), dtype=torch.int32, device=dev)
     if r == 0:
         return out
-    mins = torch.empty((r, n), dtype=torch.int32, device=dev)
     K.KERNELS["seed_candidates"](
         K.ptr(reads), r, L, k, w, budget, ncand, tol, K.ptr(dev_index.keys),
-        dev_index.keys.shape[0], K.ptr(dev_index.pos_packed), K.ptr(mins), K.ptr(out),
-        K.stream_ptr(reads),
+        K.ptr(dev_index.bucket_off), dev_index.shift, dev_index.bucket_off.shape[0] - 1,
+        K.ptr(dev_index.pos_packed), K.ptr(out), K.stream_ptr(reads),
     )
     return out

@@ -437,12 +437,29 @@ def _check_rows(kw) -> None:
         c(kw["bits"], "bits", torch.uint8, None, dev)
     else:
         c(kw["rs_w"], "rs_w", torch.float32, (n_rs,), dev)
+    # the kernels read per-site arrays as aligned quads of four sites
+    if G % 4:
+        raise ValueError(f"row kernels need G % 4 == 0, got G={G}")
+    for k, align in (("covsum", 16), ("scores", 16), ("zeroed", 4), ("changed", 4),
+                     ("site_valid", 4)):
+        if kw[k].data_ptr() % align:
+            raise ValueError(f"{k}: row kernels need a {align}-byte aligned base")
+
+
+#: normaliser entries per block of H3's posterior launch (TAB_CHUNK in csrc/rows.cu)
+ROW_TABLE_CHUNK = 256
+#: keys of ``row_workspace`` that only the kernels' table launches use (no
+#: plain version reads or writes them)
+ROW_SCRATCH = ("tab", "slots")
 
 
 def row_workspace(scores, contig_denom, n_win_pad: int, read_starts, low: bool = False) -> dict:
     """Outputs and scratch of H3 for ``scores`` [nb, G]: scores_ds, fhat_exp
     and the per-contig, per-window and fhat tables; ``low`` adds the
-    per-site mask of the sharded step's low phase."""
+    per-site mask of the sharded step's low phase. ``tab`` (the read-start
+    total, the any-bucket flag and the finished-block count) and ``slots``
+    (one partial sum of the normaliser per posterior block) are the table
+    launches' scratch."""
     nb, G = scores.shape
     dev, i64 = scores.device, torch.int64
     n_c1, wf = contig_denom.shape[0], read_starts.shape[0]
@@ -457,6 +474,8 @@ def row_workspace(scores, contig_denom, n_win_pad: int, read_starts, low: bool =
         fhat_w=torch.empty(wf * 2, dtype=torch.float64, device=dev),
         scale=torch.empty(1, dtype=torch.float64, device=dev),
         low=torch.empty(G, dtype=torch.uint8, device=dev) if low else None,
+        tab=torch.empty(4, dtype=i64, device=dev),
+        slots=torch.empty(max(1, -(-2 * wf // ROW_TABLE_CHUNK)), dtype=torch.float64, device=dev),
     )
 
 
@@ -483,6 +502,7 @@ def _row_struct(kw, ws) -> K.RowArgs:
             "rs_read", "bits", "fhat_valid", "fhat_rows", "fhat_idx", "scores",
             "zeroed", "bucket_on", "read_starts", "aux")},
         **{k: K.ptr(v) for k, v in ws.items()},
+        n_slots=ws["slots"].numel(),
     )
 
 
@@ -777,8 +797,7 @@ def shard_rows(phase: str, ws: dict, **kw) -> None:
     if phase == "low" and ws.get("low") is None:
         raise ValueError("the low phase needs a workspace made with low=True")
     _check_rows(kw)
-    K.KERNELS["shard_rows"](_row_struct(kw, ws), ROW_PHASES.index(phase),
-                            K.stream_ptr(scores))
+    K.KERNELS["shard_rows"](_row_struct(kw, ws), ROW_PHASES.index(phase), K.stream_ptr(scores))
     return None
 
 

@@ -55,7 +55,9 @@ class RowArgs(ctypes.Structure):
             "scores", "zeroed", "bucket_on", "read_starts",
             "scores_ds", "fhat_exp", "aux",
             "per_contig", "winsums", "total", "thr_c", "active_c", "fhat_w", "scale", "low",
+            "tab", "slots",
         )],
+        ("n_slots", _I64),
     ]
 
 
@@ -133,11 +135,11 @@ KERNELS = {
     ),
     "seed_topn": Kernel(
         "seed_topn", "bk_seed_topn",
-        [_P, _I64, *[ctypes.c_int] * 5, _P, _I64, _P, _P, _P, _P],
+        [_P, _I64, *[ctypes.c_int] * 5, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     ),
     "seed_candidates": Kernel(
         "seed_candidates", "bk_seed_candidates",
-        [_P, _I64, *[ctypes.c_int] * 6, _P, _I64, _P, _P, _P, _P],
+        [_P, _I64, *[ctypes.c_int] * 6, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     ),
     "aeons_strategy": Kernel(
         "aeons_strategy", "bk_aeons_strategy", [ctypes.POINTER(AeonsArgs), _P]

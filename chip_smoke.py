@@ -40,17 +40,24 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
  13. the sharded step's kernel H8 (the shard entry points of H1, H3 and
      H4) against its plain versions, phase by phase, on shard (b 1, g 1)
      of a (2, 4) in-process mesh over a human-chr1-sized genome
-     (248,956,422 sites, ploidy 2, two barcodes), with times of both;
+     (248,956,422 sites, ploidy 2, two barcodes), with times of both, and
+     H2 timed on that shard;
  14. the sharded engine on a (1, 4) mesh, all shards on the card, against
      the single-device engine on that genome with one barcode: 4 steps of
      4000-read batches, bit-identical state, aux and threshold, the step
-     p50 and peak memory of each, and H8's launches in the sharded run
-     (whose shards have phase 13's shapes);
+     p50 and peak memory of each, H8's launches in the sharded run
+     (whose shards have phase 13's shapes), and then each step's device
+     time by launch;
  15. a (2, 2) mesh with two barcodes on the 8.05 Mb genome against the
      single engine, and BossRunsSim(mesh_shards=(1, 4)) over the corpus
      of phase 4 against the unsharded sims (6 batches, every bit).
 Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15) runs with the
-launch counts set to 0 just before it and read just after. The last three
+launch counts set to 0 just before it and read just after. Every kernel
+time comes in two forms: ``ms``, CUDA events around one wrapper call (host
+work in the wrapper included when the card waits for it), and
+``device_ms``, the card's own time per call (``queued_ms``), with its split
+by launch from torch.profiler (``device_split``) where a whole trace was
+recorded (a split that left launches out lists them under "dropped"). The last three
 lines are the kernel table (with each kernel's bound from the bytes it
 must move), the card and
 {"ok": true, "device": ...}. Nothing here imports JAX or the JAX package,
@@ -104,6 +111,138 @@ def time_ms(fn, reps: int = 15, warm: int = 2) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def short_name(name: str) -> str:
+    """A device event's name without namespace, template and argument list
+    ("(anonymous namespace)::row_sums(RowArgs)" -> "row_sums")."""
+    n = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return n.split("(")[0].split("<")[0].strip() or name
+
+
+def queued_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Device time of one fn() call: the median over ``reps`` calls of CUDA
+    events around each, with all calls queued behind a sleeping kernel, so
+    the card runs them one after another without waiting for the host
+    (launch gaps on the card included, host time not). fn must not
+    synchronise."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)  # ~30 ms, longer than the host takes to queue the calls
+    for s, e in evs:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def device_split(fn, reps: int = 10, warm: int = 2, band: tuple | None = None):
+    """Device time of one fn() call by launch, in ms: torch.profiler (CPU
+    and CUDA activities) over ``reps`` back-to-back calls, each device
+    event's duration summed under its short name and divided by ``reps``.
+    A memset is named after the kernel that follows it ("memset>row_sums"),
+    so the memsets of one entry point stay apart from another's. A trace
+    holds the device work of every thread (a sim's prefetch thread adds
+    its copies), and on the card's machine a trace now and then lacks some
+    of fn's events; so a launch name counts only when it occurs a multiple
+    of ``reps`` times, and the trace only when the split's sum falls in
+    ``band`` (lowest, highest ms; highest None for no ceiling), e.g. around
+    the queued time of the same calls. A split that left launch names out
+    is partial and lists them under "dropped". After three traces that
+    fail, the split is None (not measured)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        names = [short_name(e.name) for e in evs]
+        for i, n in enumerate(names):
+            if n.lower().startswith("memset"):
+                nxt = next((m for m in names[i + 1:] if not m.lower().startswith("memset")), "end")
+                names[i] = f"memset>{nxt}"
+        whole = {n for n, c in Counter(names).items() if c % reps == 0}
+        split: dict[str, float] = {}
+        for e, n in zip(evs, names):
+            if n in whole:
+                split[n] = split.get(n, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
+        total = sum(split.values())
+        if split and (band is None or (band[0] <= total and (band[1] is None or total <= band[1]))):
+            dropped = sorted(set(names) - whole)
+            if dropped:
+                split["dropped"] = dropped
+            return split
+    log("# torch.profiler: three traces in a row failed the checks; split not measured")
+    return None
+
+
+def device(fn, reps: int = 10, warm: int = 2) -> dict:
+    """``device_ms`` of one fn() call from ``queued_ms`` and its split by
+    launch from ``device_split``, whose sum must lie within 70-110% of the
+    queued time (the queued time also holds the gaps between launches)."""
+    ms = queued_ms(fn, reps, warm)
+    split = device_split(fn, reps, 0, band=(0.7 * ms, 1.1 * ms + 0.002))
+    return dict(device_ms=ms, split=split or {})
+
+
+def synced_device(fn, kernel: str, reps: int = 10) -> dict:
+    """``device`` for a call that synchronises (it reads a result back), so
+    its calls cannot queue: CUDA events recorded just around the C entry
+    point ``kernel`` inside fn, each call behind a short sleeping kernel so
+    the entry point's launches queue (median over ``reps`` calls)."""
+    from bossruns_torch.ops import kernels
+
+    kern = kernels.KERNELS[kernel]
+    fn()
+    real, pairs = kern._fn, []
+
+    def timed(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        err = real(*args)
+        e.record()
+        pairs.append((s, e))
+        return err
+
+    kern._fn = timed
+    try:
+        for _ in range(reps):
+            torch.cuda._sleep(2_000_000)  # ~1 ms, longer than the entry point takes to launch
+            fn()
+    finally:
+        kern._fn = real
+    torch.cuda.synchronize()
+    ms = statistics.median(s.elapsed_time(e) for s, e in pairs)
+    # the split also holds the wrapper's own PyTorch kernels: no ceiling
+    split = device_split(fn, reps, 0, band=(0.7 * ms, None))
+    return dict(device_ms=ms, split=split or {})
+
+
+def split_ms(split: dict) -> float:
+    """The summed launch times of a split (its "dropped" names left out)."""
+    return sum(v for k, v in split.items() if k != "dropped")
+
+
+def fmt_split(split: dict) -> str:
+    if not split:
+        return "split not measured"
+    out = ", ".join(f"{k} {v:.4f}" for k, v in split.items() if k != "dropped")
+    if split.get("dropped"):
+        out += f"; partial, dropped: {', '.join(split['dropped'])}"
+    return out
 
 
 def clone(d: dict) -> dict:
@@ -223,9 +362,14 @@ class ShardProbe:
         self.err = {k: 0.0 for k in SHARD_KERNELS}
         self.ms = {k: 0.0 for k in SHARD_KERNELS}
         self.plain_ms = {k: 0.0 for k in SHARD_KERNELS}
+        self.device_ms = {k: 0.0 for k in SHARD_KERNELS}
+        self.split = {k: {} for k in SHARD_KERNELS}
+        self.split_missing = set()  # kernels with a phase whose split was not measured
         self.read = {k: {} for k in SHARD_KERNELS}
         self.written = {k: {} for k in SHARD_KERNELS}
         self.calls = []
+        # H2 on the probed shard (timed only: its check is phase 3's)
+        self.scores = None
 
     def _tally(self, name, args, kw, outs):
         def add(d, t):
@@ -257,7 +401,16 @@ class ShardProbe:
         from bossruns_torch.ops import genome_ops as gops
 
         name = fn.__name__
-        if name not in SHARD_KERNELS or i not in self.shards:
+        if i not in self.shards:
+            return
+        if name == "site_scores" and self.timed:
+            k1 = deep_clone(kw)
+            s, c = fn(**k1)
+            self.scores = dict(ms=time_ms(lambda: fn(**k1), reps=5, warm=1),
+                               **device(lambda: fn(**k1), reps=5, warm=1),
+                               **bound(nbytes(kw) + nbytes(s, c)))
+            return
+        if name not in SHARD_KERNELS:
             return
         plain = getattr(gops, name + "_plain")
         a1, k1, a2, k2 = deep_clone(args), deep_clone(kw), deep_clone(args), deep_clone(kw)
@@ -270,6 +423,7 @@ class ShardProbe:
             outs = [args[0], o1]
         else:
             ws = a1[1]
+            ws = {k: v for k, v in ws.items() if k not in gops.ROW_SCRATCH}
             pairs = [(k, v, a2[1][k], not self._approx(name, phase, k, v))
                      for k, v in ws.items() if isinstance(v, torch.Tensor)]
             pairs += [(k, k1[k], k2[k], True) for k in SHARD_WRITES[name]]
@@ -289,6 +443,16 @@ class ShardProbe:
         if self.timed:
             self.ms[name] += time_ms(lambda: fn(*a1, **k1), reps=5, warm=1)
             self.plain_ms[name] += time_ms(lambda: plain(*a2, **k2), reps=3, warm=1)
+            dv = device(lambda: fn(*a1, **k1), reps=5, warm=1)
+            self.device_ms[name] += dv["device_ms"]
+            if not dv["split"]:
+                self.split_missing.add(name)
+            for n, v in dv["split"].items():
+                if n == "dropped":
+                    self.split[name].setdefault("dropped", []).extend(f"{phase}:{d}" for d in v)
+                    continue
+                key = f"{phase}:{n}"
+                self.split[name][key] = self.split[name].get(key, 0.0) + v
         self.calls.append((name, phase, i))
 
 
@@ -389,6 +553,7 @@ def check_kernels(dev, card: str) -> dict:
     res["coverage_update"] = dict(
         ms=time_ms(lambda: gops.coverage_update(**ak)),
         plain_ms=time_ms(lambda: gops.coverage_update_plain(**ap)), max_abs_err=h1_err,
+        **device(lambda: gops.coverage_update(**ak)),
         **bound(nbytes(args) + nbytes(args["coverage"], ch_k)))
 
     # the stages below take the kernel outputs of the stage before
@@ -407,6 +572,7 @@ def check_kernels(dev, card: str) -> dict:
     res["site_scores"] = dict(ms=time_ms(lambda: sc.site_scores(**args)),
                               plain_ms=time_ms(lambda: sc.site_scores_plain(**args)),
                               max_abs_err=float(err.max()),
+                              **device(lambda: sc.site_scores(**args)),
                               **bound(nbytes(args) + nbytes(s_k, cs_k)))
     log(f"H2 site_scores: covsum exact, scores max abs err {float(err.max()):.3g} "
         "(rtol 1e-5, atol 1e-6: same f32 closed form, other summation order)")
@@ -437,7 +603,7 @@ def check_kernels(dev, card: str) -> dict:
     gk, gp = clone(args), clone(args)
     res["row_stage"] = dict(ms=time_ms(lambda: gops.row_stage(**gk)),
                             plain_ms=time_ms(lambda: gops.row_stage_plain(**gp)),
-                            max_abs_err=h3_err,
+                            max_abs_err=h3_err, **device(lambda: gops.row_stage(**gk)),
                             **bound(nbytes(args) + nbytes(
                                 ds_k, fe_k, *(args[k] for k in ("scores", "zeroed", "bucket_on",
                                                                "read_starts", "aux")))))
@@ -475,6 +641,7 @@ def check_kernels(dev, card: str) -> dict:
     res["benefit_strategy"] = dict(
         ms=time_ms(lambda: gops.benefit_strategy(**ck)),
         plain_ms=time_ms(lambda: gops.benefit_strategy_plain(**cp)), max_abs_err=worst,
+        **device(lambda: gops.benefit_strategy(**ck)),
         **bound(nbytes(args) + nbytes(smu_k, ben_k, thr_k, args["strat"], args["aux"])))
 
     # the whole device step (host clock around step + the aux pull)
@@ -488,7 +655,9 @@ def check_kernels(dev, card: str) -> dict:
     res["_step_p50_ms"] = statistics.median(st_times)
     for k, v in res.items():
         if not k.startswith("_"):
-            log(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms [{card}]")
+            log(f"time {k}: kernel {v['ms']:.4f} ms (device {v['device_ms']:.4f} ms), plain "
+                f"{v['plain_ms']:.4f} ms [{card}]")
+            log(f"device split {k} (launch ms): {fmt_split(v['split'])}")
     log(f"device step p50 (4000 reads, 8.05 Mb, host clock incl. aux pull): "
         f"{res['_step_p50_ms']:.3f} ms [{card}]")
     return res
@@ -626,12 +795,21 @@ def check_seed_kernel(dev, card: str, paths: dict, seqs: dict) -> dict:
             exact(f"H5 k{k} w{w} {label} L={L}", got, want)
             ms = time_ms(lambda: S.seed_topn(x, di, k, w, b, L))
             plain_ms = time_ms(lambda: S.seed_topn_plain(x, di, k, w, b, L), reps=5)
+            dv = device(lambda: S.seed_topn(x, di, k, w, b, L))
             mapped = float((got[2] >= 3).float().mean())
+            # the function's own inputs and outputs (not the kernel's bucket table)
+            r = res[(k, w, label)] = dict(ms=ms, plain_ms=plain_ms, **dv,
+                                          **bound(nbytes(x, di.keys, di.pos_packed, got)))
             log(f"H5 seed_topn k{k} w{w} {label} L={L} R={len(reads)} budget {b}: all 24 rows exact, "
-                f"candidate 0 voted >= 3 for {mapped:.3f} of reads; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms [{card}]")
-            res[(k, w, label)] = dict(ms=ms, plain_ms=plain_ms, **bound(nbytes(x, di) + nbytes(got)))
-    # the main path's shape: the sim's decision pass (k13/w5, prefixes)
+                f"candidate 0 voted >= 3 for {mapped:.3f} of reads; kernel {ms:.4f} ms (device "
+                f"{dv['device_ms']:.4f} ms: {fmt_split(dv['split'])}), plain {plain_ms:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms [{card}]")
+    # the main path's shape: the sim's decision pass (k13/w5, prefixes);
+    # the full-length group is reported beside it
+    full = res[(13, 5, "full")]
+    log(f"H5 full-length group k13 w5 L={L_full}: kernel {full['ms']:.4f} ms, device "
+        f"{full['device_ms']:.4f} ms, plain {full['plain_ms']:.4f} ms, bound "
+        f"{full['bound_ms']:.4f} ms [{card}]")
     return dict(res[(13, 5, "prefixes")], max_abs_err=worst)
 
 
@@ -821,11 +999,14 @@ def check_ava(dev, card: str) -> dict:
         exact(f"H6 L={L}", got, want)
         ms = time_ms(lambda: S.seed_candidates(x, di), reps=10)
         plain_ms = time_ms(lambda: S.seed_candidates_plain(x, di, tol=tol), reps=3, warm=1)
+        dv = device(lambda: S.seed_candidates(x, di))
         hit = float((got[:, 0] >= 4).any(dim=1).float().mean())
         log(f"H6 seed_candidates L={L} R={len(q)} tol {tol}: all 48 entries of every row exact, "
-            f"{hit:.3f} of reads with a cluster of >= 4 votes; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms [{card}]")
-        res[L] = dict(ms=ms, plain_ms=plain_ms, **bound(nbytes(x, di) + nbytes(got)))
+            f"{hit:.3f} of reads with a cluster of >= 4 votes; kernel {ms:.4f} ms (device "
+            f"{dv['device_ms']:.4f} ms: {fmt_split(dv['split'])}), plain {plain_ms:.4f} ms [{card}]")
+        # the function's own inputs and outputs (not the kernel's bucket table)
+        res[L] = dict(ms=ms, plain_ms=plain_ms, **dv,
+                      **bound(nbytes(x, di.keys, di.pos_packed, got)))
         queries = {r.rid: r.seq for r in q}
         find_overlaps(queries, pidx)  # warm-up
         td, th = [], []
@@ -902,6 +1083,7 @@ def check_aeons_strategy(dev, card: str) -> dict:
                 f"contig_strategies device {1000 * statistics.median(ed):.1f} ms, host "
                 f"{1000 * statistics.median(eh):.1f} ms [{card}]")
             res[(n_contigs, hi)] = dict(ms=ms, plain_ms=plain_ms,
+                                        **synced_device(lambda: B.strategy(*args), "aeons_strategy"),
                                         **bound(nbytes(args) + nbytes(mk, bk)))
     # the main path's shape is a few small contigs; report the 8 Mb pool
     return dict(res[(40, 22)], max_abs_err=worst)
@@ -1102,12 +1284,19 @@ def check_shard_kernels(dev, card: str, genome: dict) -> dict:
     res = {}
     for k in SHARD_KERNELS:
         res[k] = dict(ms=probe.ms[k], plain_ms=probe.plain_ms[k], max_abs_err=probe.err[k],
+                      device_ms=probe.device_ms[k],
+                      split={} if k in probe.split_missing else probe.split[k],
                       **bound(probe.bytes(k)))
         log(f"H8 {k} (shard (1, 1), all phases): exact vs plain"
             f"{'' if k == 'shard_coverage' else ' (f64 sums of non-integers within rtol 1e-12 + 256 eps of the total)'}"
-            f", max abs err {probe.err[k]:.3g}; kernel {probe.ms[k]:.4f} ms, plain "
-            f"{probe.plain_ms[k]:.4f} ms, bound {res[k]['bound_ms']:.4f} ms "
-            f"({res[k]['bytes']} bytes) [{card}]")
+            f", max abs err {probe.err[k]:.3g}; kernel {probe.ms[k]:.4f} ms (device "
+            f"{res[k]['device_ms']:.4f} ms), plain {probe.plain_ms[k]:.4f} ms, bound "
+            f"{res[k]['bound_ms']:.4f} ms ({res[k]['bytes']} bytes) [{card}]")
+        log(f"device split {k} (phase:launch ms): {fmt_split(res[k]['split'])}")
+    h2 = probe.scores
+    log(f"H2 site_scores at the shard (Gl {Gl}, ploidy 2): kernel {h2['ms']:.4f} ms, device "
+        f"{h2['device_ms']:.4f} ms ({fmt_split(h2['split'])}), bound {h2['bound_ms']:.4f} ms "
+        f"({h2['bytes']} bytes) [{card}]")
     log(f"H8 check state: any_on={ah.any_on} updated={ah.updated} threshold={ah.threshold!r}")
     if not ah.any_on:
         raise AssertionError("H8 check: buckets never switched on")
@@ -1214,6 +1403,17 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
         raise AssertionError(f"a kernel of the sharded chromosome run never launched: {launches}")
     if any(launches[k] for k in ("coverage_update", "row_stage", "benefit_strategy")):
         raise AssertionError(f"the sharded engine launched a single-device entry point: {launches}")
+    # the step's device time by launch: two more steps of each engine, after
+    # the checks and the launch count, under the profiler
+    for name, r in (("single", s_res), ("sharded (1, 4)", m_res)):
+        eng, st = r["engine"], r["state"]
+        params = eng.make_params(CCL, TIME_COST)
+        split = device_split(lambda: eng.pull_aux(eng.step(st, batches[-1], params)[1]),
+                             reps=2, warm=0, band=(0.85 * min(r["times"]), 1.05 * max(r["times"])))
+        out[name].update(device_ms=None if split is None else split_ms(split), split=split)
+        if split is not None:
+            log(f"chromosome {name}: step device time {out[name]['device_ms']:.3f} ms by launch: "
+                f"{fmt_split(split)} [{card}]")
     del s_res, m_res, sharded
     torch.cuda.empty_cache()
     return dict(out, launches=launches)
@@ -1374,13 +1574,14 @@ def main() -> int:
     table = {"kernels": [
         {"name": k, "route": "cuda", "source": f"bossruns_torch/{src}", "replaces": rep,
          "launches": counts[k], "max_abs_err": res[k]["max_abs_err"],
-         "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
-         "bound_by": res[k]["bound_by"], "library_ms": None}
+         "ms": res[k]["ms"], "device_ms": res[k]["device_ms"], "plain_ms": res[k]["plain_ms"],
+         "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"], "library_ms": None,
+         "split": res[k]["split"]}
         for k, (src, rep) in meta.items()
     ]}
     for k in meta:
         log(f"bound {k}: {res[k]['bytes']} bytes -> {res[k]['bound_ms']:.4f} ms at 3.35 TB/s; "
-            f"kernel {res[k]['ms']:.4f} ms")
+            f"kernel {res[k]['ms']:.4f} ms, device {res[k]['device_ms']:.4f} ms")
     print(json.dumps(table), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,8 @@
   k13/w5 index; its voted candidates equal the port's host mirror;
 * the stages: hash, canonical codes and minimizers with N's and a
   palindromic k-mer, the staggered-grid vote with negative diagonals and
-  SENTINELs, and the index lookup's hits and ranks;
+  SENTINELs, and the index lookup's hits and ranks, by the sorted search
+  and by the kernels' bucket table (a PyTorch mirror, empty index too);
 * records: ``TorchAligner(device="cpu")`` is byte-identical to the JAX
   ``TpuAligner`` and to the port's ``CpuAligner`` (truncated, full,
   all_records) on the worlds of test_aligner.py and test_multi_align.py;
@@ -171,6 +172,58 @@ def test_lookup_stage_equals_jax(corpus_small):
     np.testing.assert_array_equal(thit.numpy(), jhit)
     np.testing.assert_array_equal(trank.numpy(), jrank)
     assert jhit.sum() > 2000
+
+
+def table_lookup(dev_index, ck: torch.Tensor, valid: torch.Tensor):
+    """The seeding kernels' lookup through ``DeviceIndex.bucket_off`` in
+    PyTorch: the query's bucket of high bits, then a binary search for the
+    first key above it inside the bucket."""
+    keys = dev_index.keys.long()
+    off = dev_index.bucket_off.long()
+    b = (ck >> dev_index.shift).clamp(0, off.shape[0] - 2)
+    first, hi = off[b], off[b + 1]
+    lo = first
+    for _ in range(int((off[1:] - off[:-1]).max()).bit_length()):
+        mid = (lo + hi) // 2
+        le = keys[mid.clamp_max(keys.shape[0] - 1)] <= ck
+        lo, hi = torch.where((lo < hi) & le, mid + 1, lo), torch.where((lo < hi) & ~le, mid, hi)
+    rank = (lo - 1).clamp_min(0)
+    return valid & (lo > first) & (keys[rank] == ck), rank
+
+
+@pytest.mark.parametrize("world", ["corpus_small", "prefixes_k13w5", "empty"])
+def test_bucket_table_lookup_equals_jax(world, request):
+    """The kernels' lookup through ``DeviceIndex.bucket_off`` (a bucket of
+    the key's high bits, then a search inside it) gives ``_lookup_join``'s
+    hit and rank, on both parity worlds and on an index with no key."""
+    if world == "empty":
+        idx = build_index(np.zeros(200, np.uint8), np.zeros(200, bool), k=13, w=5)
+        assert idx.keys.shape[0] == 0
+    else:
+        idx = request.getfixturevalue(world)[0]
+    rng = np.random.default_rng(6)
+    keys = idx.keys.astype(np.int64)
+    top = 4 ** idx.k
+    q = np.concatenate([rng.choice(keys, 3000) if keys.size else np.zeros(0, np.int64),
+                        rng.integers(0, top, 3000), [0, top - 1]])
+    if keys.size:
+        q = np.concatenate([q, [keys[0], keys[-1], keys[0] - 1, keys[-1] + 1]]).clip(0, top - 1)
+    valid = rng.random(q.shape[0]) < 0.9
+    jdi = jseed.DeviceIndex(idx)
+    jhit, jrank = (np.asarray(a) for a in jseed._lookup_join(
+        jdi.keys, q.astype(np.int32), valid))
+    di = tseed.DeviceIndex(idx, "cpu")
+    assert di.bucket_off.shape[0] - 1 == 1 << (2 * idx.k - di.shift)
+    assert int(di.bucket_off[-1]) == di.keys.shape[0]
+    # each bucket holds exactly the keys whose high bits name it (the
+    # padding key of an empty index in the last bucket)
+    nbk = di.bucket_off.shape[0] - 1
+    j = torch.repeat_interleave(torch.arange(nbk), di.bucket_off[1:] - di.bucket_off[:-1])
+    assert torch.equal(j, (di.keys.long() >> di.shift).clamp_max(nbk - 1))
+    thit, trank = table_lookup(di, torch.from_numpy(q), torch.from_numpy(valid))
+    np.testing.assert_array_equal(thit.numpy(), jhit)
+    np.testing.assert_array_equal(trank.numpy(), jrank)
+    assert (jhit.sum() > 2000) == bool(keys.size)
 
 
 @pytest.fixture(scope="module")

@@ -140,6 +140,79 @@ def test_row_kernel_gated_exact(setup, dev):
     assert added == float(bits.sum())
 
 
+@pytest.fixture(scope="module")
+def wide_world(dev):
+    """A 6 Mb, two-barcode genome (about 3000 fhat windows, so the
+    posterior pass of H3 takes many 256-entry blocks) after 3 steps on
+    the card, with the next batch."""
+    rng = np.random.default_rng(23)
+    lay = build_layout({"a": rng.integers(0, 4, 3_600_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 2_400_000).astype(np.uint8)}, n_barcodes=2,
+                       align_chunks=8)
+    assert 2 * lay.Wf_pad > 8 * 256
+    eng = truns.RunsEngine(lay, device=dev)
+    state = eng.init_state()
+    params = eng.make_params(CCL, 5300.0)
+    batches = [batch_from_numpy(_random_batch(rng, lay, n_obs=2_000_000, nb=2), dev)
+               for _ in range(4)]
+    for b in batches[:3]:
+        state, _ = eng.step(state, b, params)
+    return eng, state, batches, params
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_row_kernel_exact_over_several_table_blocks(wide_world, dev, gated):
+    """H3 at a Wf that takes several posterior blocks, ungated and gated:
+    every output and in-place update equals the plain version."""
+    eng, state, batches, params = wide_world
+    batch = batches[3]
+    rows = tg.CovRows(batch.mr_bc, batch.mr_g, batch.mr_len, batch.ex_bcsym, batch.ex_g)
+    changed = tg.coverage_update_plain(**_clone(eng.coverage_args(state, rows)))
+    scores, covsum = ts.site_scores(**eng.score_args(state))
+    aux = torch.zeros(4, dtype=torch.float32, device=dev)
+    n_rs = batch.rs_row.shape[0]
+    if gated:
+        bits = torch.from_numpy((np.random.default_rng(4).random(n_rs) < 0.5)
+                                .astype(np.uint8)).to(dev)
+        args = eng.row_args(state, scores, covsum, changed, aux, params, batch.rs_row,
+                            batch.rs_strand, rs_read=torch.arange(n_rs, dtype=torch.int32,
+                                                                  device=dev), bits=bits)
+    else:
+        args = eng.row_args(state, scores, covsum, changed, aux, params,
+                            batch.rs_row, batch.rs_strand, rs_w=batch.rs_w)
+    a, b = _clone(args), _clone(args)
+    for x, y in zip(tg.row_stage(**a), tg.row_stage_plain(**b)):
+        assert torch.equal(x, y)
+    for k in ("scores", "zeroed", "bucket_on", "read_starts", "aux"):
+        assert torch.equal(a[k], b[k]), k
+    assert float(a["read_starts"].sum()) > float(args["read_starts"].sum())
+
+
+def test_shard_rows_exact_over_several_table_blocks(wide_world, dev):
+    """H8's row phases on every shard of a (2, 2) mesh over the 6 Mb genome,
+    kernel against plain version (the probe of chip_smoke.py), and the
+    sharded engine equal to the single engine bit for bit."""
+    from chip_smoke import ShardProbe
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    eng, _, batches, params = wide_world
+    single = truns.RunsEngine(eng.layout, device=dev)
+    sharded = ShardedRunsEngine(eng.layout, make_mesh([dev] * 4, barcode_shards=2))
+    probe = ShardProbe(range(4), timed=False)
+    sharded.probe = probe
+    s1, ss = single.init_state(), sharded.init_state()
+    for b in batches:
+        s1, a1 = single.step(s1, b, params)
+        ss, a_s = sharded.step(ss, b, params)
+        assert float(a_s.threshold) == float(a1.threshold)
+        assert torch.equal(a_s.vec, a1.vec)
+    torch.cuda.synchronize()
+    assert sum(n == "shard_rows" for n, _, _ in probe.calls) == 4 * 4 * 4
+    got, want = sharded.state_numpy(ss), single.state_numpy(s1)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_engine_on_card_matches_oracle_decisions(dev):
     """Given the card's own f32 scores, coverage, bucket_on, read_starts and
     strat equal the f64 oracle exactly, step by step."""
@@ -212,6 +285,42 @@ def test_seed_kernel_exact(seed_world, dev, k, w):
         torch.cuda.synchronize()
         assert torch.equal(got, want), L
         assert float((got[2] >= 3).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("L", [512, 4096])
+def test_seed_kernel_ragged_batch_and_unmapped_reads(seed_world, dev, L):
+    """H5 equals its plain version in all 24 rows on an odd number of reads
+    (1001) mixing mapped reads with reads that have no index hit at all
+    (all N, poly-A, a read shorter than k) and random junk."""
+    from bossruns_torch.aligner import encode
+    from bossruns_torch.aligner import seed as S
+    from bossruns_torch.aligner.index import build_index
+
+    base, seqs = seed_world
+    idx = build_index(base, np.ones(base.shape[0], bool), k=13, w=5)
+    di = S.DeviceIndex(idx, dev)
+    rng = np.random.default_rng(L)
+    enc = [encode(s)[:L] for s in seqs.values()]
+    mat = np.full((1001, L), 4, np.int8)
+    for r in range(1001):
+        kind = r % 5
+        if kind in (0, 1):
+            e = enc[r % len(enc)]
+            mat[r, : e.shape[0]] = e
+        elif kind == 2:
+            mat[r, : L - 8] = 0                         # poly-A: one k-mer, never indexed
+        elif kind == 3:
+            mat[r, :10] = rng.integers(0, 4, 10)        # shorter than k; the rest N
+        else:
+            mat[r] = rng.integers(0, 5, L)
+    x = torch.from_numpy(mat).to(dev)
+    b = S.anchor_budget(L, 5)
+    got = S.seed_topn(x, di, 13, 5, b, L)
+    want = S.seed_topn_plain(x, di, 13, 5, b, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[2, 3::5] == -1).all())            # no anchor: placeholders only
+    assert float((got[2, 0::5] >= 3).float().mean()) > 0.5
 
 
 def test_aligner_on_card_matches_host_seeded(seed_world, dev):

@@ -258,6 +258,10 @@ def _families(full, trunc, bits):
     return [(full, True), (trunc, False)]
 
 
+#: sites per tile flag of the coverage kernels (TILE in csrc/coverage.cu)
+COVERAGE_TILE = 4096
+
+
 def coverage_update_plain(coverage, seq, full: CovRows, trunc: CovRows | None = None,
                           bits=None):
     """Plain version of H1: updates ``coverage`` [nb, 5, G] uint16 in place
@@ -293,6 +297,30 @@ def coverage_update_plain(coverage, seq, full: CovRows, trunc: CovRows | None = 
     return (ex != 0).any(dim=1).any(dim=0) | (match != 0).any(dim=0)
 
 
+def _check_coverage(coverage, seq) -> None:
+    """Raise unless coverage [nb, 5, G] uint16 and seq [G] int8 are what the
+    coverage kernels take (G % 4 == 0: combine works on quads of sites)."""
+    nb, _, G = coverage.shape
+    K.check(coverage, "coverage", torch.uint16, (nb, 5, G))
+    K.check(seq, "seq", torch.int8, (G,), coverage.device)
+    if G % 4 or coverage.data_ptr() % 8 or seq.data_ptr() % 4:
+        raise ValueError(f"coverage kernels need G % 4 == 0, an 8-byte aligned coverage and a "
+                         f"4-byte aligned seq, got G={G}")
+
+
+def _coverage_call(kernel: str, coverage, args) -> torch.Tensor:
+    """Launch a coverage entry point with ``args(changed, match, tiles)``
+    (the call's own int32 match scratch, any contents, and zeroed tile
+    flags, one per COVERAGE_TILE sites) and return changed [G] bool."""
+    nb, _, G = coverage.shape
+    dev = coverage.device
+    changed = torch.empty(G, dtype=torch.bool, device=dev)
+    match = torch.empty(nb * G, dtype=torch.int32, device=dev)
+    tiles = torch.zeros(-(-G // COVERAGE_TILE), dtype=torch.uint8, device=dev)
+    K.KERNELS[kernel](*args(changed, match, tiles), K.stream_ptr(coverage))
+    return changed
+
+
 def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, bits=None):
     """H1: add one batch's coverage rows into ``coverage`` in place and
     return the per-site changed flag. Ungated: ``full`` alone. Gated
@@ -302,8 +330,7 @@ def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, 
         return coverage_update_plain(coverage, seq, full, trunc, bits)
     nb, _, G = coverage.shape
     dev = coverage.device
-    K.check(coverage, "coverage", torch.uint16, (nb, 5, G))
-    K.check(seq, "seq", torch.int8, (G,), dev)
+    _check_coverage(coverage, seq)
     fams = _families(full, trunc, bits)
     for rows, _ in fams:
         n_mr, n_ex = rows.mr_len.shape[0], rows.ex_g.shape[0]
@@ -319,9 +346,6 @@ def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, 
         K.check(bits, "bits", torch.uint8, None, dev)
     f = full
     t = trunc if bits is not None else None
-    changed = torch.empty(G, dtype=torch.bool, device=dev)
-    match = torch.empty(nb * G, dtype=torch.int32, device=dev)
-    ex = torch.empty(nb * 5 * G, dtype=torch.int32, device=dev)
     p = K.ptr
 
     def fam_args(r, mr: bool):
@@ -331,12 +355,10 @@ def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, 
             return [p(r.mr_bc), p(r.mr_g), p(r.mr_len), p(r.mr_read), r.mr_len.shape[0]]
         return [p(r.ex_bcsym), p(r.ex_g), p(r.ex_read), r.ex_g.shape[0]]
 
-    K.KERNELS["coverage_update"](
+    return _coverage_call("coverage_update", coverage, lambda changed, match, tl: (
         *fam_args(f, True), *fam_args(t, True), *fam_args(f, False), *fam_args(t, False),
         p(bits), 0 if bits is None else bits.shape[0], p(seq), p(coverage), p(changed),
-        p(match), p(ex), nb, G, K.stream_ptr(coverage),
-    )
-    return changed
+        p(match), p(tl), nb, G))
 
 
 # ============================================================ H3: row_stage ==
@@ -692,24 +714,17 @@ def shard_coverage(coverage, seq, full: CovRows, b0: int, g0: int):
         return shard_coverage_plain(coverage, seq, full, b0, g0)
     nb, _, G = coverage.shape
     dev = coverage.device
-    K.check(coverage, "coverage", torch.uint16, (nb, 5, G))
-    K.check(seq, "seq", torch.int8, (G,), dev)
+    _check_coverage(coverage, seq)
     n_mr, n_ex = full.mr_len.shape[0], full.ex_g.shape[0]
     K.check(full.mr_bc, "mr_bc", torch.uint8, (n_mr,), dev)
     K.check(full.mr_g, "mr_g", torch.uint32, (n_mr,), dev)
     K.check(full.mr_len, "mr_len", torch.uint16, (n_mr,), dev)
     K.check(full.ex_bcsym, "ex_bcsym", torch.uint16, (n_ex,), dev)
     K.check(full.ex_g, "ex_g", torch.uint32, (n_ex,), dev)
-    changed = torch.empty(G, dtype=torch.bool, device=dev)
-    match = torch.empty(nb * G, dtype=torch.int32, device=dev)
-    ex = torch.empty(nb * 5 * G, dtype=torch.int32, device=dev)
     p = K.ptr
-    K.KERNELS["shard_coverage"](
+    return _coverage_call("shard_coverage", coverage, lambda changed, match, tl: (
         p(full.mr_bc), p(full.mr_g), p(full.mr_len), n_mr, p(full.ex_bcsym), p(full.ex_g), n_ex,
-        p(seq), p(coverage), p(changed), p(match), p(ex), int(b0), int(g0), nb, G,
-        K.stream_ptr(coverage),
-    )
-    return changed
+        p(seq), p(coverage), p(changed), p(match), p(tl), int(b0), int(g0), nb, G))
 
 
 def shard_rows_plain(phase: str, ws: dict, **kw) -> None:

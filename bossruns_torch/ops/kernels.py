@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels under ``bossruns_torch/csrc``.
 
 Every ``.cu`` file there is compiled by ``nvcc`` for Hopper (sm_90a) into
-one shared library with a plain C interface, at first use, never when a
-module is imported:
+an object of its own, all files at once in parallel processes, and the
+objects are linked into one shared library with a plain C interface, at
+first use, never when a module is imported:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libbosskernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o _build/<hash>/<name>.o csrc/<name>.cu   (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libbosskernels_<hash>.so *.o
 
 The library is keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses it. It is loaded with ctypes; every
@@ -29,10 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -208,7 +208,8 @@ def find_nvcc() -> str:
 
 
 def build(build_dir: str | Path | None = None) -> Path:
-    """Compile csrc/*.cu into a shared library (cached by source hash).
+    """Compile csrc/*.cu into a shared library (cached by source hash): one
+    nvcc process per source, all started together, then one link.
 
     Raises RuntimeError when nvcc is absent or the build fails.
     """
@@ -217,14 +218,26 @@ def build(build_dir: str | Path | None = None) -> Path:
     if so.exists():
         return so
     nvcc = find_nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{so.stem}.tmp{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.rename(tmp, so)
+    tag = f"{so.stem}.tmp{os.getpid()}"
+    obj_dir = out_dir / tag
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        srcs = sorted(CSRC.glob("*.cu"))
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_dir / f"{p.stem}.o"),
+                                   str(p)], stderr=subprocess.PIPE, text=True) for p in srcs]
+        errs = [proc.communicate()[1] for proc in procs]  # every nvcc ends before a raise
+        for p, proc, err in zip(srcs, procs, errs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {p.name} ({proc.returncode}):\n{err[-4000:]}")
+        tmp = out_dir / f"{tag}.so"
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *(str(obj_dir / f"{p.stem}.o") for p in srcs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+        os.rename(tmp, so)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     return so
 
 

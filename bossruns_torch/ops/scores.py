@@ -100,7 +100,11 @@ def site_scores_plain(coverage, seq, site_valid, tables: ScoreTables, freeze_cov
 
 def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int, tiny: float):
     """H2: per-site scores and coverage sums; same results as
-    ``site_scores_plain`` (f32, summed in another order)."""
+    ``site_scores_plain`` (f32, summed in another order; the posterior is
+    exp(lp - lse), a second exponential pass, as the plain version forms
+    it). Any G and base alignment:
+    the kernel takes 16-byte accesses where G % 4 == 0 and the bases are
+    aligned, scalar ones otherwise."""
     if coverage.device.type == "cpu":
         return site_scores_plain(coverage, seq, site_valid, tables, freeze_cov, tiny)
     nb, _, G = coverage.shape

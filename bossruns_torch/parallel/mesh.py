@@ -20,7 +20,8 @@ A mesh comes in two forms with one step body:
 
 The step body (``ShardedRunsEngine._step_local``) is written once against
 the collectives of ``Comm``: sum or max over g, b or both, an all-gather
-along g, and the two halo shifts. Each collective takes the list of local
+along g, and the two halo shifts (plus, under ``debug_aux``, a gather of
+every shard's scores). Each collective takes the list of local
 shard tensors. The kernels are H1, H2, H3 and H4 through their shard entry
 points (``ops.genome_ops.shard_coverage``, ``shard_rows``,
 ``shard_benefit``: kernel H8) and H2 per shard.
@@ -89,6 +90,12 @@ class Comm:
         (bi*Sg + gi), on every process."""
         raise NotImplementedError
 
+    def gather_mesh(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        """Every shard's tensor of the whole mesh, stacked in flat order
+        (bi*Sg + gi) into one [Sb*Sg, ...] tensor on the device of this
+        process's first shard, on every process."""
+        raise NotImplementedError
+
 
 def _members(Sb: int, Sg: int, b: int, g: int, axis: str) -> list[int]:
     """Flat indices (bi*Sg + gi) of the shards reduced with (b, g) along axis."""
@@ -139,6 +146,10 @@ class InProcessComm(Comm):
     def gather_all(self, xs):
         flat = {b * self.Sg + g: x for (b, g), x in zip(self.coords, xs)}
         return [flat[k].cpu().numpy() for k in range(self.Sb * self.Sg)]
+
+    def gather_mesh(self, xs):
+        flat = {b * self.Sg + g: x for (b, g), x in zip(self.coords, xs)}
+        return torch.stack([flat[k].to(xs[0].device) for k in range(self.Sb * self.Sg)])
 
 
 class ProcessGroupComm(Comm):
@@ -199,6 +210,15 @@ class ProcessGroupComm(Comm):
     def gather_all(self, xs):
         (x,) = xs
         return distributed.gather(x)
+
+    def gather_mesh(self, xs):
+        import torch.distributed as dist
+
+        (x,) = xs
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.Sb * self.Sg)]
+        dist.all_gather(parts, x)  # rank = bi*Sg + gi: flat order
+        return torch.stack(parts)
 
 
 @dataclass
@@ -266,7 +286,9 @@ class ShardedRunsEngine(RunsEngine):
     (replicated), strat [nb_l, Gdl, 2]). The sharded step is the classic
     flow only, as in the JAX package; ``probe``, when set, is called with
     (wrapper, shard index, args, kwargs) before every kernel call of the
-    step (checks and timings of single shards)."""
+    step (checks and timings of single shards). With ``debug_aux`` the
+    step's StepAux carries every shard's post-mask scores gathered into
+    one [NB, G_pad] tensor (``gather_scores``), as the single engine's."""
 
     #: the wire upload and the gated flow target the single-device step
     wire_capable = False
@@ -274,8 +296,6 @@ class ShardedRunsEngine(RunsEngine):
     def __init__(self, layout: GenomeLayout, mesh: Mesh, model=None,
                  config: RunsConfig = RunsConfig()):
         nn.Module.__init__(self)
-        if config.debug_aux:
-            raise NotImplementedError("debug_aux: the sharded step returns no score array")
         Sb, Sg = mesh.Sb, mesh.Sg
         if layout.G_pad % Sg or (layout.G_pad // Sg) % DS:
             raise ValueError(f"G_pad {layout.G_pad} does not split into {Sg} whole-row shards "
@@ -308,6 +328,13 @@ class ShardedRunsEngine(RunsEngine):
             if dev not in tables:
                 tables[dev] = ScoreTables(self.model, torch.float32, device=dev)
             self.shards.append(Shard(b, g, dev, b * self.nb_l, g0, row0, c, tables[dev]))
+
+    def gather_scores(self, scores: list[torch.Tensor]) -> torch.Tensor:
+        """The shards' [nb_l, Gl] scores as one [NB, G_pad] tensor on the
+        first local shard's device, on every process (a collective)."""
+        t = self.mesh.comm.gather_mesh(scores)               # [Sb*Sg, nb_l, Gl]
+        t = t.reshape(self.Sb, self.Sg, self.nb_l, self.Gl).permute(0, 2, 1, 3)
+        return t.reshape(self.nb, self.Sg * self.Gl)
 
     # ------------------------------------------------------------- state ----
 
@@ -481,7 +508,9 @@ class ShardedRunsEngine(RunsEngine):
         for i in idx:
             bws[i]["counts"].copy_(counts[i])
             self._run(gops.shard_benefit, i, "threshold", bws[i], **bkw[i])
-        return state, StepAux(vec=aux[0], threshold=bws[0]["threshold"])
+        # the post-dropout, post-sticky-zero scores (mesh.py:303, :425)
+        gathered = self.gather_scores(scores) if cfg.debug_aux else None
+        return state, StepAux(vec=aux[0], threshold=bws[0]["threshold"], scores=gathered)
 
     def _row_kw(self, state, i, scores, covsum, changed, aux, params, batch) -> dict:
         """Arguments of shard i's row phases (RunsEngine.row_args on the
@@ -520,14 +549,15 @@ class ShardedRunsEngine(RunsEngine):
 # ------------------------------------------------------------------ demo ---
 
 def demo_sharded_step(n_devices: int = 8, barcode_shards: int = 1, seed: int = 0,
-                      n_steps: int = 3, *, mesh: Mesh | None = None):
+                      n_steps: int = 3, *, mesh: Mesh | None = None,
+                      config: RunsConfig = RunsConfig()):
     """Build a small multi-contig genome, shard it over the mesh, run the
     full update step ``n_steps`` times: the twin of the JAX package's demo,
     on the same genome and batch (made with numpy from ``seed``). Used by
     the dry run and as a living example.
 
     The mesh is ``mesh`` when given, else an in-process mesh of
-    ``n_devices`` shards on the CPU. The batch carries
+    ``n_devices`` shards on the CPU; ``config`` is the engine's. The batch carries
     enough coverage (~6x mean per step over c1, 5% mismatches) that by the
     last step bucket switches flip on and the threshold scan produces a
     real mask."""
@@ -543,7 +573,7 @@ def demo_sharded_step(n_devices: int = 8, barcode_shards: int = 1, seed: int = 0
         "c2": rng.integers(0, 4, 120_000).astype(np.uint8),
     }
     layout = build_layout(contigs, n_barcodes=nb, align_chunks=mesh.Sg)
-    eng = ShardedRunsEngine(layout, mesh)
+    eng = ShardedRunsEngine(layout, mesh, config=config)
     state = eng.init_state()
 
     n_runs, run_len = 768, 2048

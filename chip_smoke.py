@@ -1,10 +1,13 @@
 """On-card smoke run of the PyTorch/CUDA port (bossruns_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase (the on-card proof)
+    python3 chip_smoke.py --phases 3,13,14     # a timing run of some phases
 
 Phases, each printed on its own line; any failure raises and exits nonzero:
-  1. the card: torch version, nvidia-smi name and power limit;
-  2. build the CUDA kernels from bossruns_torch/csrc (nvcc, sm_90a);
+  1. the card: torch version, nvidia-smi name, power limit and highest SM
+     clock;
+  2. build the CUDA kernels from bossruns_torch/csrc (one nvcc per source,
+     in parallel, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      8.05 Mb slice shape with a 4000-read batch (mean length 3500), with
      median times of both;
@@ -40,8 +43,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
  13. the sharded step's kernel H8 (the shard entry points of H1, H3 and
      H4) against its plain versions, phase by phase, on shard (b 1, g 1)
      of a (2, 4) in-process mesh over a human-chr1-sized genome
-     (248,956,422 sites, ploidy 2, two barcodes), with times of both, and
-     H2 timed on that shard;
+     (248,956,422 sites, ploidy 2, two barcodes), with times of both; H2
+     timed on that shard as the step leaves it (sparse) and with dense
+     coverage (covsum 1-29 at every site), held against its plain version
+     on the dense shard's first 8M sites;
  14. the sharded engine on a (1, 4) mesh, all shards on the card, against
      the single-device engine on that genome with one barcode: 4 steps of
      4000-read batches, bit-identical state, aux and threshold, the step
@@ -52,7 +57,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      single engine, and BossRunsSim(mesh_shards=(1, 4)) over the corpus
      of phase 4 against the unsharded sims (6 batches, every bit).
 Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15) runs with the
-launch counts set to 0 just before it and read just after. Every kernel
+launch counts set to 0 just before it and read just after. H2's bound is
+the larger of its byte bound and
+the arithmetic (FMAs and special functions) of the sites these inputs need
+contracted. Every kernel
 time comes in two forms: ``ms``, CUDA events around one wrapper call (host
 work in the wrapper included when the card waits for it), and
 ``device_ms``, the card's own time per call (``queued_ms``), with its split
@@ -325,6 +333,61 @@ def bound(bytes_moved: int) -> dict:
     return dict(bytes=int(bytes_moved), bound_ms=bytes_moved / HBM_BYTES_PER_MS, bound_by="bytes")
 
 
+#: f32 rate outside the tensor cores (an FMA is two operations) and the
+#: special-function units of one H100 SXM: 16 results per SM and clock
+#: (NVIDIA's H100 data sheet and the CUDA arithmetic-throughput tables, 700 W)
+F32_FLOP_PER_MS = 67e12 / 1e3
+SFU_PER_SM_CLOCK = 16
+N_SMS = 132
+#: the card's highest SM clock in MHz (nvidia-smi clocks.max.sm), set by main()
+SM_CLOCK_MHZ = 1980.0
+
+
+def coverage_bound(rows, seq, changed, before, after) -> dict:
+    """The coverage stage's bound for this run's data: its rows and seq read
+    once, changed written once, and each coverage entry the step changed
+    read and written once (2 B each way); entries it leaves alone it need
+    not touch."""
+    n = int(differ(before, after).sum())
+    return dict(bound(nbytes(rows, seq, changed) + 4 * n), entries_changed=n)
+
+
+def score_bound(args: dict, scores, covsum) -> dict:
+    """H2's bound for these inputs: the larger of the byte bound (each input
+    read once, scores and covsum written once) and the arithmetic of the
+    sites that need the contraction (a nonzero count among the model's
+    symbols, unfrozen, valid): 2 LB LG + LG + LB FMAs (the two contractions,
+    the k and q log q sums) and LG + LB + 2 special-function operations
+    (an exponential per genotype for the log-sum-exp, a log per symbol, the
+    log of the sum and its reciprocal) per such site. The posterior can
+    come from the log-sum-exp's own terms (e_j / se), so the kernel's second
+    exponential pass, exp(lp - lse), which it keeps to round as the plain
+    version does, is not counted. Every other site's score is one of four
+    constants and costs no arithmetic."""
+    t = args["tables"]
+    LB, LG = t.len_b, t.len_g
+    cov = args["coverage"]
+    nz = (cov[:, :LB].view(torch.int16) != 0).any(dim=1)
+    need = nz & (covsum < args["freeze_cov"]) & args["site_valid"][None, :]
+    n = int(need.sum())
+    by = bound(nbytes(args) + nbytes(scores, covsum))
+    fma_ms = 2 * (2 * LB * LG + LG + LB) * n / F32_FLOP_PER_MS
+    sfu_ms = (LG + LB + 2) * n / (N_SMS * SFU_PER_SM_CLOCK * SM_CLOCK_MHZ * 1e3)
+    ops_ms = max(fma_ms, sfu_ms)
+    out = dict(by, n_contract=n, sites=int(need.numel()), byte_ms=by["bound_ms"],
+               fma_ms=fma_ms, sfu_ms=sfu_ms)
+    if ops_ms > by["bound_ms"]:
+        out.update(bound_ms=ops_ms, bound_by="operations")
+    return out
+
+
+def fmt_score_bound(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes {b['byte_ms']:.4f} ms for "
+            f"{b['bytes']} B; {b['n_contract']} of {b['sites']} sites contracted: FMAs "
+            f"{b['fma_ms']:.4f} ms, special functions {b['sfu_ms']:.4f} ms at "
+            f"{SM_CLOCK_MHZ:.0f} MHz)")
+
+
 def deep_clone(o):
     """Copies of every tensor in o (dicts, lists, tuples, NamedTuples)."""
     if isinstance(o, torch.Tensor):
@@ -367,9 +430,12 @@ class ShardProbe:
         self.split_missing = set()  # kernels with a phase whose split was not measured
         self.read = {k: {} for k in SHARD_KERNELS}
         self.written = {k: {} for k in SHARD_KERNELS}
+        self.cov_bytes = 0  # shard_coverage: coverage_bound's bytes of each call
         self.calls = []
-        # H2 on the probed shard (timed only: its check is phase 3's)
+        # H2 on the probed shard (timed only: its check is phase 3's) and
+        # its arguments, for the dense shard of check_shard_kernels
         self.scores = None
+        self.score_kw = None
 
     def _tally(self, name, args, kw, outs):
         def add(d, t):
@@ -395,6 +461,8 @@ class ShardProbe:
         return name == "shard_rows" and phase == "tables" and key == "scale"
 
     def bytes(self, name) -> int:
+        if name == "shard_coverage":
+            return self.cov_bytes
         return sum(self.read[name].values()) + sum(self.written[name].values())
 
     def __call__(self, fn, i, args, kw):
@@ -406,9 +474,10 @@ class ShardProbe:
         if name == "site_scores" and self.timed:
             k1 = deep_clone(kw)
             s, c = fn(**k1)
+            self.score_kw = k1
             self.scores = dict(ms=time_ms(lambda: fn(**k1), reps=5, warm=1),
                                **device(lambda: fn(**k1), reps=5, warm=1),
-                               **bound(nbytes(kw) + nbytes(s, c)))
+                               **score_bound(k1, s, c))
             return
         if name not in SHARD_KERNELS:
             return
@@ -421,6 +490,7 @@ class ShardProbe:
         if name == "shard_coverage":
             pairs = [("coverage", a1[0], a2[0], True), ("changed", o1, o2, True)]
             outs = [args[0], o1]
+            self.cov_bytes += coverage_bound(args[2], args[1], o1, args[0], a1[0])["bytes"]
         else:
             ws = a1[1]
             ws = {k: v for k, v in ws.items() if k not in gops.ROW_SCRATCH}
@@ -545,6 +615,9 @@ def check_kernels(dev, card: str) -> dict:
         ch_p = gops.coverage_update_plain(**ap)
         exact(f"H1 {label} coverage", ak["coverage"], ap["coverage"])
         exact(f"H1 {label} changed", ch_k, ch_p)
+        if label == "ungated":
+            h1_bound = coverage_bound(args["full"], args["seq"], ch_k, args["coverage"],
+                                      ak["coverage"])
         h1_err = max(h1_err, max_abs_err((ak["coverage"], ap["coverage"]), (ch_k, ch_p)))
         log(f"H1 coverage_update {label}: coverage and changed exact "
             f"({int(ch_k.sum())} sites changed)")
@@ -553,8 +626,7 @@ def check_kernels(dev, card: str) -> dict:
     res["coverage_update"] = dict(
         ms=time_ms(lambda: gops.coverage_update(**ak)),
         plain_ms=time_ms(lambda: gops.coverage_update_plain(**ap)), max_abs_err=h1_err,
-        **device(lambda: gops.coverage_update(**ak)),
-        **bound(nbytes(args) + nbytes(args["coverage"], ch_k)))
+        **device(lambda: gops.coverage_update(**ak)), **h1_bound)
 
     # the stages below take the kernel outputs of the stage before
     changed = gops.coverage_update(**eng.coverage_args(state, full))
@@ -573,9 +645,10 @@ def check_kernels(dev, card: str) -> dict:
                               plain_ms=time_ms(lambda: sc.site_scores_plain(**args)),
                               max_abs_err=float(err.max()),
                               **device(lambda: sc.site_scores(**args)),
-                              **bound(nbytes(args) + nbytes(s_k, cs_k)))
+                              **score_bound(args, s_k, cs_k))
     log(f"H2 site_scores: covsum exact, scores max abs err {float(err.max()):.3g} "
-        "(rtol 1e-5, atol 1e-6: same f32 closed form, other summation order)")
+        "(rtol 1e-5, atol 1e-6: same f32 closed form, other summation order); "
+        f"{fmt_score_bound(res['site_scores'])}")
 
     # H3, ungated (per-read weights) and gated (read bits): everything exact
     aux0 = torch.zeros(4, dtype=torch.float32, device=dev)
@@ -1294,12 +1367,80 @@ def check_shard_kernels(dev, card: str, genome: dict) -> dict:
             f"{res[k]['bound_ms']:.4f} ms ({res[k]['bytes']} bytes) [{card}]")
         log(f"device split {k} (phase:launch ms): {fmt_split(res[k]['split'])}")
     h2 = probe.scores
-    log(f"H2 site_scores at the shard (Gl {Gl}, ploidy 2): kernel {h2['ms']:.4f} ms, device "
-        f"{h2['device_ms']:.4f} ms ({fmt_split(h2['split'])}), bound {h2['bound_ms']:.4f} ms "
-        f"({h2['bytes']} bytes) [{card}]")
+    log(f"H2 site_scores at the shard (Gl {Gl}, ploidy 2, sparse): kernel {h2['ms']:.4f} ms, "
+        f"device {h2['device_ms']:.4f} ms ({fmt_split(h2['split'])}), {fmt_score_bound(h2)} "
+        f"[{card}]")
+    dense_scores(probe.score_kw, card)
     log(f"H8 check state: any_on={ah.any_on} updated={ah.updated} threshold={ah.threshold!r}")
     if not ah.any_on:
         raise AssertionError("H8 check: buckets never switched on")
+    return res
+
+
+#: sites of the dense shard that the plain version scores (its [genotypes,
+#: sites] f32 temporaries at 62M sites would not fit the card)
+DENSE_SLICE = 8_000_000
+
+
+def dense_coverage(seq: torch.Tensor, seed: int) -> torch.Tensor:
+    """[1, 5, G] uint16 coverage in which every site has covsum 1-29
+    (unfrozen, nonzero), each count on the reference symbol with p 0.9 and
+    on one of the other four symbols otherwise: the mid-run state of an
+    experiment, where every site needs the full contraction. From numpy,
+    seeded."""
+    rng = np.random.default_rng(seed)
+    G = seq.shape[0]
+    total = rng.integers(1, 30, G)
+    n_ref = rng.binomial(total, 0.9)
+    rest = total - n_ref
+    ref = seq.cpu().numpy().astype(np.int64)
+    sites = np.arange(G)
+    cov = np.zeros((5, G), np.uint16)
+    cov[ref, sites] = n_ref
+    for k in range(4):  # the other symbols, in plane order, split the rest evenly
+        o = rng.binomial(rest, 1.0 / (4 - k)) if k < 3 else rest
+        rest = rest - o
+        cov[k + (k >= ref), sites] = o
+    return torch.from_numpy(cov[None]).to(seq.device)
+
+
+def dense_scores(kw: dict, card: str) -> dict:
+    """H2 on phase 13's shard with dense coverage (``dense_coverage``):
+    timed at the whole shard, held against its plain version on its first
+    DENSE_SLICE sites, and the whole shard's first sites equal to the
+    kernel's own result on the slice (a per-site function)."""
+    from bossruns_torch.ops import scores as sc
+
+    t0 = time.perf_counter()
+    args = dict(kw, coverage=dense_coverage(kw["seq"], 16))
+    log(f"dense shard coverage: {args['coverage'].shape[-1]} sites made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    s_k, c_k = sc.site_scores(**args)
+    n = DENSE_SLICE
+    part = dict(args, coverage=args["coverage"][:, :, :n].contiguous(),
+                seq=args["seq"][:n].contiguous(), site_valid=args["site_valid"][:n].contiguous())
+    s_s, c_s = sc.site_scores(**part)
+    s_p, c_p = sc.site_scores_plain(**part)
+    exact("H2 dense covsum", c_s, c_p)
+    exact("H2 dense whole shard vs slice", s_k[:, :n], s_s)
+    if not bool(((c_k > 0) & (c_k < args["freeze_cov"])).all()):
+        raise AssertionError("dense shard: a site is empty or frozen")
+    # up to 29 counts a site: the f32 log-likelihoods reach ~60, whose
+    # rounding moves the posterior; the bar of the port's f32 score tests
+    # (tests/test_torch_scores.py: each f32 version lands up to ~3e-5 from
+    # f64 at 40 counts per symbol)
+    err = (s_s - s_p).abs()
+    if not bool((err <= 5e-5 + 1e-5 * s_p.abs()).all()):
+        raise AssertionError(f"H2 dense scores outside rtol 1e-5 / atol 5e-5: max err "
+                             f"{float(err.max())}")
+    del s_p, c_p, part
+    res = dict(ms=time_ms(lambda: sc.site_scores(**args), reps=5, warm=1),
+               **device(lambda: sc.site_scores(**args), reps=5, warm=1),
+               **score_bound(args, s_k, c_k), max_abs_err=float(err.max()))
+    log(f"H2 site_scores at the shard, dense (covsum 1-29 everywhere): first {n} sites within "
+        f"rtol 1e-5 / atol 5e-5 of the plain version (max abs err {res['max_abs_err']:.3g}), "
+        f"covsum exact; kernel {res['ms']:.4f} ms, device {res['device_ms']:.4f} ms "
+        f"({fmt_split(res['split'])}), {fmt_score_bound(res)} [{card}]")
     return res
 
 
@@ -1373,7 +1514,9 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
     log(f"chromosome: {layout.G_pad} sites ({CHR1_SITES} real, 2 contigs), ploidy 2, "
         f"{N_CHR_STEPS} batches of {N_READS} reads; tile-aligned shards: "
         f"{(layout.Gd_pad // 4) % 4096 == 0}; set up in {time.perf_counter() - t0:.1f} s")
+    kernels.reset_launches()
     s_res = _run_engine(lambda: RunsEngine(layout, params_model, device=dev), batches, dev)
+    single_launches = kernels.launches()
     kernels.reset_launches()
     m_res = _run_engine(lambda: ShardedRunsEngine(layout, make_mesh([dev] * 4), params_model),
                         batches, dev)
@@ -1414,6 +1557,28 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
         if split is not None:
             log(f"chromosome {name}: step device time {out[name]['device_ms']:.3f} ms by launch: "
                 f"{fmt_split(split)} [{card}]")
+    # H1 and H2 at the single engine's shape: launches in its 4 checked
+    # steps, device time per call (queued events, on a copy of the state the
+    # runs leave and the last batch) and the bounds of those inputs
+    # (coverage_bound, score_bound)
+    from bossruns_torch.ops import genome_ops as gops
+    from bossruns_torch.ops import scores as sc
+
+    eng, st, b = s_res["engine"], s_res["state"], batches[-1]
+    rows = gops.CovRows(b.mr_bc, b.mr_g, b.mr_len, b.ex_bcsym, b.ex_g)
+    cargs = eng.coverage_args(st._replace(coverage=st.coverage.clone()), rows)
+    h1 = coverage_bound(rows, eng.seq, gops.coverage_update(**cargs), st.coverage,
+                        cargs["coverage"])
+    h1_ms = queued_ms(lambda: gops.coverage_update(**cargs))
+    del cargs
+    args = eng.score_args(st)
+    h2 = score_bound(args, *sc.site_scores(**args))
+    h2_ms = queued_ms(lambda: sc.site_scores(**args))
+    log(f"chromosome single, H1 coverage_update: {single_launches['coverage_update']} launches, "
+        f"device {h1_ms:.4f} ms, bound {h1['bound_ms']:.4f} ms by bytes ({h1['bytes']} B, "
+        f"{h1['entries_changed']} coverage entries changed) [{card}]")
+    log(f"chromosome single, H2 site_scores: {single_launches['site_scores']} launches, device "
+        f"{h2_ms:.4f} ms, {fmt_score_bound(h2)} [{card}]")
     del s_res, m_res, sharded
     torch.cuda.empty_cache()
     return dict(out, launches=launches)
@@ -1499,7 +1664,36 @@ def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
     sim.cleanup()
 
 
-def main() -> int:
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def parse_phases(argv: list[str]) -> set[int]:
+    """``--phases 3,13,14``: run only those phases (a timing run, which
+    prints no kernel table and no ok line). Default: every phase."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-15)")
+    a = ap.parse_args(argv)
+    phases = {int(x) for x in a.phases.split(",") if x} or set(range(3, 16))
+    if not phases <= set(range(3, 16)):
+        ap.error(f"phases are 3-15, got {sorted(phases)}")
+    if 15 in phases and 4 not in phases:
+        ap.error("phase 15 compares against the sims of phase 4")
+    if 12 in phases and 11 not in phases:
+        ap.error("phase 12 runs on the corpus of phase 11")
+    return phases
+
+
+def main(argv: list[str]) -> int:
+    global SM_CLOCK_MHZ
+    phases = parse_phases(argv)
+    full = phases == set(range(3, 16))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -1512,43 +1706,64 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    SM_CLOCK_MHZ = sm_clock_mhz()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
-    log(f"card: {card}")
+    log(f"card: {card}; highest SM clock {SM_CLOCK_MHZ:.0f} MHz")
     t0 = time.perf_counter()
     so = kernels.build()
     kernels.load()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {so.name}")
 
-    res = check_kernels(dev, card)
+    res, sl, live, aeons, chrom = {}, None, None, None, None
+    if 3 in phases:
+        res = check_kernels(dev, card)
     with tempfile.TemporaryDirectory(prefix="bossruns_smoke_") as tmp:
         work = Path(tmp)
         from bossruns_torch.utils.datagen import write_corpus
 
-        t0 = time.perf_counter()
-        paths = write_corpus(work / "data", rng=np.random.default_rng(3), contig_lengths=GENOME,
-                             n_reads=N_READS * (N_BATCHES + 1), mean_len=float(MEAN_LEN))
-        log(f"corpus: {sum(GENOME.values())} sites, {N_READS * (N_BATCHES + 1)} reads, "
-            f"written in {time.perf_counter() - t0:.1f} s")
-        sl = run_slice(dev, card, work, paths)
-        seqs = read_corpus_reads(paths, N_READS)
-        res["seed_topn"] = check_seed_kernel(dev, card, paths, seqs)
-        check_aligner(dev, card, paths, seqs)
-        live = run_live_align_sim(dev, card, work, paths)
-        run_live_experiment(dev, work, paths)
-        res["seed_candidates"] = check_ava(dev, card)
-        res["aeons_strategy"] = check_aeons_strategy(dev, card)
-        aeons = run_aeons_sim(dev, card, work)
-        run_aeons_live(dev, card, work, aeons["paths"])
-        t0 = time.perf_counter()
-        genome = chrom_genome(np.random.default_rng(12))
-        log(f"chromosome genome: {CHR1_SITES} sites made in {time.perf_counter() - t0:.1f} s")
-        res.update(check_shard_kernels(dev, card, genome))
-        chrom = run_chromosome(dev, card, genome)
-        del genome
-        run_mesh_paths(dev, card, work, paths, sl)
+        if phases & set(range(4, 9)):
+            t0 = time.perf_counter()
+            paths = write_corpus(work / "data", rng=np.random.default_rng(3),
+                                 contig_lengths=GENOME, n_reads=N_READS * (N_BATCHES + 1),
+                                 mean_len=float(MEAN_LEN))
+            log(f"corpus: {sum(GENOME.values())} sites, {N_READS * (N_BATCHES + 1)} reads, "
+                f"written in {time.perf_counter() - t0:.1f} s")
+            seqs = read_corpus_reads(paths, N_READS)
+        if 4 in phases:
+            sl = run_slice(dev, card, work, paths)
+        if 5 in phases:
+            res["seed_topn"] = check_seed_kernel(dev, card, paths, seqs)
+        if 6 in phases:
+            check_aligner(dev, card, paths, seqs)
+        if 7 in phases:
+            live = run_live_align_sim(dev, card, work, paths)
+        if 8 in phases:
+            run_live_experiment(dev, work, paths)
+        if 9 in phases:
+            res["seed_candidates"] = check_ava(dev, card)
+        if 10 in phases:
+            res["aeons_strategy"] = check_aeons_strategy(dev, card)
+        if 11 in phases:
+            aeons = run_aeons_sim(dev, card, work)
+        if 12 in phases:
+            run_aeons_live(dev, card, work, aeons["paths"])
+        if phases & {13, 14}:
+            t0 = time.perf_counter()
+            genome = chrom_genome(np.random.default_rng(12))
+            log(f"chromosome genome: {CHR1_SITES} sites made in {time.perf_counter() - t0:.1f} s")
+            if 13 in phases:
+                res.update(check_shard_kernels(dev, card, genome))
+            if 14 in phases:
+                chrom = run_chromosome(dev, card, genome)
+            del genome
+        if 15 in phases:
+            run_mesh_paths(dev, card, work, paths, sl)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     if loaded:
         raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")
+    if not full:
+        log(f"phases {sorted(phases)} done (a timing run: no kernel table, no ok line)")
+        return 0
 
     meta = {
         "coverage_update": ("csrc/coverage.cu", "bossruns_tpu/models/runs.py:518"),
@@ -1591,4 +1806,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -490,3 +490,178 @@ def test_sharded_engine_on_card_matches_single(dev, Sb, Sg):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert bool(a1.updated)
+
+
+# ------------------------------------- coverage workspace (H1, H8) and H2 --
+
+COV_G = 5 * 4096 + 1000  # a multiple of 4 with a partial last tile
+
+
+def _rows(dev, rng, G, nb, n_runs, run_max, n_ex, n_reads=None):
+    """A family of coverage rows on the card: runs of 1..run_max bases and
+    explicit observations at random places (read ids when n_reads)."""
+    mr_g = rng.integers(0, G, n_runs).astype(np.uint32)
+    mr_len = rng.integers(1, run_max + 1, n_runs).astype(np.uint16)
+    mr_bc = rng.integers(0, nb, n_runs).astype(np.uint8)
+    ex_g = rng.integers(0, G, n_ex).astype(np.uint32)
+    ex_bcsym = (rng.integers(0, nb, n_ex) * 5 + rng.integers(0, 5, n_ex)).astype(np.uint16)
+    reads = None
+    if n_reads:
+        reads = (rng.integers(0, n_reads, n_runs).astype(np.uint32),
+                 rng.integers(0, n_reads, n_ex).astype(np.uint32))
+    return mr_bc, mr_g, mr_len, ex_bcsym, ex_g, reads
+
+
+def _family(dev, parts):
+    mr_bc, mr_g, mr_len, ex_bcsym, ex_g, reads = parts
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    extra = (up(reads[0]), up(reads[1])) if reads is not None else ()
+    return tg.CovRows(up(mr_bc), up(mr_g), up(mr_len), up(ex_bcsym), up(ex_g), *extra)
+
+
+def _edge_rows(rng, G, nb):
+    """Runs across every tile boundary, into the last partial tile, past the
+    end of barcode 0's row (they run on into barcode 1, as the reference's
+    flat cumsum does) and past the end of the genome (clipped), plus dropped
+    rows: mr_len 0, EX_PAD, positions and barcodes out of range."""
+    t = np.arange(1, -(-G // 4096)) * 4096
+    mr_g = np.concatenate([t - 50, [G - 30, G - 10, G - 5, 2**32 - 100, 7]]).astype(np.uint32)
+    mr_len = np.concatenate([np.full(t.shape, 100), [30, 60, 40, 500, 0]]).astype(np.uint16)
+    mr_bc = np.zeros(mr_g.shape, np.uint8)
+    mr_bc[-3] = nb - 1                      # past the end of the last row: clipped
+    ex_g = np.array([0, 4095, 4096, G - 1, 0xFFFFFFFF, G + 5, 12], np.uint32)
+    ex_bcsym = np.array([0, 1, 2, 5 * (nb - 1) + 4, 3, 0, 5 * nb], np.uint16)
+    return mr_bc, mr_g, mr_len, ex_bcsym, ex_g, None
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense", "gated", "edges", "window"])
+def test_coverage_exact_over_five_steps(dev, kind):
+    """H1 (and H8's window) over five consecutive steps on one coverage:
+    after every step coverage and changed equal the plain version's. Before
+    each call a freed block of garbage is left for the allocator to hand
+    out as the call's match scratch, which the kernels zero only at the
+    tiles they mark. Two barcodes, a partial last tile."""
+    rng = np.random.default_rng(["sparse", "dense", "gated", "edges", "window"].index(kind))
+    nb, G = 2, COV_G
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8)).to(dev)
+    cov = torch.from_numpy(rng.integers(0, 50, (nb, 5, G)).astype(np.uint16)).to(dev)
+    ref = cov.clone()
+    for step in range(5):
+        torch.full((2 * nb * G,), -1, dtype=torch.int32, device=dev)  # freed: the next scratch
+        bits = None
+        trunc = None
+        if kind == "sparse":
+            full = _family(dev, _rows(dev, rng, G, nb, 12, 300, 40))
+        elif kind == "dense":
+            full = _family(dev, _rows(dev, rng, G, nb, 3000, 5000, 200_000))
+        elif kind == "gated":
+            full = _family(dev, _rows(dev, rng, G, nb, 400, 2000, 20_000, n_reads=64))
+            trunc = _family(dev, _rows(dev, rng, G, nb, 400, 400, 5_000, n_reads=64))
+            bits = torch.from_numpy((rng.random(64) < 0.5).astype(np.uint8)).to(dev)
+        elif kind == "edges":
+            full = _family(dev, _edge_rows(rng, G, nb))
+        if kind == "window":
+            # shard (1, 1) of a 2 x 2 window over a genome of 2G sites:
+            # rows in global barcodes and positions, many starting left of g0
+            full = _family(dev, _rows(dev, rng, 2 * G, 2 * nb, 1500, 6000, 50_000))
+            b0, g0 = nb, G
+            got = tg.shard_coverage(cov, seq, full, b0, g0)
+            want = tg.shard_coverage_plain(ref, seq, full, b0, g0)
+        else:
+            got = tg.coverage_update(cov, seq, full, trunc, bits)
+            want = tg.coverage_update_plain(ref, seq, full, trunc, bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kind, step)
+        assert torch.equal(cov.view(torch.int16), ref.view(torch.int16)), (kind, step)
+        assert bool(got.any())
+
+
+def test_coverage_saturates_at_65535(dev):
+    """Sites at 65530 take 20 increments (a match run over them and
+    explicit observations): they stop at 65535 in kernel and plain."""
+    rng = np.random.default_rng(7)
+    G = 4096
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8)).to(dev)
+    cov = torch.full((1, 5, G), 65530, dtype=torch.int32).to(torch.int16).view(torch.uint16)
+    cov = cov.to(dev)
+    ref = cov.clone()
+    n = 20
+    mr_g = np.full(n, 100, np.uint32)
+    mr_len = np.full(n, 50, np.uint16)
+    ex_g = np.full(n, 120, np.uint32)
+    ex_bcsym = np.full(n, 4, np.uint16)
+    full = _family(dev, (np.zeros(n, np.uint8), mr_g, mr_len, ex_bcsym, ex_g, None))
+    got = tg.coverage_update(cov, seq, full)
+    want = tg.coverage_update_plain(ref, seq, full)
+    assert torch.equal(got, want)
+    assert torch.equal(cov.view(torch.int16), ref.view(torch.int16))
+    c = cov.view(torch.int16).to(torch.int32) & 0xFFFF
+    assert int(c.max()) == 65535 and int(c[0, 4, 120]) == 65535
+
+
+def _score_tables(dev, ploidy, deletion_error):
+    from bossruns_torch.ops.model import make_model
+
+    return ts.ScoreTables(make_model(ploidy=ploidy, deletion_error=deletion_error), device=dev)
+
+
+def _mixed_coverage(rng, nb, G):
+    """[nb, 5, G] uint16 where each site is one of: no counts, frozen
+    (covsum >= 30), counts on the fifth plane only, or 1-20 counts per
+    symbol, in runs of 1-40 sites so warps mix them; the first 300 sites
+    are empty (whole empty warps)."""
+    kind = np.repeat(rng.integers(0, 4, G), rng.integers(1, 41, G))[:G]
+    cov = rng.integers(1, 21, (nb, 5, G)).astype(np.uint16)
+    cov[:, :, kind == 0] = 0
+    cov[:, :, kind == 1] = 7                      # covsum 35: frozen
+    cov[:, :4, kind == 2] = 0                     # only the fifth plane
+    cov[:, :, :300] = 0
+    return cov
+
+
+def _score_both(dev, tables, cov, seq, valid):
+    args = dict(coverage=cov, seq=seq, site_valid=valid, tables=tables, freeze_cov=30,
+                tiny=float(np.finfo(np.float32).tiny))
+    sk, ck = ts.site_scores(**args)
+    sp, cp = ts.site_scores_plain(**args)
+    assert torch.equal(ck, cp)
+    torch.testing.assert_close(sk, sp, rtol=1e-5, atol=5e-5)
+    return sk, ck
+
+
+@pytest.mark.parametrize("ploidy,deletion_error", [(1, 0.03), (1, 0.0), (2, 0.03), (2, 0.0)])
+def test_score_kernel_all_models_mixed_warps(dev, ploidy, deletion_error):
+    """H2 at all four model shapes ((5,5), (4,4), (5,15), (4,10)) against
+    site_scores_plain on warps that mix empty, frozen, invalid, fifth-plane-
+    only and covered sites; covsum exact. Empty valid sites score the same
+    bits inside mixed warps (full contraction) as in empty warps (the
+    per-block constants)."""
+    rng = np.random.default_rng(ploidy * 10 + int(deletion_error * 100))
+    nb, G = 2, 40_000
+    tables = _score_tables(dev, ploidy, deletion_error)
+    assert (tables.len_b, tables.len_g) in ((5, 5), (4, 4), (5, 15), (4, 10))
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8)).to(dev)
+    valid = torch.from_numpy(rng.random(G) < 0.9).to(dev)
+    cov = torch.from_numpy(_mixed_coverage(rng, nb, G)).to(dev)
+    sk, ck = _score_both(dev, tables, cov, seq, valid)
+    empty = (cov[:, : tables.len_b].view(torch.int16) == 0).all(dim=1) & valid[None, :] \
+        & (ck < 30)
+    for r in range(4):
+        vals = sk[empty & (seq[None, :] == r)]
+        assert vals.numel() > 0 and bool((vals == vals[0]).all()), r
+
+
+@pytest.mark.parametrize("G,offset", [(40_001, 0), (40_000, 1), (4095, 0)])
+def test_score_kernel_ragged_and_unaligned(dev, G, offset):
+    """H2's scalar instantiation: G not a multiple of 4 (nor of a block's
+    1024 sites), and every base one element off alignment, against the
+    plain version at the diploid shape."""
+    rng = np.random.default_rng(G + offset)
+    tables = _score_tables(dev, 2, 0.03)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    seq = up(rng.integers(0, 4, G + offset).astype(np.int8))[offset:]
+    valid = up(rng.random(G + offset) < 0.9)[offset:]
+    data = _mixed_coverage(rng, 1, G).reshape(-1)
+    cov = up(np.concatenate([np.zeros(offset, np.uint16), data]))[offset:].view(1, 5, G)
+    assert cov.is_contiguous() and (cov.data_ptr() % 8 != 0) == bool(offset)
+    _score_both(dev, tables, cov, seq, valid)

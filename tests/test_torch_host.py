@@ -260,3 +260,56 @@ def test_kernel_sources_carry_their_notes():
                  "aeons_strategy.cu"):
         head = (REPO / "bossruns_torch" / "csrc" / name).read_text()[:3000]
         assert "Replaces:" in head and "Bound on the H100" in head and "Design" in head, name
+
+
+def test_chip_smoke_bounds_count_what_the_inputs_need(monkeypatch):
+    """The smoke's bounds, on small CPU inputs: H2 counts the arithmetic of
+    the sites that need the contraction only (a nonzero count among the
+    model's symbols, unfrozen, valid; LG + LB + 2 special functions and
+    2 LB LG + LG + LB FMAs each), which stays below the byte bound on dense
+    diploid coverage and binds where the byte rate is higher; the coverage
+    bound counts the coverage entries a step changed, read and written
+    once."""
+    import chip_smoke as cs
+    from bossruns_torch.ops import scores as ts
+    from bossruns_torch.ops.model import make_model
+
+    rng = np.random.default_rng(2)
+    G = 4000
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8))
+    valid = torch.ones(G, dtype=torch.bool)
+    valid[:100] = False
+    dense = cs.dense_coverage(seq, 1)
+    covsum = dense.view(torch.int16).sum(dim=1)
+    assert int(covsum.min()) >= 1 and int(covsum.max()) <= 29
+    args = dict(coverage=dense, seq=seq, site_valid=valid, freeze_cov=30, tiny=1e-38,
+                tables=ts.ScoreTables(make_model(ploidy=2), device="cpu"))
+    out = ts.site_scores(**args)
+    b = cs.score_bound(args, *out)
+    n = G - 100
+    sfu = (15 + 5 + 2) * n / (cs.N_SMS * cs.SFU_PER_SM_CLOCK * cs.SM_CLOCK_MHZ * 1e3)
+    fma = 2 * (2 * 5 * 15 + 15 + 5) * n / cs.F32_FLOP_PER_MS
+    assert b["n_contract"] == n and b["sfu_ms"] == pytest.approx(sfu, rel=1e-12)
+    assert b["fma_ms"] == pytest.approx(fma, rel=1e-12)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] == b["byte_ms"] > b["sfu_ms"] > b["fma_ms"]
+    assert b["byte_ms"] == b["bytes"] / cs.HBM_BYTES_PER_MS
+    monkeypatch.setattr(cs, "HBM_BYTES_PER_MS", cs.HBM_BYTES_PER_MS * 2)
+    b = cs.score_bound(args, *out)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b["sfu_ms"] > b["byte_ms"]
+    monkeypatch.undo()
+    sparse = torch.zeros_like(dense)
+    sparse.view(torch.int16)[0, 4, 300:400] = 2           # the fifth (deletion) plane only
+    sparse.view(torch.int16)[0, 0, 500:560] = 3
+    sparse.view(torch.int16)[0, 1, 550:600] = 40          # frozen from 550 on
+    for deletion_error, n in ((0.03, 150), (0.0, 50)):    # LB 5 counts deletions, LB 4 not
+        a = dict(args, coverage=sparse, tables=ts.ScoreTables(
+            make_model(ploidy=2, deletion_error=deletion_error), device="cpu"))
+        b = cs.score_bound(a, *ts.site_scores(**a))
+        assert b["n_contract"] == n and b["bound_by"] == "bytes", deletion_error
+    after = sparse.clone()
+    after.view(torch.int16)[0, 2, 10:17] += 1
+    z = torch.zeros(3, dtype=torch.uint8)
+    rows = tg.CovRows(z, z.to(torch.int32).view(torch.uint32), z.to(torch.int16).view(torch.uint16),
+                      z.to(torch.int16).view(torch.uint16), z.to(torch.int32).view(torch.uint32))
+    c = cs.coverage_bound(rows, seq, torch.zeros(G, dtype=torch.bool), sparse, after)
+    assert c["entries_changed"] == 7 and c["bytes"] == 3 * 13 + G + G + 4 * 7

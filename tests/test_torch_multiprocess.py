@@ -6,6 +6,7 @@ BOSS_PROCESS_ID, each holding one genome shard. Started once through the
 dry-run entry (``python -m bossruns_torch.parallel dryrun 2``) and once
 through the CLI with a mesh TOML; the strategies must be bit-identical to
 the in-process mesh of the same shape, and only the primary writes files.
+With debug_aux every rank returns the same all-gathered scores.
 Every subprocess has a timeout and a free port. Ranks map to cards one to
 one; more ranks than cards are refused.
 """
@@ -82,6 +83,32 @@ def test_two_process_dryrun_matches_in_process(tmp_path):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_two_process_debug_scores_match_in_process(tmp_path):
+    """debug_aux across two gloo ranks: each rank's StepAux.scores is the
+    all-gathered [NB, G_pad] array, the same on both ranks and equal to the
+    in-process mesh's."""
+    code = (
+        "import sys, numpy as np\n"
+        "from bossruns_torch.models.runs import RunsConfig\n"
+        "from bossruns_torch.parallel import distributed\n"
+        "from bossruns_torch.parallel.mesh import demo_sharded_step, process_group_mesh\n"
+        "distributed.init_from_env('cpu')\n"
+        f"mesh = process_group_mesh(1, {NPROC}, 'cpu')\n"
+        "_, _, aux = demo_sharded_step(mesh=mesh, config=RunsConfig(debug_aux=True))\n"
+        "np.save(f'scores{distributed.process_index()}.npy', aux.scores.numpy())\n"
+        "distributed.close()\n"
+    )
+    _run_ranks([sys.executable, "-c", code], cwd=tmp_path)
+    from bossruns_torch.models.runs import RunsConfig
+
+    eng, _, aux = demo_sharded_step(mesh=make_mesh(["cpu"] * NPROC),
+                                    config=RunsConfig(debug_aux=True))
+    want = aux.scores.numpy()
+    assert want.shape == (1, eng.layout.G_pad) and (want > 0).any()
+    for r in range(NPROC):
+        np.testing.assert_array_equal(np.load(tmp_path / f"scores{r}.npy"), want, err_msg=str(r))
 
 
 def test_two_process_cli_sim_matches_in_process(tmp_path):

@@ -11,6 +11,10 @@
   so their norms, and with them thresholds, may differ while every
   decision agrees;
 * a JAX state carries into the sharded engine and its gathered state back;
+* with ``debug_aux`` the sharded engine's gathered scores equal the single
+  engine's bit for bit and the JAX ShardedRunsEngine's within the port's
+  f32 score tolerance, and the f64 oracle given those scores makes the
+  sharded engine's decisions exactly (the test_engine_parity contract);
 * ``demo_sharded_step(8, 2)`` gives JAX's demo mask;
 * ``BossRunsSim(mesh_shards=(1, 4))`` equals the unsharded classic sim, and
   a sharded checkpoint resumes into either engine.
@@ -137,6 +141,59 @@ def test_sharded_engine_matches_single_and_jax(Sb, Sg, ploidy, nb):
     assert updated, "the strategy never updated: the case does not reach the decisions"
     strat = sharded.strat_dict(ss)
     assert all(np.array_equal(strat[k], v) for k, v in single.strat_dict(s1).items())
+
+
+@pytest.mark.parametrize("Sb,Sg,ploidy", [(1, 2, 1), (1, 2, 2), (2, 2, 1), (2, 2, 2)])
+def test_sharded_scores_match_single_jax_and_oracle(Sb, Sg, ploidy):
+    """debug_aux on the sharded engine: its [NB, G_pad] post-mask scores
+    equal the single engine's bit for bit and JAX's sharded engine's within
+    rtol 1e-5 / atol 5e-5 (the two f32 closed forms, F5); given them, the
+    f64 oracle's coverage, bucket_on, read_starts and strat equal the
+    sharded engine's exactly, and its threshold within 1e-12."""
+    from bossruns_tpu import oracle
+    from bossruns_tpu.models.runs import ReadBatch as JBatch
+    from bossruns_tpu.models.runs import RunsConfig as JConfig
+    from bossruns_tpu.parallel import mesh as jmesh
+    from bossruns_torch.models.runs import RunsConfig
+
+    nb = 2 if Sb > 1 else 1
+    layout, batches = _case(31 + 2 * Sb + ploidy, nb, Sg)
+    model = make_model(ploidy=ploidy)
+    cfg = RunsConfig(debug_aux=True)
+    single = RunsEngine(layout, model, cfg, device="cpu")
+    sharded = tmesh.ShardedRunsEngine(layout, tmesh.make_mesh(["cpu"] * (Sb * Sg), Sb), model,
+                                      cfg)
+    jeng = jmesh.ShardedRunsEngine(layout, jmesh.make_mesh(jax.devices()[: Sb * Sg], Sb), model,
+                                   JConfig(debug_aux=True))
+    s1, ss, js = single.init_state(), sharded.init_state(), jeng.init_state()
+    st_np = sharded.state_numpy(ss)
+    st_np["read_starts"] = st_np["read_starts"].astype(np.float64)
+    params = single.make_params(CCL, 5300.0)
+    updated = 0
+    for i, b in enumerate(batches):
+        s1, a1 = single.step(s1, batch_from_numpy(b, "cpu"), params)
+        ss, a_s = sharded.step(ss, batch_from_numpy(b, "cpu"), params)
+        js, ja = jeng.step(js, jeng.put_batch(JBatch(**{k: jnp.asarray(v) for k, v in b.items()})),
+                           jeng.make_params(CCL, 5300.0))
+        assert a_s.scores.shape == (layout.n_barcodes, layout.G_pad)
+        assert torch.equal(a_s.scores, a1.scores), i
+        np.testing.assert_allclose(a_s.scores.numpy(), np.asarray(ja.scores), rtol=1e-5,
+                                   atol=5e-5, err_msg=f"vs JAX, step {i}")
+        st_np, aux_o = oracle.full_update(sharded, st_np, b, CCL, 5300.0,
+                                          scores_override=a_s.scores.numpy())
+        got = sharded.state_numpy(ss)
+        assert bool(a_s.any_on) == aux_o["any_on"], i
+        assert bool(a_s.updated) == aux_o["updated"], i
+        for k in ("coverage", "bucket_on", "strat"):
+            np.testing.assert_array_equal(got[k], st_np[k], err_msg=f"{k} vs oracle, step {i}")
+        np.testing.assert_array_equal(got["read_starts"].astype(np.float64), st_np["read_starts"])
+        if aux_o["updated"]:
+            updated += 1
+            np.testing.assert_allclose(float(a_s.threshold), aux_o["threshold"], rtol=1e-12)
+    assert updated >= 1
+    # the scores are the post-dropout ones: every zeroed site scores 0
+    zeroed = torch.from_numpy(got["zeroed"])
+    assert bool(zeroed.any()) and not bool(a_s.scores[zeroed].any())
 
 
 def test_state_carries_across_packages():

@@ -142,7 +142,7 @@ def strategy(cov: torch.Tensor, ends: torch.Tensor, flags: torch.Tensor,
              table: torch.Tensor, wins: tuple, weights: tuple, tc: float, tbar0: float):
     """H7: the contig strategy mask, threshold and benefit (as
     ``strategy_plain``). A CPU tensor takes the plain version; a CUDA
-    tensor launches csrc/aeons_strategy.cu (five launches) or raises."""
+    tensor launches csrc/aeons_strategy.cu (four launches) or raises."""
     if cov.device.type == "cpu":
         return strategy_plain(cov, ends, flags, table, wins, weights, tc, tbar0)
     dev = cov.device
@@ -165,6 +165,8 @@ def strategy(cov: torch.Tensor, ends: torch.Tensor, flags: torch.Tensor,
         norm_bits=torch.empty(1, dtype=torch.int64, device=dev),
         any_nz=torch.empty(1, dtype=torch.int32, device=dev),
         counts=torch.empty(NBINS, dtype=torch.int32, device=dev),
+        tickets=torch.empty(2, dtype=torch.int32, device=dev),
+        smu_sum=torch.empty(1, dtype=f64, device=dev),
     )
     a = K.AeonsArgs(
         n=n, C=C, win=(ctypes.c_int32 * 11)(*wins),

@@ -564,6 +564,11 @@ def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on
     return smu, benefit, res.threshold
 
 
+#: the widest window (ds rows) whose cumsum H4's window launch stages in
+#: shared memory (csrc/strategy.cu MAX_WINDOW)
+MAX_WINDOW_ROWS = 12000
+
+
 def _check_benefit(kw) -> tuple[int, list[int]]:
     """Raise unless the arguments of an H4 launch are the tensors it takes;
     returns the bucket count and the 10 CCL windows (>= 1)."""
@@ -575,14 +580,16 @@ def _check_benefit(kw) -> tuple[int, list[int]]:
     for k in ("seg_start", "seg_end", "bucket_idx"):
         c(kw[k], k, torch.int32, (Gd,), dev)
     c(kw["strat_valid"], "strat_valid", torch.bool, (Gd,), dev)
-    c(kw["fhat_exp"], "fhat_exp", torch.float64, (Gd, 2), dev)
+    c(kw["fhat_exp"], "fhat_exp", torch.float64, (Gd, 2), dev, align=16)
     nbk = kw["bucket_on"].shape[1]
     c(kw["bucket_on"], "bucket_on", torch.bool, (nb, nbk), dev)
-    c(kw["strat"], "strat", torch.bool, (nb, Gd, 2), dev)
+    c(kw["strat"], "strat", torch.bool, (nb, Gd, 2), dev, align=2)
     c(kw["aux"], "aux", torch.float32, (4,), dev)
     windows = [max(int(w), 1) for w in kw["windows"]]
     if len(windows) != 10:
         raise ValueError("expected 10 CCL windows")
+    if max(windows + [int(kw["mu_ds"])]) > MAX_WINDOW_ROWS:
+        raise ValueError(f"H4 stages windows of at most {MAX_WINDOW_ROWS} rows in shared memory")
     return nbk, windows
 
 
@@ -610,6 +617,7 @@ def benefit_strategy(**kw):
         counts=torch.empty(NBINS, dtype=torch.int32, device=dev),
         fsum=torch.empty(NBINS, dtype=f64, device=dev),
         ubar0=torch.empty(1, dtype=f64, device=dev),
+        tickets=torch.empty(2, dtype=torch.int32, device=dev),
     )
     a = K.StratArgs(
         nb=nb, Gd=Gd, nbk=nbk, mu_ds=int(kw["mu_ds"]),
@@ -864,7 +872,7 @@ def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, 
         cs = torch.cumsum(x.reshape(nb, n_tiles, SCAN_TILE), dim=2)
         ws["cs"][:, 1:] = cs.reshape(nb, -1)[:, :Gd]  # column 0 is set by the prefix
         ws["tile_sums"].copy_(cs[:, :, -1])
-        for k in ("norm", "any_nz", "counts", "fsum", "ubar0"):  # as the kernel's memsets
+        for k in ("norm", "any_nz", "counts", "fsum", "ubar0"):  # as the kernel zeroes them
             ws[k].zero_()
     elif phase == "prefix":
         # in place, as the kernel: the gathered totals become their

@@ -77,7 +77,7 @@ class StratArgs(ctypes.Structure):
             "fsum", "ubar0",
         )],
         *[(n, _I64) for n in ("row0", "halo", "cs_stride", "n_tiles_g", "tile0")],
-        ("ext", _P), ("tiles_g", _P),
+        ("ext", _P), ("tiles_g", _P), ("tickets", _P),
     ]
 
 
@@ -91,7 +91,7 @@ class AeonsArgs(ctypes.Structure):
         ("tc", ctypes.c_double), ("tbar0", ctypes.c_double),
         *[(n, _P) for n in (
             "cov", "ends", "flags", "table", "cs", "benefit", "smu_part", "norm_bits",
-            "any_nz", "counts", "threshold", "mask",
+            "any_nz", "counts", "threshold", "mask", "tickets", "smu_sum",
         )],
     ]
 
@@ -265,8 +265,9 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,
-          device: torch.device | None = None) -> None:
-    """Raise unless t is a contiguous CUDA tensor of the given dtype/shape."""
+          device: torch.device | None = None, align: int = 1) -> None:
+    """Raise unless t is a contiguous CUDA tensor of the given dtype/shape
+    whose address is a multiple of ``align`` bytes (a kernel's vector loads)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -277,6 +278,8 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = 
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: address not a multiple of {align} bytes")
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

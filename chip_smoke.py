@@ -31,8 +31,9 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      (identical rows, times of both);
  10. the contig strategy kernel H7 against its plain version on bench.py's
      strat_triple pools (40 and 200 contigs of 200 kb, coverage 0-21 and
-     0-29): threshold, mask and benefit exact, with times of H7, the plain
-     version and the f64 host path;
+     0-29) and on one 5 Mb contig beside 2,000 one-chunk contigs:
+     threshold, mask and benefit exact, with times of H7 (and its split by
+     launch), the plain version and the f64 host path;
  11. the AEONS simulation at bench.py's section_aeons shape (300 kb genome,
      4000 reads of mean 5 kb, batch 500, binit 2, 4 batches): masks and
      contigs written, time_boss <= time_control, decisions engaged, H5, H6
@@ -52,7 +53,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      4000-read batches, bit-identical state, aux and threshold, the step
      p50 and peak memory of each, H8's launches in the sharded run
      (whose shards have phase 13's shapes), and then each step's device
-     time by launch;
+     time by launch; then H1, H2 and H4 at the single engine's shape
+     (launches, device time, H4's split, bounds), and H4's binning launch
+     alone (shard_benefit's bins phase) on the step's own benefit and on a
+     copy spread over 100 exponent bins, counts and fsum exact;
  15. a (2, 2) mesh with two barcodes on the 8.05 Mb genome against the
      single engine, and BossRunsSim(mesh_shards=(1, 4)) over the corpus
      of phase 4 against the unsharded sims (6 batches, every bit).
@@ -1100,12 +1104,28 @@ def check_ava(dev, card: str) -> dict:
 
 
 class _PoolContig:
-    """A contig of bench.py's strat_triple pools: 200 kb, random coverage."""
+    """A contig of n bases with random per-base coverage in [0, hi)."""
 
     def __init__(self, n: int, rng, hi: int):
         self.seq = "A" * n
         self.cov = rng.integers(0, hi, n).astype(np.float32)
         self.cap_l = self.cap_r = False
+
+
+def strategy_pools(rng):
+    """Phase 10's contig pools: bench.py's strat_triple pools (40 and 200
+    contigs of 200 kb, coverage 0-21 and 0-29), keyed (n_contigs, hi), and
+    "long": one 5 Mb contig (50,000 chunks) beside 2,000 one-chunk contigs
+    (coverage 0-21), the longest dependent chain of the per-contig scan
+    beside the most contigs."""
+    for n_contigs in (40, 200):
+        for hi in (22, 30):
+            yield ((n_contigs, hi), f"{n_contigs * 200_000 // 1_000_000} Mb ({n_contigs} x 200 kb), "
+                   f"coverage 0-{hi - 1}",
+                   {f"u{j}": _PoolContig(200_000, rng, hi) for j in range(n_contigs)})
+    pool = {"long": _PoolContig(5_000_000, rng, 22)}
+    pool.update((f"t{j}", _PoolContig(100, rng, 22)) for j in range(2000))
+    yield "long", "long (one 5 Mb contig + 2,000 x 100 b), coverage 0-21", pool
 
 
 def check_aeons_strategy(dev, card: str) -> dict:
@@ -1116,48 +1136,47 @@ def check_aeons_strategy(dev, card: str) -> dict:
     lam = 6000.0
     rng = np.random.default_rng(5)
     res, worst = {}, 0.0
-    for n_contigs in (40, 200):
-        for hi in (22, 30):
-            pool = {f"u{j}": _PoolContig(200_000, rng, hi) for j in range(n_contigs)}
-            inp = B.StrategyInputs.build(pool, ccl, lam)
-            args = inp.device_args(dev)
-            mk, tk, bk = B.strategy(*args)
-            mp, tp, bp = B.strategy_plain(*args)
-            mh, th = inp.run_host()
-            torch.cuda.synchronize()
-            if tk != tp:
-                raise AssertionError(f"H7 threshold {tk!r} != plain {tp!r}")
-            exact("H7 mask", mk, mp)
-            exact("H7 benefit", bk, bp)
-            worst = max(worst, max_abs_err((bk, bp)))
-            if abs(tk - th) > 1e-12 * abs(th) or not np.array_equal(mk.cpu().numpy(), mh):
-                raise AssertionError(f"H7 vs host path: threshold {tk!r} vs {th!r}, "
-                                     f"{int((mk.cpu().numpy() != mh).sum())} mask bits")
-            ms = time_ms(lambda: B.strategy(*args), reps=10)
-            plain_ms = time_ms(lambda: B.strategy_plain(*args), reps=3, warm=1)
-            hs = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                inp.run_host()
-                hs.append(time.perf_counter() - t0)
-            ed, eh = [], []
-            for _ in range(3):  # contig_strategies end to end, descriptor build included
-                t0 = time.perf_counter()
-                B.contig_strategies(pool, ccl, lam, device=dev)
-                ed.append(time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                B.contig_strategies(pool, ccl, lam, device=dev, backend="host")
-                eh.append(time.perf_counter() - t0)
-            mb = n_contigs * 200_000 // 1_000_000
-            log(f"H7 aeons_strategy {mb} Mb ({n_contigs} x 200 kb), coverage 0-{hi - 1}: "
-                f"threshold {tk!r}, mask ({int(mk.sum())} of {mk.numel()} accepted) and benefit "
-                f"exact vs plain, equal to the f64 host path; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, host path {1000 * statistics.median(hs):.2f} ms; "
-                f"contig_strategies device {1000 * statistics.median(ed):.1f} ms, host "
-                f"{1000 * statistics.median(eh):.1f} ms [{card}]")
-            res[(n_contigs, hi)] = dict(ms=ms, plain_ms=plain_ms,
-                                        **synced_device(lambda: B.strategy(*args), "aeons_strategy"),
-                                        **bound(nbytes(args) + nbytes(mk, bk)))
+    for key, what, pool in strategy_pools(rng):
+        inp = B.StrategyInputs.build(pool, ccl, lam)
+        args = inp.device_args(dev)
+        mk, tk, bk = B.strategy(*args)
+        mp, tp, bp = B.strategy_plain(*args)
+        mh, th = inp.run_host()
+        torch.cuda.synchronize()
+        if tk != tp:
+            raise AssertionError(f"H7 threshold {tk!r} != plain {tp!r}")
+        exact("H7 mask", mk, mp)
+        exact("H7 benefit", bk, bp)
+        worst = max(worst, max_abs_err((bk, bp)))
+        if abs(tk - th) > 1e-12 * abs(th) or not np.array_equal(mk.cpu().numpy(), mh):
+            raise AssertionError(f"H7 vs host path: threshold {tk!r} vs {th!r}, "
+                                 f"{int((mk.cpu().numpy() != mh).sum())} mask bits")
+        ms = time_ms(lambda: B.strategy(*args), reps=10)
+        plain_ms = time_ms(lambda: B.strategy_plain(*args), reps=3, warm=1)
+        hs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            inp.run_host()
+            hs.append(time.perf_counter() - t0)
+        ed, eh = [], []
+        for _ in range(3):  # contig_strategies end to end, descriptor build included
+            t0 = time.perf_counter()
+            B.contig_strategies(pool, ccl, lam, device=dev)
+            ed.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            B.contig_strategies(pool, ccl, lam, device=dev, backend="host")
+            eh.append(time.perf_counter() - t0)
+        res[key] = dict(ms=ms, plain_ms=plain_ms,
+                        **synced_device(lambda: B.strategy(*args), "aeons_strategy"),
+                        **bound(nbytes(args) + nbytes(mk, bk)))
+        log(f"H7 aeons_strategy {what}: threshold {tk!r} (host {th!r}), mask "
+            f"({int(mk.sum())} of {mk.numel()} accepted) and benefit exact vs plain, equal to the "
+            f"f64 host path; kernel {ms:.4f} ms (device {res[key]['device_ms']:.4f} ms, bound "
+            f"{res[key]['bound_ms']:.4f} ms by bytes), plain {plain_ms:.4f} ms, host path "
+            f"{1000 * statistics.median(hs):.2f} ms; contig_strategies device "
+            f"{1000 * statistics.median(ed):.1f} ms, host {1000 * statistics.median(eh):.1f} ms "
+            f"[{card}]")
+        log(f"device split aeons_strategy {what} (launch ms): {fmt_split(res[key]['split'])}")
     # the main path's shape is a few small contigs; report the 8 Mb pool
     return dict(res[(40, 22)], max_abs_err=worst)
 
@@ -1579,9 +1598,70 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
         f"{h1['entries_changed']} coverage entries changed) [{card}]")
     log(f"chromosome single, H2 site_scores: {single_launches['site_scores']} launches, device "
         f"{h2_ms:.4f} ms, {fmt_score_bound(h2)} [{card}]")
+    del args
+    h4 = chrom_benefit(eng, st, b, card, single_launches["benefit_strategy"])
     del s_res, m_res, sharded
     torch.cuda.empty_cache()
-    return dict(out, launches=launches)
+    return dict(out, launches=launches, benefit=h4)
+
+
+#: exact powers of two 2^0 ... 2^-99 (scaling by one is exact)
+SPREAD_BINS = 100
+
+
+def chrom_benefit(eng, st, b, card: str, launches: int) -> dict:
+    """H4 at the single engine's chromosome shape, on copies of the state
+    the runs leave and their last batch: the stages before it (H1, H2, H3)
+    give its inputs; then its device time per call, split by launch, and
+    its byte bound. Then H4's binning launch alone, through shard_benefit's
+    bins phase (one launch on both sides of a redesign), on this benefit
+    and on a copy whose positive values are scaled by 2^-(i % 100), so they
+    spread over 100 exponent bins: counts and fsum exact against the plain
+    bin_benefit, device time of each."""
+    from bossruns_torch.ops import genome_ops as gops
+    from bossruns_torch.ops import scores as sc
+
+    params = eng.make_params(CCL, TIME_COST)
+    rows = gops.CovRows(b.mr_bc, b.mr_g, b.mr_len, b.ex_bcsym, b.ex_g)
+    st = st._replace(coverage=st.coverage.clone(), zeroed=st.zeroed.clone(),
+                     bucket_on=st.bucket_on.clone(), read_starts=st.read_starts.clone(),
+                     strat=st.strat.clone())
+    changed = gops.coverage_update(**eng.coverage_args(st, rows))
+    scores, covsum = sc.site_scores(**eng.score_args(st))
+    aux = torch.zeros(4, dtype=torch.float32, device=scores.device)
+    ds, fe = gops.row_stage(**eng.row_args(st, scores, covsum, changed, aux, params,
+                                           b.rs_row, b.rs_strand, rs_w=b.rs_w))
+    del changed, scores, covsum
+    bargs = eng.benefit_args(st, ds, fe, aux, params)
+    smu, ben, thr = gops.benefit_strategy(**bargs)
+    res = dict(launches=launches, **device(lambda: gops.benefit_strategy(**bargs)),
+               **bound(nbytes(bargs) + nbytes(smu, ben, thr, bargs["strat"], bargs["aux"])))
+    log(f"chromosome single, H4 benefit_strategy: {launches} launches, device "
+        f"{res['device_ms']:.4f} ms ({fmt_split(res['split'])}), bound {res['bound_ms']:.4f} ms "
+        f"by bytes ({res['bytes']} B; {ds.shape[1]} rows) [{card}]")
+    del smu
+    kw = dict(bargs, row0=0, halo=max(bargs["windows"] + [bargs["mu_ds"]]))
+    fe_b = fe[None].expand_as(ben)
+    k = torch.arange(ben.numel(), device=ben.device).remainder(SPREAD_BINS).reshape(ben.shape)
+    pow2 = torch.from_numpy(np.ldexp(1.0, -np.arange(SPREAD_BINS))).to(ben.device)
+    for what, x in (("own benefit", ben), (f"spread over {SPREAD_BINS} bins", ben * pow2[k])):
+        ws = gops.benefit_workspace(ds)
+        ws["benefit"].copy_(x)
+        ws["norm"].copy_(x.max().reshape(1))
+        ws["counts"].zero_()
+        ws["fsum"].zero_()
+        gops.shard_benefit("bins", ws, **kw)
+        counts, fsum = gops.bin_benefit(x, fe_b, ws["norm"][0], gops.NBINS)
+        exact(f"bin_benefit {what} counts", ws["counts"].to(torch.float64), counts)
+        exact(f"bin_benefit {what} fsum", ws["fsum"], fsum)
+        ms = queued_ms(lambda: gops.shard_benefit("bins", ws, **kw))
+        bb = bound(nbytes(x, fe, ws["counts"], ws["fsum"]))
+        res[f"bins {what}"] = dict(device_ms=ms, **bb)
+        log(f"chromosome single, bin_benefit alone on the {what}: {int((x > 0).sum())} positive "
+            f"of {x.numel()}, {int((counts > 0).sum())} bins used, counts and fsum exact vs "
+            f"plain; device {ms:.4f} ms, bound {bb['bound_ms']:.4f} ms by bytes [{card}]")
+        del ws
+    return res
 
 
 def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:

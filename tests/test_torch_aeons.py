@@ -260,6 +260,18 @@ def _case(name):
     if name == "pool":  # bench.py's strat_triple shape, cut to 10 x 50 kb
         return _contigs(rng, [(f"u{j}", 50_000, 22) for j in range(10)],
                         lambda r, L, hi: r.integers(0, hi, L))
+    if name == "long":  # one 5 Mb contig: the longest per-contig prefix chain
+        return _contigs(rng, (("L", 5_000_000, 22),),
+                        lambda r, L, hi: np.repeat(r.integers(0, hi, -(-L // 100)), 100)[:L])
+    if name == "tiny":  # 2,000 contigs of 100-200 bases (one or two chunks each), each
+        # with its own coverage level and ends capped at random
+        lens, lv, caps = rng.integers(100, 201, 2000), rng.integers(1, 41, 2000), rng.integers(
+            0, 4, 2000)
+        c = _contigs(rng, [(f"t{j}", int(L), int(lv[j])) for j, L in enumerate(lens)],
+                     lambda r, L, hi: r.integers(0, hi, L))
+        for j, h in enumerate(c):
+            c[h].cap_l, c[h].cap_r = bool(caps[j] & 1), bool(caps[j] & 2)
+        return c
     # no nonzero benefit: every chunk saturated, both ends capped
     c = _contigs(rng, (("z", 20_000, 0),), lambda r, L, _: np.full(L, 100.0))
     c["z"].cap_l = c["z"].cap_r = True
@@ -270,7 +282,7 @@ def _flat(masks, names):
     return np.concatenate([masks[h].ravel() for h in names])
 
 
-@pytest.mark.parametrize("case", ["shapes", "mirror", "ends", "pool", "flat"])
+@pytest.mark.parametrize("case", ["shapes", "mirror", "ends", "pool", "flat", "long", "tiny"])
 def test_contig_strategies_matches_host_and_jax(case):
     contigs = _case(case)
     names = list(contigs)

@@ -391,6 +391,178 @@ def test_aeons_strategy_kernel_exact(dev, n_contigs):
         assert torch.equal(bk, bp) and torch.equal(mk, mp)
 
 
+def _aeons_pool(rng, kind: str):
+    """Chunk coverage, chunk counts and flag bits of a contig pool: "long",
+    one 50,000-chunk (5 Mb) contig beside 2,000 one-chunk contigs; "tiny",
+    2,000 contigs of one or two chunks. Flags at random (NOI and uncapped
+    ends), coverage 0-21."""
+    nd = (np.array([50_000] + [1] * 2000) if kind == "long"
+          else rng.integers(1, 3, 2000)).astype(np.int64)
+    cov = rng.integers(0, 22, int(nd.sum())).astype(np.uint8)
+    return cov, nd, rng.integers(0, 16, nd.size).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["long", "tiny"])
+def test_aeons_strategy_kernel_long_and_tiny_contigs(dev, kind):
+    """H7 on the longest per-contig chain beside many one-chunk contigs, and
+    on many tiny contigs: mask, benefit and threshold bit-equal to its plain
+    version, mask and threshold to the f64 host path."""
+    from bossruns_torch.aeons import benefit as B
+
+    cov, nd, flags = _aeons_pool(np.random.default_rng(77 if kind == "long" else 78), kind)
+    wins = (4, 200, 140, 100, 70, 50, 35, 25, 17, 9, 3)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (up(cov), up(np.cumsum(nd)), up(flags), up(B.score_table(10.0)), wins,
+            B.AEONS_WEIGHTS, 55.0, 10)
+    mk, tk, bk = B.strategy(*args)
+    mp, tp, bp = B.strategy_plain(*args)
+    torch.cuda.synchronize()
+    assert tk == tp and tk > 0
+    assert torch.equal(bk, bp) and torch.equal(mk, mp)
+    bit = lambda k: (flags >> k) & 1 > 0  # noqa: E731
+    mh, th = B._strategy_host(cov, nd, bit(0), bit(1), bit(2), bit(3), 10.0,
+                              np.array(wins[1:]), wins[0], 55.0, 10)
+    assert tk == th
+    np.testing.assert_array_equal(mk.cpu().numpy(), mh)
+    assert 0.0 < float(mh.mean()) < 1.0
+
+
+def _benefit_kw(dev, rng, nb: int, Gd: int, halo: int) -> dict:
+    """Arguments of H4 on a synthetic ds-row genome: f64 scores over a wide
+    range, two segments, buckets of 100 rows (some rows in none), dyadic
+    f32 fhat weights, a random strategy, the bucket gate open."""
+    r = np.arange(Gd)
+    s1 = Gd // 3
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    bidx = (r // 100).astype(np.int32)
+    bidx[rng.random(Gd) < 0.02] = -1
+    return dict(
+        scores_ds=up(rng.random((nb, Gd)) * np.exp(rng.normal(0, 2, (nb, Gd)))),
+        seg_start=up(np.where(r < s1, 0, s1).astype(np.int32)),
+        seg_end=up(np.where(r < s1, s1, Gd).astype(np.int32)),
+        fhat_exp=up(rng.integers(1, 2**12, (Gd, 2)) * 2.0**-20),
+        bucket_on=up(rng.random((nb, Gd // 100 + 1)) < 0.9), bucket_idx=up(bidx),
+        strat_valid=up(rng.random(Gd) < 0.95), strat=up(rng.random((nb, Gd, 2)) < 0.5),
+        aux=torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32, device=dev), mu_ds=4,
+        windows=[halo, 200, 140, 100, 70, 50, 35, 22, 12, 4], time_cost=5300.0,
+    )
+
+
+def _shard_kw(kw: dict, lo: int, hi: int, halo: int) -> dict:
+    """Genome rows [lo, hi) of H4's arguments as one shard's."""
+    rows = ("seg_start", "seg_end", "fhat_exp", "bucket_idx", "strat_valid")
+    out = dict(kw, row0=lo, halo=halo, aux=kw["aux"].clone(),
+               scores_ds=kw["scores_ds"][:, lo:hi].contiguous(),
+               strat=kw["strat"][:, lo:hi].contiguous())
+    out.update({k: kw[k][lo:hi].contiguous() for k in rows})
+    return out
+
+
+def _sharded_benefit(kw: dict, bounds: list, halo: int) -> list:
+    """H8's benefit phases over genome shards [bounds[g], bounds[g + 1]),
+    with the sharded engine's collectives between them (in-process, in
+    shard order): the workspaces and shard arguments after the threshold."""
+    skw = [_shard_kw(kw, lo, hi, halo) for lo, hi in zip(bounds, bounds[1:])]
+    ws = [tg.benefit_workspace(k["scores_ds"]) for k in skw]
+    for w, k in zip(ws, skw):
+        tg.shard_benefit("scan", w, **k)
+    tiles = torch.cat([w["tile_sums"] for w in ws], dim=1)
+    for g, (w, k) in enumerate(zip(ws, skw)):
+        w["tiles_g"], w["tile0"] = tiles.clone(), sum(x["tile_sums"].shape[1] for x in ws[:g])
+        tg.shard_benefit("prefix", w, **k)
+    for g, (w, k) in enumerate(zip(ws, skw)):  # the cumsum at rows [row0 - halo, row0 + Gdl + halo]
+        left = ws[g - 1]["cs"][:, -halo - 1: -1] if g else torch.zeros_like(w["cs"][:, :halo])
+        right = (ws[g + 1]["cs"][:, 1: halo + 1] if g + 1 < len(ws)
+                 else torch.zeros_like(w["cs"][:, :halo]))
+        w["ext"] = torch.cat([left, w["cs"], right], dim=1)
+        tg.shard_benefit("windows", w, **k)
+    for key, op in (("norm", torch.max), ("any_nz", torch.max)):
+        v = op(torch.stack([w[key] for w in ws]))
+        for w in ws:
+            w[key].fill_(v)
+    for w, k in zip(ws, skw):
+        tg.shard_benefit("bins", w, **k)
+    for key in ("counts", "fsum", "ubar0"):
+        v = sum(w[key] for w in ws)
+        for w in ws:
+            w[key].copy_(v)
+    for w, k in zip(ws, skw):
+        tg.shard_benefit("threshold", w, **k)
+    return list(zip(ws, skw))
+
+
+@pytest.mark.parametrize("halo", [300, 4096])
+def test_benefit_kernels_ragged_two_barcodes(dev, halo):
+    """H4 and H8's benefit phases on Gd = 3 * 4096 + 1001 rows (a multiple
+    of neither the 4096-row tile nor 4) with two barcodes: the single path
+    against its plain version (windows within the f64 bar, the decisions
+    exact given the kernel's own benefit and smu), and two shards split at
+    a tile boundary equal to the single path bit for bit (smu, benefit,
+    threshold, strat, aux): both take the tile prefixes in the same order.
+    A widest window of 4096 rows (the engine's clamp) stages more than 48
+    KB of cumsum per block in the window launch."""
+    Gd = 3 * 4096 + 1001
+    kw = _benefit_kw(dev, np.random.default_rng(81), 2, Gd, halo)
+    a, b = _clone(kw), _clone(kw)
+    smu_k, ben_k, thr_k = tg.benefit_strategy(**a)
+    smu_p, ben_p, _ = tg.benefit_strategy_plain(**b)
+    atol = 256 * np.finfo(np.float64).eps * float(kw["scores_ds"].sum(dim=1).max())
+    torch.testing.assert_close(smu_k, smu_p, rtol=1e-12, atol=atol)
+    torch.testing.assert_close(ben_k, ben_p, rtol=1e-12, atol=atol)
+    ref = tg.find_strategy(ben_k, smu_k, kw["fhat_exp"][None].expand_as(ben_k), kw["time_cost"])
+    assert float(ref.threshold) == float(thr_k)
+    bidx = kw["bucket_idx"].long()
+    gate = (kw["bucket_on"][:, bidx.clamp_min(0)] & (bidx >= 0)[None]
+            & kw["strat_valid"][None])
+    assert bool(a["aux"][1] > 0)
+    assert torch.equal(a["strat"], torch.where(gate[..., None], ref.strat, kw["strat"]))
+    assert torch.equal(a["aux"], b["aux"])
+    parts = _sharded_benefit(kw, [0, 2 * 4096, Gd], halo)
+    assert torch.equal(torch.cat([w["smu"] for w, _ in parts], dim=1), smu_k)
+    assert torch.equal(torch.cat([w["benefit"] for w, _ in parts], dim=1), ben_k)
+    assert torch.equal(torch.cat([k["strat"] for _, k in parts], dim=1), a["strat"])
+    for w, k in parts:
+        assert float(w["threshold"]) == float(thr_k)
+        assert torch.equal(k["aux"], a["aux"])
+
+
+@pytest.mark.parametrize("case", ["one_bin", "all_bins", "ragged"])
+def test_benefit_bins_and_threshold_edge_cases(dev, case):
+    """H8's bins phase (H4's binning launch) on the adversarial inputs of
+    test_torch_genome_ops.py, with two barcodes for "ragged": counts and
+    fsum bit-equal to the plain bin_benefit; then the threshold phase
+    (threshold, strat, aux) equal to its plain version."""
+    from test_torch_genome_ops import bin_edge_case
+
+    b, smu, f = bin_edge_case(case)
+    nb, Gd = b.shape[:2]
+    kw = _shard_kw(_benefit_kw(dev, np.random.default_rng(82), nb, Gd, 300), 0, Gd, 300)
+    kw["fhat_exp"] = torch.from_numpy(np.ascontiguousarray(f[0])).to(dev)
+    ben = torch.from_numpy(b).to(dev)
+    f_b = kw["fhat_exp"][None].expand_as(ben)
+    outs = []
+    for shard in (tg.shard_benefit, tg.shard_benefit_plain):
+        ws = tg.benefit_workspace(kw["scores_ds"])
+        k = _clone(kw)
+        ws["benefit"].copy_(ben)
+        ws["norm"].copy_(ben.max().reshape(1))
+        ws["any_nz"].fill_(1)
+        ws["counts"].zero_()
+        ws["fsum"].zero_()
+        ws["ubar0"].copy_(tg.ubar0_partial(f_b, torch.from_numpy(smu).to(dev),
+                                           torch.float64).reshape(1))
+        shard("bins", ws, **k)
+        shard("threshold", ws, **k)
+        outs.append((ws, k))
+    (wk, kk), (wp, kp) = outs
+    counts, fsum = tg.bin_benefit(ben, f_b, ben.max(), tg.NBINS)
+    assert torch.equal(wk["counts"].to(torch.float64), counts)
+    assert torch.equal(wk["fsum"], fsum)
+    assert torch.equal(wp["counts"].to(torch.float64), counts)
+    assert float(wk["threshold"]) == float(wp["threshold"])
+    assert torch.equal(kk["strat"], kp["strat"]) and torch.equal(kk["aux"], kp["aux"])
+
+
 def test_aeons_sim_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     """2 batches of test_aeons.py's end-to-end AEONS sim on the card and on
     the CPU: the same contigs, masks and pseudotimes."""

@@ -134,6 +134,64 @@ def test_bins_and_ubar0_match_jax(rng):
         jg.ubar0_partial(jnp.asarray(f), jnp.asarray(s), jnp.float64))
 
 
+def bin_edge_case(case: str):
+    """(benefit, smu, fhat) of an adversarial binning input. fhat and smu
+    are dyadic (k * 2^-20, k * 2^-10) so every sum the bins and ubar0 take
+    is exact in any order (the F4 contract), and the kernel's grouping can
+    be held bit for bit.
+
+    one_bin: every benefit equal, one bin holds everything;
+    all_bins: ratios 2^-k * [0.5, 1) for every bin that numpy and the JAX
+        package both reach (not [2^-191, 2^-190), where numpy gives 190 and
+        JAX the top bin: test_frexp_abs_exponent_exact), zeros, and ratios
+        from 2^-192 down to 2^-1020 (the top bin; benefits stay normal f64:
+        XLA on the CPU treats subnormals as zero);
+    ragged: two barcodes of Gd = 4096 + 1003 rows (not a multiple of the
+        4096-row tile or of 4), a 30% share of zeros."""
+    rng = np.random.default_rng({"one_bin": 71, "all_bins": 72, "ragged": 73}[case])
+    shape = (2, 4096 + 1003, 2) if case == "ragged" else (1, 900, 2)
+    if case == "one_bin":
+        b = np.full(shape, 0.37)
+    elif case == "all_bins":
+        k = np.concatenate([np.arange(190), [191, 192, 300, 1000, 1020]])
+        # mantissas away from 0.5 and 1: x * 3.7 / 3.7 stays in its binade
+        ratio = np.ldexp(rng.uniform(0.55, 0.95, k.size), -k)
+        flat = np.zeros(int(np.prod(shape)))
+        flat[: k.size] = ratio
+        flat[k.size: 2 * k.size] = ratio[::-1]
+        flat[2 * k.size] = 1.0  # the max itself: bin 1
+        b = rng.permutation(flat * 3.7).reshape(shape)
+    else:
+        b = rng.random(shape) * np.exp(rng.normal(0, 4, shape))
+        b[rng.random(shape) < 0.3] = 0.0
+    fhat = rng.integers(1, 2**12, shape) * 2.0**-20
+    smu = rng.integers(0, 2**10, shape) * 2.0**-10
+    return b, smu, fhat
+
+
+@pytest.mark.parametrize("case", ["one_bin", "all_bins", "ragged"])
+def test_bin_benefit_edge_cases_match_jax(case):
+    b, smu, f = bin_edge_case(case)
+    cj, fj = jg.bin_benefit(jnp.asarray(b), jnp.asarray(f), jnp.asarray(b.max()), 192)
+    ct, ft = tg.bin_benefit(T(b), T(f), torch.tensor(b.max(), dtype=torch.float64), 192)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+    assert int(ct.sum()) == int((b > 0).sum())
+    used = int((ct > 0).sum())
+    assert used == {"one_bin": 1, "all_bins": 191}.get(case, used)
+    res_j = jg.find_strategy(jnp.asarray(b), jnp.asarray(smu), jnp.asarray(f),
+                             jnp.asarray(5300.0))
+    res_t = tg.find_strategy(T(b), T(smu), T(f), 5300.0)
+    np.testing.assert_array_equal(res_t.strat.numpy(), np.asarray(res_j.strat))
+    assert bool(res_t.any_nonzero) == bool(res_j.any_nonzero)
+    # the threshold is 2^-k * norm: exact against the f64 oracle; JAX takes
+    # 2^-k from XLA's exp2, an ulp off at some k
+    strat_o, thr_o = oracle.find_strategy(b, smu, f, 5300.0)
+    assert float(res_t.threshold) == thr_o
+    np.testing.assert_array_equal(res_t.strat.numpy(), strat_o)
+    np.testing.assert_allclose(float(res_t.threshold), float(res_j.threshold), rtol=1e-12)
+
+
 def test_scatter_add_drops_out_of_range(rng):
     target = rng.random((6, 2))
     i0 = np.array([0, 5, 6, -1, 2, 2], np.int32)

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define BK_API extern "C" __attribute__((visibility("default")))
@@ -33,11 +34,34 @@ __device__ __forceinline__ double bk_warp_sum(double v) {
     return v;
 }
 
+__device__ __forceinline__ float bk_warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    return v;
+}
+
 __device__ __forceinline__ long long bk_warp_sum(long long v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     return v;
 }
+
+// Arithmetic in the type of its arguments, rounded to nearest, which nvcc
+// does not contract into FMAs: the f32 and f64 instantiations of a
+// decision-path kernel (rows.cu, strategy.cu) each round as the plain
+// version does.
+__device__ __forceinline__ float bk_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double bk_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float bk_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double bk_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float bk_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double bk_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float bk_div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double bk_div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float bk_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double bk_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float bk_floor(float a) { return floorf(a); }
+__device__ __forceinline__ double bk_floor(double a) { return floor(a); }
 
 // Block-wide f64 sum in a fixed order (warp tree, then warp 0 over the
 // warp totals): deterministic for a given blockDim. Result valid in thread 0.
@@ -54,23 +78,36 @@ __device__ __forceinline__ double bk_block_sum(double v, double* smem) {
     return v;
 }
 
-// One thread's f64 prefix sum over buf[0, m) in place, in index order
-// (run = run + buf[i], as a sequential loop): inclusive (buf[i] takes the
+// Two values of T in one 8- or 16-byte access.
+template <class T>
+struct BkVec2;
+template <>
+struct BkVec2<double> {
+    using type = double2;
+};
+template <>
+struct BkVec2<float> {
+    using type = float2;
+};
+
+// One thread's prefix sum over buf[0, m) in place, in index order and in
+// T (run = run + buf[i], as a sequential loop): inclusive (buf[i] takes the
 // sum through i) or exclusive (the sum before i). buf is 16-byte aligned
-// (shared memory). Groups of eight move as double2, and each group is
+// (shared memory). Groups of eight move as pairs, and each group is
 // loaded before the adds of the group ahead of it, so the loads hide
 // behind the chain of dependent adds, which bounds it.
-template <bool EXCLUSIVE>
-__device__ __forceinline__ double bk_chain_sum(double* buf, int m, double run) {
-    double2* b2 = reinterpret_cast<double2*>(buf);
+template <bool EXCLUSIVE, class T = double>
+__device__ __forceinline__ T bk_chain_sum(T* buf, int m, T run) {
+    using V2 = typename BkVec2<T>::type;
+    V2* b2 = reinterpret_cast<V2*>(buf);
     const int groups = m >> 3;
-    double2 nx[4];
+    V2 nx[4];
     if (groups > 0) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) nx[k] = b2[k];
     }
     for (int g = 0; g < groups; ++g) {
-        double2 v[4];
+        V2 v[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = nx[k];
         if (g + 1 < groups) {
@@ -79,28 +116,28 @@ __device__ __forceinline__ double bk_chain_sum(double* buf, int m, double run) {
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            double2 o;
+            V2 o;
             if (EXCLUSIVE) {
                 o.x = run;
-                run = __dadd_rn(run, v[k].x);
+                run = bk_add(run, v[k].x);
                 o.y = run;
-                run = __dadd_rn(run, v[k].y);
+                run = bk_add(run, v[k].y);
             } else {
-                run = __dadd_rn(run, v[k].x);
+                run = bk_add(run, v[k].x);
                 o.x = run;
-                run = __dadd_rn(run, v[k].y);
+                run = bk_add(run, v[k].y);
                 o.y = run;
             }
             b2[4 * g + k] = o;
         }
     }
     for (int i = groups * 8; i < m; ++i) {
-        double x = buf[i];
+        T x = buf[i];
         if (EXCLUSIVE) {
             buf[i] = run;
-            run = __dadd_rn(run, x);
+            run = bk_add(run, x);
         } else {
-            run = __dadd_rn(run, x);
+            run = bk_add(run, x);
             buf[i] = run;
         }
     }
@@ -113,29 +150,29 @@ __device__ __forceinline__ double bk_pow2_neg(int k) {
 }
 
 // The exponent-bin threshold scan (threshold_from_bins; aeons/benefit.py's
-// _threshold_scan) by a whole block of at least NB threads; every thread
-// calls it. Thread t < NB brings bin t: whether it is used and its two
-// terms (tu: benefit mass, tt: time). Thread 0 adds the terms of the used
-// bins in bin order, su and st, and forms num = su + u0 and den = st + t0;
-// every thread divides its bin's num / den; the block picks the first
+// _threshold_scan) in T by a whole block of at least NB threads; every
+// thread calls it. Thread t < NB brings bin t: whether it is used and its
+// two terms (tu: benefit mass, tt: time). Thread 0 adds the terms of the
+// used bins in bin order, su and st, and forms num = su + u0 and den = st +
+// t0; every thread divides its bin's num / den; the block picks the first
 // maximum. So every value equals a sequential scan's. Returns, in thread
 // 0, the threshold bin: the next used bin after the maximum, else the last
 // used one (-1 when no bin is used). `sh` lives in shared memory.
-template <int NB>
+template <int NB, class T = double>
 struct BkThresholdScratch {
-    double num[NB], den[NB], bv[32];
+    T num[NB], den[NB], bv[32];
     unsigned words[NB / 32];
     int bi[32];
 };
 
-template <int NB>
-__device__ int bk_exponent_threshold(bool used, double tu, double tt, double u0, double t0,
-                                     BkThresholdScratch<NB>& sh) {
+template <int NB, class T = double>
+__device__ int bk_exponent_threshold(bool used, T tu, T tt, T u0, T t0,
+                                     BkThresholdScratch<NB, T>& sh) {
     static_assert(NB % 32 == 0, "whole warps of bins");
-    double* s_num = sh.num;
-    double* s_den = sh.den;
+    T* s_num = sh.num;
+    T* s_den = sh.den;
     unsigned* s_words = sh.words;
-    double* s_bv = sh.bv;
+    T* s_bv = sh.bv;
     int* s_bi = sh.bi;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     used = used && t < NB;
@@ -147,23 +184,23 @@ __device__ int bk_exponent_threshold(bool used, double tu, double tt, double u0,
     }
     __syncthreads();
     if (t == 0) {
-        double su = 0.0, st = 0.0;
+        T su = 0, st = 0;
         for (int w = 0; w < NB / 32; ++w)
             for (unsigned m = s_words[w]; m; m &= m - 1) {
                 const int k = 32 * w + __ffs(m) - 1;
-                su = __dadd_rn(su, s_num[k]);
-                st = __dadd_rn(st, s_den[k]);
-                s_num[k] = __dadd_rn(su, u0);
-                s_den[k] = __dadd_rn(st, t0);
+                su = bk_add(su, s_num[k]);
+                st = bk_add(st, s_den[k]);
+                s_num[k] = bk_add(su, u0);
+                s_den[k] = bk_add(st, t0);
             }
     }
     __syncthreads();
     // first maximum of the peaks: the larger value, on a tie the lower bin
-    double v = used ? __ddiv_rn(s_num[t], s_den[t]) : -INFINITY;
+    T v = used ? bk_div(s_num[t], s_den[t]) : (T)-INFINITY;
     int i = used ? t : NB;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-        const double v2 = __shfl_down_sync(0xffffffffu, v, o);
+        const T v2 = __shfl_down_sync(0xffffffffu, v, o);
         const int i2 = __shfl_down_sync(0xffffffffu, i, o);
         if (v2 > v || (v2 == v && i2 < i)) {
             v = v2;

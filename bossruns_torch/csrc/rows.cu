@@ -40,6 +40,21 @@
 // cannot contract it into FMAs the reference does not do. The wrappers
 // check the 16-byte alignment the quads need (G % 4 == 0, aligned bases).
 //
+// The engine options (RunsConfig.dtype, .benefit_dtype, .fhat_alpha): every
+// kernel is a template on the score type S (scores, read_starts, aux, the
+// dropout table: float or double) and the decision type D (contig_denom,
+// fhat_rows, the bucket and contig means before their rounding to S, the
+// fhat weights, the normaliser, scores_ds, fhat_exp: double or float), one
+// entry point per pair (bk_row_stage is <float, double>, the default;
+// _s64 takes double scores, _d32 float decisions). Coverage sums stay
+// exact integers and are rounded to D once; the read-start total is an
+// exact f64 sum rounded to D; the normaliser adds D products in f64 in the
+// fixed block order and is rounded to D once. A general fhat_alpha
+// (alpha_one == 0) takes the point mass's beta function as
+// exp(lgamma(a) + (lgamma(b) - lgamma(a + b))) in f64, with b from the
+// device-side read-start total (no host sync), over the host's f64
+// B(alpha, (2n - 1) alpha) in beta_denom, as ops/genome_ops.fhat_pointmass.
+//
 // H8, part 2: bk_shard_rows runs the same kernels for one shard of the
 // sharded step (bossruns_tpu/parallel/mesh.py:275-336, K11), one phase per
 // call, so the caller can reduce across shards in between:
@@ -61,14 +76,16 @@
 struct RowArgs {
     int64_t nb, G, n_c1, nw_pad, nbk, n_bits, n_rs, wf;
     int32_t freeze_cov, gated;
-    float dropout_mod, dropout_min_mean, bucket_threshold, pad0;
+    int32_t alpha_one, pad0;  // alpha_one: fhat_alpha == 1 (B(1, z) = 1/z)
+    // in f64; each is rounded to S or D where the reference compares or divides
+    double dropout_mod, dropout_min_mean, bucket_threshold;
     double c_denom0, c_bn0, beta_denom, p0_bit, alpha, on_target, n_real_sites;
     // inputs
     const int32_t* covsum;
     const uint8_t* changed;
     const uint8_t* site_valid;
     const int32_t* contig_id_ds;
-    const double* contig_denom;
+    const void* contig_denom;  // D
     const int32_t* win_id_ds;
     const int32_t* bucket_src;
     const uint8_t* bucket_valid;
@@ -78,25 +95,25 @@ struct RowArgs {
     const int32_t* rs_read;
     const uint8_t* bits;
     const uint8_t* fhat_valid;
-    const double* fhat_rows;
+    const void* fhat_rows;  // D
     const int32_t* fhat_idx;
     // state, updated in place
-    float* scores;
+    void* scores;  // S
     uint8_t* zeroed;
     uint8_t* bucket_on;
-    float* read_starts;
+    void* read_starts;  // S
     // outputs
-    double* scores_ds;
-    double* fhat_exp;
-    float* aux;
+    void* scores_ds;  // D
+    void* fhat_exp;   // D
+    void* aux;        // S
     // scratch
     unsigned long long* per_contig;
     unsigned long long* winsums;
     unsigned long long* total;
-    float* thr_c;
+    void* thr_c;  // S
     uint8_t* active_c;
-    double* fhat_w;
-    double* scale;
+    void* fhat_w;  // D
+    void* scale;   // D
     // per-site any-barcode low mask [G]: written by row_low, read by
     // row_apply in place of its own test when not null
     uint8_t* low;
@@ -173,22 +190,23 @@ __global__ void __launch_bounds__(THREADS) row_sums(RowArgs a) {
 }
 
 // per-contig dropout table, sticky bucket switches, read-start scatter
+template <class S, class D>
 __global__ void row_tables(RowArgs a) {
     const int64_t n_bk = a.nb * a.nbk, n = a.n_c1 + n_bk + a.n_rs;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     int any = 0;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-        if (i < a.n_c1) {  // f32, as the reference's contig_mean
-            float mean = __double2float_rn(__ddiv_rn((double)a.per_contig[i], a.contig_denom[i]));
-            a.thr_c[i] = floorf(__fdiv_rn(mean, a.dropout_mod));
-            a.active_c[i] = mean > a.dropout_min_mean ? 1 : 0;
+        if (i < a.n_c1) {  // in S, as the reference's contig_mean
+            const D den = static_cast<const D*>(a.contig_denom)[i];
+            S mean = (S)bk_div((D)a.per_contig[i], den);
+            static_cast<S*>(a.thr_c)[i] = bk_floor(bk_div(mean, (S)a.dropout_mod));
+            a.active_c[i] = mean > (S)a.dropout_min_mean ? 1 : 0;
         } else if (i < a.n_c1 + n_bk) {
             int64_t k = i - a.n_c1, b = k / a.nbk, j = k - b * a.nbk;
             int32_t src = a.bucket_src[j];
-            float mean = 0.f;
-            if (src >= 0)
-                mean = __double2float_rn(__ddiv_rn((double)a.winsums[b * a.nw_pad + src], 20000.0));
-            bool on = a.bucket_on[k] || (mean >= a.bucket_threshold && a.bucket_valid[j]);
+            S mean = 0;
+            if (src >= 0) mean = (S)bk_div((D)a.winsums[b * a.nw_pad + src], (D)20000);
+            bool on = a.bucket_on[k] || (mean >= (S)a.bucket_threshold && a.bucket_valid[j]);
             a.bucket_on[k] = on ? 1 : 0;
             any |= on;
         } else {
@@ -202,45 +220,58 @@ __global__ void row_tables(RowArgs a) {
             }
             int32_t row = a.rs_row[r], s = a.rs_strand[r];
             if (w != 0.f && row >= 0 && row < a.wf && s >= 0 && s < 2)
-                atomicAdd(a.read_starts + (int64_t)row * 2 + s, w);
+                atomicAdd(static_cast<S*>(a.read_starts) + (int64_t)row * 2 + s, (S)w);
         }
     }
     if (__any_sync(0xffffffffu, any) && (threadIdx.x & 31) == 0) atomicOr(a.tab + 1, 1ull);
 }
 
 // the read-start total: integer-valued counts, exact in any order
+template <class S>
 __global__ void row_csum(RowArgs a) {
     __shared__ double s_red[32];
+    const S* rs = static_cast<const S*>(a.read_starts);
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     double v = 0.0;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.wf * 2; i += stride)
-        v += (double)a.read_starts[i];
+        v += (double)rs[i];
     v = bk_block_sum(v, s_red);
     if (threadIdx.x == 0 && v != 0.0) atomicAdd(reinterpret_cast<double*>(a.tab), v);
 }
 
-// point-mass posterior (alpha == 1: B(1, z) = 1/z), genome_ops.py:141-159,
-// and its normaliser: block partials in slots, added in block order by the
-// last block, which also writes scale, aux[0] and aux[3]
+// point-mass posterior (genome_ops.py:141-159) in D, and its normaliser:
+// block partials (D products added in f64) in slots, added in block order
+// by the last block, which also writes scale, aux[0] and aux[3]
+template <class S, class D>
 __global__ void __launch_bounds__(THREADS) row_posterior(RowArgs a) {
     __shared__ double s_red[32];
     __shared__ int s_last;
     const int t = threadIdx.x;
-    const double csum = *reinterpret_cast<const double*>(a.tab);
-    const double denom = __dadd_rn(a.c_denom0, csum);
-    const double beta_num = __ddiv_rn(1.0, __dadd_rn(a.c_bn0, csum));
-    const double ep = __dmul_rn(__dsub_rn(1.0, __dmul_rn(a.p0_bit, __ddiv_rn(beta_num, a.beta_denom))),
-                                __ddiv_rn(a.alpha, denom));
+    const S* rs_s = static_cast<const S*>(a.read_starts);
+    const D* rows = static_cast<const D*>(a.fhat_rows);
+    D* fhat_w = static_cast<D*>(a.fhat_w);
+    const D csum = (D)*reinterpret_cast<const double*>(a.tab);
+    const D alpha = (D)a.alpha;
+    const D denom = bk_add((D)a.c_denom0, csum);
+    D beta_num;
+    if (a.alpha_one) {
+        beta_num = bk_div((D)1, bk_add((D)a.c_bn0, csum));
+    } else {  // exp(betaln(alpha, (2n - 1) alpha + csum)) in f64
+        const double x = (double)alpha, y = (double)bk_add((D)a.c_bn0, csum);
+        beta_num = (D)exp(__dadd_rn(lgamma(x), __dsub_rn(lgamma(y), lgamma(__dadd_rn(x, y)))));
+    }
+    const D ep = bk_mul(bk_sub((D)1, bk_mul((D)a.p0_bit, bk_div(beta_num, (D)a.beta_denom))),
+                        bk_div(alpha, denom));
     const int64_t i0 = (int64_t)blockIdx.x * TAB_CHUNK;
     const int64_t i1 = min(i0 + TAB_CHUNK, a.wf * 2);
     double tv = 0.0;
     for (int64_t i = i0 + t; i < i1; i += THREADS) {
         int64_t row = i >> 1;
-        double rs = (double)a.read_starts[i];
-        double f = rs > 0.0 ? __ddiv_rn(__dadd_rn(a.alpha, rs), denom) : ep;
-        if (!a.fhat_valid[row]) f = 0.0;
-        a.fhat_w[i] = f;
-        tv = __dadd_rn(tv, __dmul_rn(f, a.fhat_rows[row]));
+        D rs = (D)rs_s[i];
+        D f = rs > (D)0 ? bk_div(bk_add(alpha, rs), denom) : ep;
+        if (!a.fhat_valid[row]) f = 0;
+        fhat_w[i] = f;
+        tv = __dadd_rn(tv, (double)bk_mul(f, rows[row]));
     }
     tv = bk_block_sum(tv, s_red);
     if (t == 0) {
@@ -253,41 +284,77 @@ __global__ void __launch_bounds__(THREADS) row_posterior(RowArgs a) {
     __threadfence();
     double s = 0.0;
     for (int i = t; i < (int)gridDim.x; i += THREADS) s = __dadd_rn(s, __ldcg(a.slots + i));
-    const double tot = bk_block_sum(s, s_red);
+    const D tot = (D)bk_block_sum(s, s_red);
     if (t == 0) {
-        a.scale[0] = tot > 0.0 ? __ddiv_rn(a.on_target, tot) : 0.0;
-        a.aux[0] = __ldcg(a.tab + 1) ? 1.f : 0.f;
-        a.aux[3] = __double2float_rn(__ddiv_rn((double)a.total[0], a.n_real_sites));
+        static_cast<D*>(a.scale)[0] = tot > (D)0 ? bk_div((D)a.on_target, tot) : (D)0;
+        S* aux = static_cast<S*>(a.aux);
+        aux[0] = __ldcg(a.tab + 1) ? (S)1 : (S)0;
+        aux[3] = (S)bk_div((D)a.total[0], (D)a.n_real_sites);
     }
 }
 
 __device__ __forceinline__ bool byte_of(uint32_t v, int j) { return (v >> (8 * j)) & 0xffu; }
 
-__device__ __forceinline__ float lane_of(const float4& v, int j) {
-    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
 __device__ __forceinline__ int lane_of(const int4& v, int j) {
     return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
+// four consecutive scores moved as one 16-byte access (float) or two (double)
+template <class S>
+struct Quad;
+
+template <>
+struct Quad<float> {
+    float v[4];
+    __device__ __forceinline__ void load(const float* p) {
+        const float4 x = *reinterpret_cast<const float4*>(p);
+        v[0] = x.x;
+        v[1] = x.y;
+        v[2] = x.z;
+        v[3] = x.w;
+    }
+    __device__ __forceinline__ void store(float* p) const {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+};
+
+template <>
+struct Quad<double> {
+    double v[4];
+    __device__ __forceinline__ void load(const double* p) {
+        const double2 x = reinterpret_cast<const double2*>(p)[0];
+        const double2 y = reinterpret_cast<const double2*>(p)[1];
+        v[0] = x.x;
+        v[1] = x.y;
+        v[2] = y.x;
+        v[3] = y.y;
+    }
+    __device__ __forceinline__ void store(double* p) const {
+        reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+        reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+    }
+};
+
+template <class S, class D>
 __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
-    __shared__ float s_thr[TR];
+    __shared__ S s_thr[TR];
     __shared__ uint8_t s_act[TR];
-    __shared__ __align__(16) float s_sc[TR * DS];
+    __shared__ __align__(16) S s_sc[TR * DS];
+    S* scores = static_cast<S*>(a.scores);
     const int64_t Gd = a.G / DS, r0 = (int64_t)blockIdx.x * TR;
     const int nrow = (int)min((int64_t)TR, Gd - r0);
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     if (t < nrow) {
         int32_t c = a.contig_id_ds[r0 + t];
-        s_thr[t] = a.thr_c[c];
+        s_thr[t] = static_cast<const S*>(a.thr_c)[c];
         s_act[t] = a.active_c[c];
     }
     if (t < 2 * nrow) {  // the row's f32-rounded fhat weight, strand t & 1
         int64_t row = r0 + (t >> 1);
         int32_t fi = a.fhat_idx[row];
-        double v = fi >= 0 ? a.fhat_w[(int64_t)fi * 2 + (t & 1)] : 0.0;
-        a.fhat_exp[row * 2 + (t & 1)] = (double)__double2float_rn(__dmul_rn(v, a.scale[0]));
+        D v = fi >= 0 ? static_cast<const D*>(a.fhat_w)[(int64_t)fi * 2 + (t & 1)] : (D)0;
+        static_cast<D*>(a.fhat_exp)[row * 2 + (t & 1)] =
+            (D)(float)bk_mul(v, static_cast<const D*>(a.scale)[0]);
     }
     __syncthreads();
     const int nq = nrow * QD;
@@ -297,12 +364,13 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
             const int64_t g = g0 + 4 * q;
             const int64_t idx = b * a.G + g;
             const int4 cv = *reinterpret_cast<const int4*>(a.covsum + idx);
-            float4 sv = *reinterpret_cast<const float4*>(a.scores + idx);
+            Quad<S> sv;
+            sv.load(scores + idx);
             const uint32_t zr = *reinterpret_cast<const uint32_t*>(a.zeroed + idx);
             const uint32_t ch = *reinterpret_cast<const uint32_t*>(a.changed + g);
             const uint32_t va = *reinterpret_cast<const uint32_t*>(a.site_valid + g);
             const int row = q / QD;
-            const float thr = s_thr[row];
+            const S thr = s_thr[row];
             const bool act = s_act[row] != 0;
             bool low[4];
             if (a.low != nullptr) {
@@ -311,16 +379,16 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
                 for (int j = 0; j < 4; ++j) low[j] = byte_of(lw, j);
             } else {
 #pragma unroll
-                for (int j = 0; j < 4; ++j) low[j] = (float)lane_of(cv, j) <= thr;
+                for (int j = 0; j < 4; ++j) low[j] = (S)lane_of(cv, j) <= thr;
                 for (int64_t bb = 0; bb < a.nb; ++bb) {
                     if (bb == b) continue;
                     const int4 co = *reinterpret_cast<const int4*>(a.covsum + bb * a.G + g);
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) low[j] |= (float)lane_of(co, j) <= thr;
+                    for (int j = 0; j < 4; ++j) low[j] |= (S)lane_of(co, j) <= thr;
                 }
             }
             uint32_t zn = 0;
-            float out[4];
+            Quad<S> out;
             bool any_zero = false;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -328,26 +396,26 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
                 bool maxed = lane_of(cv, j) >= a.freeze_cov;
                 bool hold = byte_of(zr, j) && !(byte_of(ch, j) && !maxed);
                 bool zero = hold || drop;
-                out[j] = zero ? 0.f : lane_of(sv, j);
+                out.v[j] = zero ? (S)0 : sv.v[j];
                 zn |= (uint32_t)zero << (8 * j);
                 any_zero |= zero;
             }
-            if (any_zero)
-                *reinterpret_cast<float4*>(a.scores + idx) = make_float4(out[0], out[1], out[2], out[3]);
+            if (any_zero) out.store(scores + idx);
             if (zn != zr) *reinterpret_cast<uint32_t*>(a.zeroed + idx) = zn;
-            *reinterpret_cast<float4*>(s_sc + 4 * q) = make_float4(out[0], out[1], out[2], out[3]);
+            out.store(s_sc + 4 * q);
         }
         __syncthreads();
         // scores_ds in the warp-per-row order: lane partials, then the tree
+        // (ops/genome_ops.row_sum_warp)
         for (int row = warp; row < nrow; row += THREADS / 32) {
-            double acc = 0.0;
+            D acc = 0;
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
                 int j = lane + 32 * k;
-                if (j < DS) acc += (double)s_sc[row * DS + j];
+                if (j < DS) acc += (D)s_sc[row * DS + j];
             }
             acc = bk_warp_sum(acc);
-            if (lane == 0) a.scores_ds[b * Gd + r0 + row] = acc;
+            if (lane == 0) static_cast<D*>(a.scores_ds)[b * Gd + r0 + row] = acc;
         }
         __syncthreads();
     }
@@ -355,16 +423,17 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
 
 // any barcode of this shard at or below its contig's dropout threshold,
 // four sites (one int4 of covsum per barcode, one uint32 of the mask) a thread
+template <class S>
 __global__ void row_low(RowArgs a) {
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < a.G / 4; q += stride) {
         const int64_t g = 4 * q;
-        const float thr = a.thr_c[a.contig_id_ds[g / DS]];
+        const S thr = static_cast<const S*>(a.thr_c)[a.contig_id_ds[g / DS]];
         uint32_t lw = 0;
         for (int64_t b = 0; b < a.nb; ++b) {
             const int4 c = *reinterpret_cast<const int4*>(a.covsum + b * a.G + g);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) lw |= (uint32_t)((float)lane_of(c, j) <= thr) << (8 * j);
+            for (int j = 0; j < 4; ++j) lw |= (uint32_t)((S)lane_of(c, j) <= thr) << (8 * j);
         }
         *reinterpret_cast<uint32_t*>(a.low + g) = lw;
     }
@@ -381,23 +450,25 @@ int launch_sums(const RowArgs& a, cudaStream_t st) {
     return 0;
 }
 
+template <class S, class D>
 int launch_tables(const RowArgs& a, cudaStream_t st) {
     const int64_t ns = (a.wf * 2 + TAB_CHUNK - 1) / TAB_CHUNK;
     if (a.tab == nullptr || a.slots == nullptr || a.n_slots < (ns > 0 ? ns : 1)) return -1;
     BK_CHECK(cudaMemsetAsync(a.tab, 0, 3 * sizeof(unsigned long long), st));
-    row_tables<<<bk_grid(a.n_c1 + a.nb * a.nbk + a.n_rs, THREADS), THREADS, 0, st>>>(a);
+    row_tables<S, D><<<bk_grid(a.n_c1 + a.nb * a.nbk + a.n_rs, THREADS), THREADS, 0, st>>>(a);
     BK_LAUNCHED();
-    row_csum<<<bk_grid(a.wf * 2, THREADS * 8), THREADS, 0, st>>>(a);
+    row_csum<S><<<bk_grid(a.wf * 2, THREADS * 8), THREADS, 0, st>>>(a);
     BK_LAUNCHED();
-    row_posterior<<<(unsigned)(ns > 0 ? ns : 1), THREADS, 0, st>>>(a);
+    row_posterior<S, D><<<(unsigned)(ns > 0 ? ns : 1), THREADS, 0, st>>>(a);
     BK_LAUNCHED();
     return 0;
 }
 
+template <class S, class D>
 int launch_apply(const RowArgs& a, cudaStream_t st) {
     const int64_t Gd = a.G / DS;
     if (Gd > 0) {
-        row_apply<<<(unsigned)((Gd + TR - 1) / TR), THREADS, 0, st>>>(a);
+        row_apply<S, D><<<(unsigned)((Gd + TR - 1) / TR), THREADS, 0, st>>>(a);
         BK_LAUNCHED();
     }
     return 0;
@@ -406,19 +477,19 @@ int launch_apply(const RowArgs& a, cudaStream_t st) {
 // the quads need G % 4 == 0
 bool supported(const RowArgs& a) { return a.G % 4 == 0; }
 
-}  // namespace
-
-BK_API int bk_row_stage(const RowArgs* args, void* stream) {
+template <class S, class D>
+int row_stage(const RowArgs* args, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const RowArgs a = *args;
     if (!supported(a)) return -1;
     int err = launch_sums(a, st);
-    if (!err) err = launch_tables(a, st);
-    if (!err) err = launch_apply(a, st);
+    if (!err) err = launch_tables<S, D>(a, st);
+    if (!err) err = launch_apply<S, D>(a, st);
     return err;
 }
 
-BK_API int bk_shard_rows(const RowArgs* args, int phase, void* stream) {
+template <class S, class D>
+int shard_rows(const RowArgs* args, int phase, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const RowArgs a = *args;
     if (!supported(a)) return -1;
@@ -426,15 +497,37 @@ BK_API int bk_shard_rows(const RowArgs* args, int phase, void* stream) {
         case 0:
             return launch_sums(a, st);
         case 1:
-            return launch_tables(a, st);
+            return launch_tables<S, D>(a, st);
         case 2:
             if (a.low == nullptr) return -1;
-            row_low<<<bk_grid(a.G / 4, THREADS), THREADS, 0, st>>>(a);
+            row_low<S><<<bk_grid(a.G / 4, THREADS), THREADS, 0, st>>>(a);
             BK_LAUNCHED();
             return 0;
         case 3:
-            return launch_apply(a, st);
+            return launch_apply<S, D>(a, st);
         default:
             return -1;
     }
+}
+
+}  // namespace
+
+// one entry point per (score, decision) type pair: the default, f64
+// scores (_s64), f32 decisions (_d32), and both
+BK_API int bk_row_stage(const RowArgs* a, void* st) { return row_stage<float, double>(a, st); }
+BK_API int bk_row_stage_s64(const RowArgs* a, void* st) { return row_stage<double, double>(a, st); }
+BK_API int bk_row_stage_d32(const RowArgs* a, void* st) { return row_stage<float, float>(a, st); }
+BK_API int bk_row_stage_s64_d32(const RowArgs* a, void* st) { return row_stage<double, float>(a, st); }
+
+BK_API int bk_shard_rows(const RowArgs* a, int phase, void* st) {
+    return shard_rows<float, double>(a, phase, st);
+}
+BK_API int bk_shard_rows_s64(const RowArgs* a, int phase, void* st) {
+    return shard_rows<double, double>(a, phase, st);
+}
+BK_API int bk_shard_rows_d32(const RowArgs* a, int phase, void* st) {
+    return shard_rows<float, float>(a, phase, st);
+}
+BK_API int bk_shard_rows_s64_d32(const RowArgs* a, int phase, void* st) {
+    return shard_rows<double, float>(a, phase, st);
 }

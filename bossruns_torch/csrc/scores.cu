@@ -34,8 +34,15 @@
 // Counts are clipped at 990; the contraction runs as f32
 // FMAs in registers, never on tensor cores, so TF32 can never enter (ROADMAP
 // F5). Genotype and symbol counts are template parameters, so every
-// per-site array is unrolled into registers; the model tables (<= 1 KB) sit
+// per-site array is unrolled into registers; the model tables (<= 1 KB in f32) sit
 // in shared memory and every lane reads the same entry (a broadcast).
+//
+// RunsConfig.dtype: the kernel is a template on the score type T. The
+// float instantiation (bk_site_scores) is the one described above; the
+// double one (bk_site_scores_s64, the JAX engine's dtype="float64")
+// takes f64 tables and writes f64 scores, with exp/log/fma in double (no
+// fast-math) in the same order, and is bound by f64 arithmetic wherever
+// sites need the contraction.
 #include <math.h>
 
 #include "common.cuh"
@@ -46,65 +53,83 @@ constexpr int COUNT_CLIP = 990;
 constexpr int THREADS = 256;
 constexpr int SPT = 4;  // sites per thread
 
+__device__ __forceinline__ float sc_exp(float x) { return expf(x); }
+__device__ __forceinline__ double sc_exp(double x) { return exp(x); }
+__device__ __forceinline__ float sc_log(float x) { return logf(x); }
+__device__ __forceinline__ double sc_log(double x) { return log(x); }
+__device__ __forceinline__ float sc_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double sc_fma(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float sc_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double sc_max(double a, double b) { return fmax(a, b); }
+
+// four scores as one 16-byte store (float) or two (double)
+__device__ __forceinline__ void store4(float* p, const float (&v)[SPT]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double (&v)[SPT]) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
 // The unmasked score of one site from its clipped counts and reference
 // symbol: sum_g post[g] k[g] - sum_b q[b] log q[b], floored at 0.
 // tab layout: log_phi[LB*LG] | phi[LB*LG] | log_prior[4*LG] | k[LG]
-template <int LB, int LG>
-__device__ __forceinline__ float contract(const float (&cnt)[LB], int ref, const float* tab) {
-    const float* lphi = tab;
-    const float* phi = tab + LB * LG;
-    const float* lprior = tab + 2 * LB * LG + ref * LG;
-    const float* kk = tab + 2 * LB * LG + 4 * LG;
-    float lp[LG];
-    float m = -INFINITY;
+template <int LB, int LG, class T>
+__device__ __forceinline__ T contract(const T (&cnt)[LB], int ref, const T* tab) {
+    const T* lphi = tab;
+    const T* phi = tab + LB * LG;
+    const T* lprior = tab + 2 * LB * LG + ref * LG;
+    const T* kk = tab + 2 * LB * LG + 4 * LG;
+    T lp[LG];
+    T m = -INFINITY;
 #pragma unroll
     for (int j = 0; j < LG; ++j) {
-        float acc = 0.f;
+        T acc = 0;
 #pragma unroll
-        for (int s = 0; s < LB; ++s) acc = fmaf(lphi[s * LG + j], cnt[s], acc);
+        for (int s = 0; s < LB; ++s) acc = sc_fma(lphi[s * LG + j], cnt[s], acc);
         lp[j] = acc + lprior[j];
-        m = fmaxf(m, lp[j]);
+        m = sc_max(m, lp[j]);
     }
     // logsumexp over genotypes, shifted by a finite max; lp becomes the
     // posterior exp(lp - lse), rounded as the plain version rounds it
-    float msafe = isfinite(m) ? m : 0.f;
-    float se = 0.f;
+    T msafe = isfinite(m) ? m : (T)0;
+    T se = 0;
 #pragma unroll
-    for (int j = 0; j < LG; ++j) se += expf(lp[j] - msafe);
-    float lse = logf(se) + msafe;
-    float sk = 0.f;
+    for (int j = 0; j < LG; ++j) se += sc_exp(lp[j] - msafe);
+    T lse = sc_log(se) + msafe;
+    T sk = 0;
 #pragma unroll
     for (int j = 0; j < LG; ++j) {
-        lp[j] = expf(lp[j] - lse);
-        sk = fmaf(lp[j], kk[j], sk);
+        lp[j] = sc_exp(lp[j] - lse);
+        sk = sc_fma(lp[j], kk[j], sk);
     }
-    float sq = 0.f;
+    T sq = 0;
 #pragma unroll
     for (int s = 0; s < LB; ++s) {
-        float q = 0.f;
+        T q = 0;
 #pragma unroll
-        for (int j = 0; j < LG; ++j) q = fmaf(phi[s * LG + j], lp[j], q);
-        if (q > 0.f) sq = fmaf(q, logf(q), sq);
+        for (int j = 0; j < LG; ++j) q = sc_fma(phi[s * LG + j], lp[j], q);
+        if (q > (T)0) sq = sc_fma(q, sc_log(q), sq);
     }
-    return fmaxf(sk - sq, 0.f);
+    return sc_max(sk - sq, (T)0);
 }
 
-template <int LB, int LG, bool kVec>
+template <int LB, int LG, bool kVec, class T>
 __global__ void __launch_bounds__(THREADS)
 site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
-                   const uint8_t* __restrict__ site_valid, const float* __restrict__ tab, int G,
-                   int freeze_cov, float tiny, float* __restrict__ scores,
+                   const uint8_t* __restrict__ site_valid, const T* __restrict__ tab, int G,
+                   int freeze_cov, T tiny, T* __restrict__ scores,
                    int32_t* __restrict__ covsum) {
     constexpr int NT = 2 * LB * LG + 5 * LG;
-    __shared__ __align__(16) float s_tab[NT];  // 16-byte aligned: vector loads of the tables
-    __shared__ float s_empty[4];  // the score of a valid site without counts, per reference
+    __shared__ __align__(16) T s_tab[NT];  // 16-byte aligned: vector loads of the tables
+    __shared__ T s_empty[4];  // the score of a valid site without counts, per reference
     for (int i = threadIdx.x; i < NT; i += blockDim.x) s_tab[i] = tab[i];
     __syncthreads();
     if (threadIdx.x < 4) {
-        float zero[LB];
+        T zero[LB];
 #pragma unroll
-        for (int s = 0; s < LB; ++s) zero[s] = 0.f;
-        s_empty[threadIdx.x] = contract<LB, LG>(zero, threadIdx.x, s_tab);
+        for (int s = 0; s < LB; ++s) zero[s] = 0;
+        s_empty[threadIdx.x] = contract<LB, LG, T>(zero, threadIdx.x, s_tab);
     }
     __syncthreads();
 
@@ -145,7 +170,7 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
         }
     }
 
-    float res[SPT];
+    T res[SPT];
     int cs[SPT];
     bool need[SPT];
 #pragma unroll
@@ -159,26 +184,26 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
         cs[k] = (int)sum;
         bool frozen = cs[k] >= freeze_cov;
         need[k] = any != 0 && !frozen && valid[k];
-        res[k] = frozen ? tiny : (valid[k] ? s_empty[ref[k]] : 0.f);
+        res[k] = frozen ? tiny : (valid[k] ? s_empty[ref[k]] : (T)0);
     }
 #pragma unroll
     for (int k = 0; k < SPT; ++k) {
         // warp-uniform: the whole warp skips a slot in which no lane needs it
         if (__any_sync(0xffffffffu, need[k])) {
-            float cnt[LB];
+            T cnt[LB];
 #pragma unroll
             for (int s = 0; s < LB; ++s)
-                cnt[s] = (float)(v[s][k] < COUNT_CLIP ? v[s][k] : COUNT_CLIP);
-            float score = contract<LB, LG>(cnt, ref[k], s_tab);
+                cnt[s] = (T)(v[s][k] < COUNT_CLIP ? v[s][k] : COUNT_CLIP);
+            T score = contract<LB, LG, T>(cnt, ref[k], s_tab);
             if (need[k]) res[k] = score;
         }
     }
 
-    float* out_s = scores + b * G;
+    T* out_s = scores + b * G;
     int32_t* out_c = covsum + b * G;
     if (kVec) {
         if (g0 < (uint32_t)G) {
-            *reinterpret_cast<float4*>(out_s + g0) = make_float4(res[0], res[1], res[2], res[3]);
+            store4(out_s + g0, res);
             *reinterpret_cast<int4*>(out_c + g0) = make_int4(cs[0], cs[1], cs[2], cs[3]);
         }
     } else {
@@ -192,21 +217,36 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
     }
 }
 
-template <int LB, int LG>
+template <int LB, int LG, class T>
 int launch(const void* cov, const void* seq, const void* site_valid, const void* tab, int64_t nb,
-           int64_t G, int freeze_cov, float tiny, void* scores, void* covsum, cudaStream_t st) {
+           int64_t G, int freeze_cov, T tiny, void* scores, void* covsum, cudaStream_t st) {
     if (G <= 0 || nb <= 0) return 0;
     if (G >= (int64_t{1} << 31) - THREADS * SPT || nb > 65535) return -1;
     auto al = [](const void* p, uintptr_t a) { return (uintptr_t)p % a == 0; };
     bool vec = G % SPT == 0 && al(cov, 8) && al(seq, 4) && al(site_valid, 4) && al(scores, 16) &&
                al(covsum, 16);
     dim3 grid((unsigned)((G + THREADS * SPT - 1) / (THREADS * SPT)), (unsigned)nb);
-    auto kern = vec ? site_scores_kernel<LB, LG, true> : site_scores_kernel<LB, LG, false>;
+    auto kern = vec ? site_scores_kernel<LB, LG, true, T> : site_scores_kernel<LB, LG, false, T>;
     kern<<<grid, THREADS, 0, st>>>((const uint16_t*)cov, (const int8_t*)seq,
-                                   (const uint8_t*)site_valid, (const float*)tab, (int)G,
-                                   freeze_cov, tiny, (float*)scores, (int32_t*)covsum);
+                                   (const uint8_t*)site_valid, (const T*)tab, (int)G,
+                                   freeze_cov, tiny, (T*)scores, (int32_t*)covsum);
     BK_LAUNCHED();
     return 0;
+}
+
+template <class T>
+int site_scores(const void* coverage, const void* seq, const void* site_valid, const void* tab,
+                int len_b, int len_g, int64_t nb, int64_t G, int freeze_cov, T tiny, void* scores,
+                void* covsum, cudaStream_t st) {
+    if (len_b == 5 && len_g == 5)
+        return launch<5, 5, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
+    if (len_b == 4 && len_g == 4)
+        return launch<4, 4, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
+    if (len_b == 5 && len_g == 15)
+        return launch<5, 15, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
+    if (len_b == 4 && len_g == 10)
+        return launch<4, 10, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
+    return -1;
 }
 
 }  // namespace
@@ -217,14 +257,14 @@ int launch(const void* cov, const void* seq, const void* site_valid, const void*
 BK_API int bk_site_scores(const void* coverage, const void* seq, const void* site_valid,
                           const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
                           int freeze_cov, float tiny, void* scores, void* covsum, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (len_b == 5 && len_g == 5)
-        return launch<5, 5>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    if (len_b == 4 && len_g == 4)
-        return launch<4, 4>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    if (len_b == 5 && len_g == 15)
-        return launch<5, 15>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    if (len_b == 4 && len_g == 10)
-        return launch<4, 10>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    return -1;
+    return site_scores<float>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov, tiny,
+                              scores, covsum, (cudaStream_t)stream);
+}
+
+// the same with f64 tables and f64 scores
+BK_API int bk_site_scores_s64(const void* coverage, const void* seq, const void* site_valid,
+                              const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
+                              int freeze_cov, double tiny, void* scores, void* covsum, void* stream) {
+    return site_scores<double>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov, tiny,
+                               scores, covsum, (cudaStream_t)stream);
 }

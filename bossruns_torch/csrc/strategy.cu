@@ -49,6 +49,17 @@
 // f64 arithmetic on the decision path uses the _rn intrinsics so nvcc
 // cannot contract it into FMAs the reference does not do.
 //
+// RunsConfig.benefit_dtype: every kernel is a template on the decision
+// type T (scores_ds, fhat_exp, the cumsum and its tile totals, smu,
+// benefit, the bins' terms, the threshold scan and the threshold: double
+// by default, float for the f32 decision path; bk_benefit_strategy_d32 and
+// bk_shard_benefit_d32). The f32 path reads its exponent bins from the f32
+// bits of benefit / max (subnormal -> the top bin, as the JAX package's
+// frexp_abs_exponent). Its ubar0 and the bins' fhat sums still accumulate
+// in f64 (f32 summands, exact in any order) and are rounded to f32 once at
+// the scan; the norm is kept as f64 bits (a widened f32, exact). aux is in
+// the score type (aux64: double).
+//
 // H8, part 3: bk_shard_benefit runs the same kernels for one shard of the
 // sharded step (bossruns_tpu/parallel/mesh.py:338-407, K11), one phase per
 // call, with the collectives in between:
@@ -77,24 +88,25 @@ struct StratArgs {
     int32_t win[10];
     double weight[10];
     double tc;  // (time_cost // 100) in f64
-    // inputs
-    const double* scores_ds;
+    int32_t aux64, pad0;  // aux holds doubles (f64 scores), else floats
+    // inputs (T: the decision type)
+    const void* scores_ds;  // T
     const int32_t* seg_start;
     const int32_t* seg_end;
-    const double* fhat_exp;
+    const void* fhat_exp;  // T
     const uint8_t* bucket_on;
     const int32_t* bucket_idx;
     const uint8_t* strat_valid;
     // state, updated in place; aux[0] (any_on) in, aux[1], aux[2] out
     uint8_t* strat;
-    float* aux;
+    void* aux;
     // outputs
-    double* smu;
-    double* benefit;
-    double* threshold;
+    void* smu;        // T
+    void* benefit;    // T
+    void* threshold;  // T
     // scratch
-    double* cs;
-    double* tile_sums;
+    void* cs;         // T
+    void* tile_sums;  // T
     unsigned long long* norm_bits;
     int32_t* any_nz;
     int32_t* counts;
@@ -107,8 +119,8 @@ struct StratArgs {
     // barcode row, this array's tiles starting at tile0 (unsharded:
     // tile_sums itself)
     int64_t n_tiles_g, tile0;
-    const double* ext;
-    double* tiles_g;
+    const void* ext;  // T
+    void* tiles_g;    // T
     // [2] zeroed before the single path's launches: the scan's and the
     // binning's last-block tickets (unused by the shard phases)
     unsigned int* tickets;
@@ -137,11 +149,25 @@ static inline dim3 grid_rows(int64_t Gd, int64_t nb, int64_t max_blocks) {
     return dim3((unsigned)(x < 1 ? 1 : (x < cap ? x : cap)), (unsigned)nb);
 }
 
+__device__ __forceinline__ bool aux_on(const StratArgs& a) {
+    return a.aux64 ? static_cast<const double*>(a.aux)[0] != 0.0
+                   : static_cast<const float*>(a.aux)[0] != 0.f;
+}
+
+template <class T>
+__device__ __forceinline__ void aux_set(const StratArgs& a, int i, T v) {
+    if (a.aux64)
+        static_cast<double*>(a.aux)[i] = (double)v;
+    else
+        static_cast<float*>(a.aux)[i] = (float)v;
+}
+
 // Exclusive prefix of tiles[0, n) in place, sequentially in tile order
 // (run += s, as a one-thread loop would), staged through shared memory by
 // the whole block; thread 0 runs the chain.
-__device__ void tile_prefix(double* tiles, int64_t n, double* s_buf) {
-    double run = 0.0;
+template <class T>
+__device__ void tile_prefix(T* tiles, int64_t n, T* s_buf) {
+    T run = 0;
     for (int64_t c0 = 0; c0 < n; c0 += CHAIN) {
         int m = (int)(n - c0 < CHAIN ? n - c0 : CHAIN);
         for (int i = threadIdx.x; i < m; i += blockDim.x) s_buf[i] = __ldcg(tiles + c0 + i);
@@ -156,11 +182,13 @@ __device__ void tile_prefix(double* tiles, int64_t n, double* s_buf) {
 // 1. tile-local inclusive prefix sums into cs[b, 1 + i], tile totals out;
 // block (0, 0) zeroes the scalars; with `chain`, the last block turns the
 // totals into their exclusive prefix and sets cs[b, 0]
+template <class T>
 __global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(StratArgs a, int64_t n_tiles, int chain) {
-    __shared__ double s_warp[32];
-    __shared__ __align__(16) double s_buf[CHAIN];
+    __shared__ T s_warp[32];
+    __shared__ __align__(16) T s_buf[CHAIN];
     __shared__ int s_last;
     const int64_t b = blockIdx.y, t = blockIdx.x;
+    T* tile_sums = static_cast<T*>(a.tile_sums);
     if (b == 0 && t == 0) {
         for (int k = threadIdx.x; k < NBINS; k += SCAN_THREADS) {
             a.counts[k] = 0;
@@ -172,52 +200,52 @@ __global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(StratArgs a, int64_t 
             *a.ubar0 = 0.0;
         }
     }
-    const double* x = a.scores_ds + b * a.Gd;
-    double* cs = a.cs + b * (a.Gd + 1);
+    const T* x = static_cast<const T*>(a.scores_ds) + b * a.Gd;
+    T* cs = static_cast<T*>(a.cs) + b * (a.Gd + 1);
     int64_t base = t * TILE + (int64_t)threadIdx.x * SCAN_ITEMS;
-    double p[SCAN_ITEMS];
-    double run = 0.0;
+    T p[SCAN_ITEMS];
+    T run = 0;
 #pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k) {
-        double v = base + k < a.Gd ? x[base + k] : 0.0;
+        T v = base + k < a.Gd ? x[base + k] : (T)0;
         run = k == 0 ? v : run + v;
         p[k] = run;
     }
     // block exclusive scan of the per-thread totals (exclusive prefixes are
     // taken from the neighbour's inclusive one, never by subtraction)
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    double incl = run;
+    T incl = run;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-        double y = __shfl_up_sync(FULL, incl, o);
+        T y = __shfl_up_sync(FULL, incl, o);
         if (lane >= o) incl += y;
     }
-    double excl_lane = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl_lane = 0.0;
+    T excl_lane = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl_lane = 0;
     if (lane == 31) s_warp[warp] = incl;
     __syncthreads();
     if (warp == 0) {
-        double wi = s_warp[lane];
+        T wi = s_warp[lane];
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
-            double y = __shfl_up_sync(FULL, wi, o);
+            T y = __shfl_up_sync(FULL, wi, o);
             if (lane >= o) wi += y;
         }
-        double we = __shfl_up_sync(FULL, wi, 1);
+        T we = __shfl_up_sync(FULL, wi, 1);
         __syncwarp();
-        s_warp[lane] = lane == 0 ? 0.0 : we;  // exclusive prefix of warp totals
+        s_warp[lane] = lane == 0 ? (T)0 : we;  // exclusive prefix of warp totals
     }
     __syncthreads();
-    double excl = s_warp[warp] + excl_lane;
+    T excl = s_warp[warp] + excl_lane;
 #pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k)
         if (base + k < a.Gd) cs[1 + base + k] = excl + p[k];
     if (!chain) {
-        if (threadIdx.x == SCAN_THREADS - 1) a.tile_sums[b * n_tiles + t] = excl + run;
+        if (threadIdx.x == SCAN_THREADS - 1) tile_sums[b * n_tiles + t] = excl + run;
         return;
     }
     if (threadIdx.x == SCAN_THREADS - 1) {
-        a.tile_sums[b * n_tiles + t] = excl + run;
+        tile_sums[b * n_tiles + t] = excl + run;
         __threadfence();
     }
     __syncthreads();
@@ -226,28 +254,30 @@ __global__ void __launch_bounds__(SCAN_THREADS) scan_tiles(StratArgs a, int64_t 
     if (!s_last) return;
     __threadfence();
     for (int64_t bb = 0; bb < a.nb; ++bb) {
-        tile_prefix(a.tile_sums + bb * n_tiles, n_tiles, s_buf);
-        if (threadIdx.x == 0) a.cs[bb * (a.Gd + 1)] = a.tile_sums[bb * n_tiles];
+        tile_prefix(tile_sums + bb * n_tiles, n_tiles, s_buf);
+        if (threadIdx.x == 0) static_cast<T*>(a.cs)[bb * (a.Gd + 1)] = tile_sums[bb * n_tiles];
     }
 }
 
 // 1b. (shard phase 1) exclusive prefix over the gathered tile totals, one
 // block per barcode; cs[b, 0] takes the prefix of this shard's first tile
-__global__ void __launch_bounds__(THREADS) scan_tile_prefix(StratArgs a, double* tiles,
-                                                            int64_t n_tiles, int64_t tile0) {
-    __shared__ __align__(16) double s_buf[CHAIN];
+template <class T>
+__global__ void __launch_bounds__(THREADS) scan_tile_prefix(StratArgs a, T* tiles, int64_t n_tiles,
+                                                            int64_t tile0) {
+    __shared__ __align__(16) T s_buf[CHAIN];
     int64_t b = blockIdx.x;
     tile_prefix(tiles + b * n_tiles, n_tiles, s_buf);
-    if (threadIdx.x == 0) a.cs[b * (a.Gd + 1)] = tiles[b * n_tiles + tile0];
+    if (threadIdx.x == 0) static_cast<T*>(a.cs)[b * (a.Gd + 1)] = tiles[b * n_tiles + tile0];
 }
 
 // 2. add each tile's prefix to its rows (the first global tile's is zero
 // and is not added)
-__global__ void __launch_bounds__(THREADS) scan_add(StratArgs a, const double* tiles, int64_t n_tiles,
+template <class T>
+__global__ void __launch_bounds__(THREADS) scan_add(StratArgs a, const T* tiles, int64_t n_tiles,
                                                     int64_t tile0) {
     const int64_t b = blockIdx.y;
-    double* cs = a.cs + b * (a.Gd + 1) + 1;
-    const double* pre = tiles + b * n_tiles + tile0;
+    T* cs = static_cast<T*>(a.cs) + b * (a.Gd + 1) + 1;
+    const T* pre = tiles + b * n_tiles + tile0;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t r = (tile0 == 0 ? TILE : 0) + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
          r < a.Gd; r += stride)
@@ -260,98 +290,111 @@ __global__ void __launch_bounds__(THREADS) scan_add(StratArgs a, const double* t
 // memory with coalesced loads: every window read is then a shared-memory
 // read (the 22 reads of a row land within W rows of it, and a segment
 // bound clamps them inward).
+template <class T>
 __global__ void __launch_bounds__(THREADS) benefit_windows(StratArgs a, int W) {
-    extern __shared__ double s_c[];
+    using T2 = typename BkVec2<T>::type;
+    extern __shared__ __align__(16) unsigned char s_raw[];
+    T* s_c = reinterpret_cast<T*>(s_raw);
     __shared__ double s_red[32];
     const int64_t b = blockIdx.y;
     // c[k]: the cumsum at global row k, defined for k in [row0 - halo, row0 + Gd + halo]
-    const double* c = a.ext + b * a.cs_stride + a.halo - a.row0;
+    const T* c = static_cast<const T*>(a.ext) + b * a.cs_stride + a.halo - a.row0;
     const int64_t k_lo = a.row0 - a.halo, k_hi = a.row0 + a.Gd + a.halo;
     const int n_stage = WIN_ROWS + 2 * W + 1;
-    double u0 = 0.0, vmax = 0.0;
+    double u0 = 0.0;
+    T vmax = 0;
     bool nz = false;
     for (int64_t r0 = (int64_t)blockIdx.x * WIN_ROWS; r0 < a.Gd; r0 += (int64_t)gridDim.x * WIN_ROWS) {
         const int64_t g0 = a.row0 + r0 - W;  // the global row of s_c[0]
         __syncthreads();
         for (int i = threadIdx.x; i < n_stage; i += THREADS) {
             int64_t k = g0 + i;
-            s_c[i] = k >= k_lo && k <= k_hi ? c[k] : 0.0;
+            s_c[i] = k >= k_lo && k <= k_hi ? c[k] : (T)0;
         }
         __syncthreads();
-        const double* sc = s_c - g0;
+        const T* sc = s_c - g0;
         for (int j = threadIdx.x; j < WIN_ROWS && r0 + j < a.Gd; j += THREADS) {
             const int64_t r = r0 + j, i = b * a.Gd + r, rg = a.row0 + r;
             const int64_t se = a.seg_end[r], ss = a.seg_start[r];
-            const double cr = sc[rg], cr1 = sc[rg + 1];
+            const T cr = sc[rg], cr1 = sc[rg + 1];
             auto fwd = [&](int64_t w) {
                 int64_t hi = rg + w < se ? rg + w : se;
-                return __dsub_rn(sc[hi], cr);
+                return bk_sub(sc[hi], cr);
             };
             auto rev = [&](int64_t w) {
                 int64_t lo = rg + 1 - w > ss ? rg + 1 - w : ss;
-                return __dsub_rn(cr1, sc[lo]);
+                return bk_sub(cr1, sc[lo]);
             };
-            double sf = fwd(a.mu_ds), sr = rev(a.mu_ds);
-            double ef = __dmul_rn(a.weight[0], fwd(a.win[0]));
-            double er = __dmul_rn(a.weight[0], rev(a.win[0]));
+            T sf = fwd(a.mu_ds), sr = rev(a.mu_ds);
+            T ef = bk_mul((T)a.weight[0], fwd(a.win[0]));
+            T er = bk_mul((T)a.weight[0], rev(a.win[0]));
 #pragma unroll
             for (int k = 1; k < 10; ++k) {
-                ef = __dadd_rn(ef, __dmul_rn(a.weight[k], fwd(a.win[k])));
-                er = __dadd_rn(er, __dmul_rn(a.weight[k], rev(a.win[k])));
+                ef = bk_add(ef, bk_mul((T)a.weight[k], fwd(a.win[k])));
+                er = bk_add(er, bk_mul((T)a.weight[k], rev(a.win[k])));
             }
-            double bf = __dsub_rn(ef, sf), br = __dsub_rn(er, sr);
-            bf = bf > 0.0 ? bf : 0.0;
-            br = br > 0.0 ? br : 0.0;
-            reinterpret_cast<double2*>(a.smu)[i] = make_double2(sf, sr);
-            reinterpret_cast<double2*>(a.benefit)[i] = make_double2(bf, br);
-            nz |= bf > 0.0 || br > 0.0;
-            vmax = fmax(vmax, fmax(bf, br));
-            double2 f = reinterpret_cast<const double2*>(a.fhat_exp)[r];
-            double q0 = a.quirks ? bf : sf, q1 = a.quirks ? br : sr;
-            u0 += (double)__double2float_rn(__dmul_rn(f.x, q0));
-            u0 += (double)__double2float_rn(__dmul_rn(f.y, q1));
+            T bf = bk_sub(ef, sf), br = bk_sub(er, sr);
+            bf = bf > (T)0 ? bf : (T)0;
+            br = br > (T)0 ? br : (T)0;
+            static_cast<T2*>(a.smu)[i] = T2{sf, sr};
+            static_cast<T2*>(a.benefit)[i] = T2{bf, br};
+            nz |= bf > (T)0 || br > (T)0;
+            vmax = bk_max(vmax, bk_max(bf, br));
+            T2 f = static_cast<const T2*>(a.fhat_exp)[r];
+            T q0 = a.quirks ? bf : sf, q1 = a.quirks ? br : sr;
+            u0 += (double)(float)bk_mul(f.x, q0);
+            u0 += (double)(float)bk_mul(f.y, q1);
         }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) vmax = fmax(vmax, __shfl_down_sync(FULL, vmax, o));
-    if ((threadIdx.x & 31) == 0 && vmax > 0.0)
-        atomicMax(a.norm_bits, (unsigned long long)__double_as_longlong(vmax));
+    for (int o = 16; o > 0; o >>= 1) vmax = bk_max(vmax, __shfl_down_sync(FULL, vmax, o));
+    if ((threadIdx.x & 31) == 0 && vmax > (T)0)
+        atomicMax(a.norm_bits, (unsigned long long)__double_as_longlong((double)vmax));
     if (__syncthreads_or(nz) && threadIdx.x == 0) atomicExch(a.any_nz, 1);
     u0 = bk_block_sum(u0, s_red);
     if (threadIdx.x == 0 && u0 != 0.0) atomicAdd(a.ubar0, u0);
 }
 
 // The threshold scan (threshold_from_bins) over the summed bins cnt/fs by
-// the whole block (at least NBINS threads): each bin's mean weight and
-// terms in its own thread, the scan in bk_exponent_threshold; thread 0
-// writes the threshold and aux.
+// the whole block (at least NBINS threads), in T: each bin's mean weight
+// and terms in its own thread (fs, ubar0 and the norm rounded to T), the
+// scan in bk_exponent_threshold; thread 0 writes the threshold and aux.
+template <class T>
 __device__ void threshold_from_bins(const StratArgs& a, const int* cnt, const double* fs,
-                                    BkThresholdScratch<NBINS>& sh) {
+                                    BkThresholdScratch<NBINS, T>& sh) {
     const int t = threadIdx.x;
-    const double norm = __longlong_as_double(__ldcg(reinterpret_cast<const long long*>(a.norm_bits)));
-    const double norm_safe = norm > 0.0 ? norm : 1.0;
+    const T norm = (T)__longlong_as_double(__ldcg(reinterpret_cast<const long long*>(a.norm_bits)));
+    const T norm_safe = norm > (T)0 ? norm : (T)1;
     const bool used = t < NBINS && cnt[t] > 0;
-    double tu = 0.0, tt = 0.0;
+    T tu = 0, tt = 0;
     if (used) {
-        const double c = (double)cnt[t], f_mean = __ddiv_rn(fs[t], c);
-        tu = __dmul_rn(__dmul_rn(__dmul_rn(bk_pow2_neg(t), norm_safe), f_mean), c);
-        tt = __dmul_rn(__dmul_rn(a.tc, c), f_mean);
+        const T c = (T)cnt[t], f_mean = bk_div((T)fs[t], c);
+        tu = bk_mul(bk_mul(bk_mul((T)bk_pow2_neg(t), norm_safe), f_mean), c);
+        tt = bk_mul(bk_mul((T)a.tc, c), f_mean);
     }
     // tbar0: alpha + rho + mu in 100-site rows, 3 + 3 + 4
-    int k = bk_exponent_threshold<NBINS>(used, tu, tt, __ldcg(a.ubar0), 10.0, sh);
+    int k = bk_exponent_threshold<NBINS, T>(used, tu, tt, (T)__ldcg(a.ubar0), (T)10, sh);
     if (t != 0) return;
-    double thr = __dmul_rn(bk_pow2_neg(k < 0 ? 0 : k), norm_safe);
-    bool update = a.aux[0] != 0.f && __ldcg(a.any_nz) != 0;
-    *a.threshold = thr;
-    a.aux[1] = update ? 1.f : 0.f;
-    a.aux[2] = __double2float_rn(thr);
+    T thr = bk_mul((T)bk_pow2_neg(k < 0 ? 0 : k), norm_safe);
+    bool update = aux_on(a) && __ldcg(a.any_nz) != 0;
+    *static_cast<T*>(a.threshold) = thr;
+    aux_set(a, 1, update ? 1.f : 0.f);
+    aux_set(a, 2, thr);
 }
 
-// |numpy.frexp exponent| of v / norm for v > 0, clamped to the top bin
+// |numpy.frexp exponent| of v / norm for v > 0, clamped to the top bin,
+// from the exponent bits of the quotient in T (biased 0: zero or
+// subnormal, the top bin)
 __device__ __forceinline__ int exponent_bin(double v, double norm_safe) {
     double x = __ddiv_rn(v, norm_safe);
     int biased = (int)((__double_as_longlong(x) >> 52) & 0x7FF);
     return biased == 0 ? NBINS - 1 : min(abs(biased - 1022), NBINS - 1);
+}
+
+__device__ __forceinline__ int exponent_bin(float v, float norm_safe) {
+    float x = __fdiv_rn(v, norm_safe);
+    int biased = (__float_as_int(x) >> 23) & 0xFF;
+    return biased == 0 ? NBINS - 1 : min(abs(biased - 126), NBINS - 1);
 }
 
 // One thread's run of equal bins: extended while the bin stays, flushed
@@ -413,7 +456,9 @@ struct BinRun {
 
 // 4. exponent-bin histogram of benefit / norm; with `fuse`, the last block
 // runs the threshold scan
+template <class T>
 __global__ void __launch_bounds__(THREADS) bin_benefit(StratArgs a, int fuse) {
+    using T2 = typename BkVec2<T>::type;
     __shared__ int s_cnt[NBINS];
     __shared__ double s_fs[NBINS];
     __shared__ int s_last;
@@ -422,26 +467,26 @@ __global__ void __launch_bounds__(THREADS) bin_benefit(StratArgs a, int fuse) {
         s_fs[k] = 0.0;
     }
     __syncthreads();
-    const double norm = __longlong_as_double((long long)*a.norm_bits);
-    const double norm_safe = norm > 0.0 ? norm : 1.0;
+    const T norm = (T)__longlong_as_double((long long)*a.norm_bits);
+    const T norm_safe = norm > (T)0 ? norm : (T)1;
     const int64_t b = blockIdx.y;
-    const double2* ben = reinterpret_cast<const double2*>(a.benefit) + b * a.Gd;
-    const double2* fh = reinterpret_cast<const double2*>(a.fhat_exp);
+    const T2* ben = static_cast<const T2*>(a.benefit) + b * a.Gd;
+    const T2* fh = static_cast<const T2*>(a.fhat_exp);
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     BinRun fw, rv;  // one run per strand
     // BIN_ROWS rows a thread per pass, their loads issued together
     for (int64_t r0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r0 < a.Gd; r0 += stride * BIN_ROWS) {
-        double2 v[BIN_ROWS], f[BIN_ROWS];
+        T2 v[BIN_ROWS], f[BIN_ROWS];
 #pragma unroll
         for (int j = 0; j < BIN_ROWS; ++j) {
             const int64_t r = r0 + j * stride;
-            v[j] = r < a.Gd ? ben[r] : make_double2(0.0, 0.0);
-            f[j] = r < a.Gd ? fh[r] : make_double2(0.0, 0.0);
+            v[j] = r < a.Gd ? ben[r] : T2{0, 0};
+            f[j] = r < a.Gd ? fh[r] : T2{0, 0};
         }
 #pragma unroll
         for (int j = 0; j < BIN_ROWS; ++j) {
-            if (v[j].x > 0.0) fw.add(exponent_bin(v[j].x, norm_safe), f[j].x, s_cnt, s_fs);
-            if (v[j].y > 0.0) rv.add(exponent_bin(v[j].y, norm_safe), f[j].y, s_cnt, s_fs);
+            if (v[j].x > (T)0) fw.add(exponent_bin(v[j].x, norm_safe), (double)f[j].x, s_cnt, s_fs);
+            if (v[j].y > (T)0) rv.add(exponent_bin(v[j].y, norm_safe), (double)f[j].y, s_cnt, s_fs);
         }
     }
     fw.flush_warp(s_cnt, s_fs);
@@ -460,110 +505,129 @@ __global__ void __launch_bounds__(THREADS) bin_benefit(StratArgs a, int fuse) {
     __syncthreads();
     if (!s_last) return;
     __threadfence();
-    __shared__ BkThresholdScratch<NBINS> sh;
+    __shared__ BkThresholdScratch<NBINS, T> sh;
     for (int k = threadIdx.x; k < NBINS; k += blockDim.x) {
         s_cnt[k] = __ldcg(a.counts + k);
         s_fs[k] = __ldcg(a.fsum + k);
     }
     __syncthreads();
-    threshold_from_bins(a, s_cnt, s_fs, sh);
+    threshold_from_bins<T>(a, s_cnt, s_fs, sh);
 }
 
 // 4b. (shard phase 4) the threshold scan over the reduced bins, staged in
 // shared memory by NBINS threads
+template <class T>
 __global__ void __launch_bounds__(NBINS) threshold_scan(StratArgs a) {
     __shared__ int s_cnt[NBINS];
     __shared__ double s_fs[NBINS];
-    __shared__ BkThresholdScratch<NBINS> sh;
+    __shared__ BkThresholdScratch<NBINS, T> sh;
     s_cnt[threadIdx.x] = a.counts[threadIdx.x];
     s_fs[threadIdx.x] = a.fsum[threadIdx.x];
     __syncthreads();
-    threshold_from_bins(a, s_cnt, s_fs, sh);
+    threshold_from_bins<T>(a, s_cnt, s_fs, sh);
 }
 
 // 5. gated strategy write
+template <class T>
 __global__ void __launch_bounds__(THREADS) strat_write(StratArgs a) {
-    if (a.aux[1] == 0.f) return;
-    const double thr = *a.threshold;
+    using T2 = typename BkVec2<T>::type;
+    if (a.aux64 ? static_cast<const double*>(a.aux)[1] == 0.0 : static_cast<const float*>(a.aux)[1] == 0.f)
+        return;
+    const T thr = *static_cast<const T*>(a.threshold);
     const int64_t b = blockIdx.y;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < a.Gd; r += stride) {
         int32_t bi = a.bucket_idx[r];
         if (!a.strat_valid[r] || bi < 0 || !a.bucket_on[b * a.nbk + bi]) continue;
         const int64_t i = b * a.Gd + r;
-        double2 v = reinterpret_cast<const double2*>(a.benefit)[i];
+        T2 v = static_cast<const T2*>(a.benefit)[i];
         reinterpret_cast<uchar2*>(a.strat)[i] = make_uchar2(v.x >= thr ? 1 : 0, v.y >= thr ? 1 : 0);
     }
 }
 
 // benefit_windows over the rows: grid, the widest window W and the staged
 // cumsum's shared memory (above 48 KB only after opting in)
+template <class T>
 int launch_windows(const StratArgs& a, cudaStream_t st) {
     int W = a.mu_ds;
     for (int k = 0; k < 10; ++k) W = a.win[k] > W ? a.win[k] : W;
     if (W < 1 || W > MAX_WINDOW) return -1;
-    size_t smem = sizeof(double) * (WIN_ROWS + 2 * (size_t)W + 1);
+    size_t smem = sizeof(T) * (WIN_ROWS + 2 * (size_t)W + 1);
     if (smem > 48 * 1024)
-        BK_CHECK(cudaFuncSetAttribute(benefit_windows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BK_CHECK(cudaFuncSetAttribute(benefit_windows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       (int)smem));
     int64_t x = (a.Gd + WIN_ROWS - 1) / WIN_ROWS, cap = 132 * 8 / a.nb > 1 ? 132 * 8 / a.nb : 1;
-    benefit_windows<<<dim3((unsigned)(x < cap ? x : cap), (unsigned)a.nb), THREADS, smem, st>>>(a, W);
+    benefit_windows<T><<<dim3((unsigned)(x < cap ? x : cap), (unsigned)a.nb), THREADS, smem, st>>>(a, W);
     BK_LAUNCHED();
     return 0;
 }
 
-}  // namespace
-
-BK_API int bk_benefit_strategy(const StratArgs* args, void* stream) {
+template <class T>
+int benefit_strategy(const StratArgs* args, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     StratArgs a = *args;
     int64_t n_tiles = (a.Gd + TILE - 1) / TILE;
     if (a.nb < 1 || a.nb > 65535 || a.Gd < 1) return -1;
     dim3 grid = grid_rows(a.Gd, a.nb, 132 * 32);
     BK_CHECK(cudaMemsetAsync(a.tickets, 0, 2 * sizeof(unsigned int), st));
-    scan_tiles<<<dim3((unsigned)n_tiles, (unsigned)a.nb), SCAN_THREADS, 0, st>>>(a, n_tiles, 1);
+    scan_tiles<T><<<dim3((unsigned)n_tiles, (unsigned)a.nb), SCAN_THREADS, 0, st>>>(a, n_tiles, 1);
     BK_LAUNCHED();
     if (n_tiles > 1) {
-        scan_add<<<grid, THREADS, 0, st>>>(a, a.tile_sums, n_tiles, 0);
+        scan_add<T><<<grid, THREADS, 0, st>>>(a, static_cast<const T*>(a.tile_sums), n_tiles, 0);
         BK_LAUNCHED();
     }
-    if (int err = launch_windows(a, st)) return err;
-    bin_benefit<<<grid_rows(a.Gd, a.nb, 132 * 8), THREADS, 0, st>>>(a, 1);
+    if (int err = launch_windows<T>(a, st)) return err;
+    bin_benefit<T><<<grid_rows(a.Gd, a.nb, 132 * 8), THREADS, 0, st>>>(a, 1);
     BK_LAUNCHED();
-    strat_write<<<grid, THREADS, 0, st>>>(a);
+    strat_write<T><<<grid, THREADS, 0, st>>>(a);
     BK_LAUNCHED();
     return 0;
 }
 
-BK_API int bk_shard_benefit(const StratArgs* args, int phase, void* stream) {
+template <class T>
+int shard_benefit(const StratArgs* args, int phase, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     StratArgs a = *args;
     int64_t n_tiles = (a.Gd + TILE - 1) / TILE;
     if (a.nb < 1 || a.nb > 65535 || a.Gd < 1) return -1;
     dim3 grid = grid_rows(a.Gd, a.nb, 132 * 32);
+    T* tiles = static_cast<T*>(a.tiles_g);
     switch (phase) {
         case 0:
-            scan_tiles<<<dim3((unsigned)n_tiles, (unsigned)a.nb), SCAN_THREADS, 0, st>>>(a, n_tiles, 0);
+            scan_tiles<T><<<dim3((unsigned)n_tiles, (unsigned)a.nb), SCAN_THREADS, 0, st>>>(a, n_tiles, 0);
             break;
         case 1:
             if (a.tile0 < 0 || a.tile0 + n_tiles > a.n_tiles_g) return -1;
-            scan_tile_prefix<<<(unsigned)a.nb, THREADS, 0, st>>>(a, a.tiles_g, a.n_tiles_g, a.tile0);
+            scan_tile_prefix<T><<<(unsigned)a.nb, THREADS, 0, st>>>(a, tiles, a.n_tiles_g, a.tile0);
             BK_LAUNCHED();
-            scan_add<<<grid, THREADS, 0, st>>>(a, a.tiles_g, a.n_tiles_g, a.tile0);
+            scan_add<T><<<grid, THREADS, 0, st>>>(a, tiles, a.n_tiles_g, a.tile0);
             break;
         case 2:
-            return launch_windows(a, st);
+            return launch_windows<T>(a, st);
         case 3:
-            bin_benefit<<<grid_rows(a.Gd, a.nb, 132 * 8), THREADS, 0, st>>>(a, 0);
+            bin_benefit<T><<<grid_rows(a.Gd, a.nb, 132 * 8), THREADS, 0, st>>>(a, 0);
             break;
         case 4:
-            threshold_scan<<<1, NBINS, 0, st>>>(a);
+            threshold_scan<T><<<1, NBINS, 0, st>>>(a);
             BK_LAUNCHED();
-            strat_write<<<grid, THREADS, 0, st>>>(a);
+            strat_write<T><<<grid, THREADS, 0, st>>>(a);
             break;
         default:
             return -1;
     }
     BK_LAUNCHED();
     return 0;
+}
+
+}  // namespace
+
+// the f64 decision path (the default) and the f32 one (_d32)
+BK_API int bk_benefit_strategy(const StratArgs* a, void* st) { return benefit_strategy<double>(a, st); }
+BK_API int bk_benefit_strategy_d32(const StratArgs* a, void* st) { return benefit_strategy<float>(a, st); }
+
+BK_API int bk_shard_benefit(const StratArgs* a, int phase, void* st) {
+    return shard_benefit<double>(a, phase, st);
+}
+BK_API int bk_shard_benefit_d32(const StratArgs* a, int phase, void* st) {
+    return shard_benefit<float>(a, phase, st);
 }

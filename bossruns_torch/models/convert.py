@@ -26,12 +26,13 @@ def tensors_from_numpy(d: dict, device) -> dict[str, torch.Tensor]:
     return out
 
 
-def state_from_numpy(d: dict, device) -> GenomeState:
+def state_from_numpy(d: dict, device, dtype=torch.float32) -> GenomeState:
     """GenomeState fields as numpy (e.g. the JAX engine's state through
-    np.asarray) -> the port's GenomeState on device."""
+    np.asarray) -> the port's GenomeState on device, read_starts in
+    ``dtype``, the engine's score dtype (the JAX engine keeps them in its
+    ``dtype``, so an f64-score state carries across whole)."""
     t = tensors_from_numpy({k: d[k] for k in GenomeState._fields}, device)
-    t["read_starts"] = t["read_starts"].to(torch.float32)
-    return normalize_state(GenomeState(**t))
+    return normalize_state(GenomeState(**t), dtype)
 
 
 def state_to_numpy(state: GenomeState) -> dict[str, np.ndarray]:

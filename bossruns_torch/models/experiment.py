@@ -92,7 +92,7 @@ class BossRuns:
         # processed-files set
         self.checkpoint_every = 10
         if getattr(args.optional, "resume", False):
-            restored = load_checkpoint(self.out_dir, self.device)
+            restored = load_checkpoint(self.out_dir, self.device, dtype=self.engine.dtype)
             if restored is not None:
                 self.state, host, extra = restored
                 self.batch = int(host.get("batch", 0))

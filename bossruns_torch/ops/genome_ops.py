@@ -14,10 +14,17 @@ PyTorch, which a wrapper takes only for CPU tensors. A CUDA tensor launches
 the kernel or raises. The plain versions run on either device, so the
 kernels can be held against them on the card.
 
-Decision-path arithmetic is f64 and follows the JAX package's order of
-operations, with its reduction-order-invariance contract: sums of
-integer-valued or f32-rounded summands are exact in any order, so atomics
-are used only for those.
+Decision-path arithmetic follows the JAX package's order of operations in
+the engine's decision dtype (``RunsConfig.benefit_dtype``: f64 by default,
+or f32), beside per-site scores in its score dtype (``RunsConfig.dtype``:
+f32 by default, or f64). The default keeps the JAX package's
+reduction-order-invariance contract: sums of integer-valued or f32-rounded
+summands are exact in any order, so atomics are used only for those. The
+other dtypes keep every sum that is not exact in an order fixed by the
+shape: integer sums run in int64 and are rounded to the decision dtype
+once, the fhat normaliser, ubar0 and the bins' fhat sums accumulate in f64
+and are rounded once, a ds row's score sum runs in the kernel's warp order
+(``row_sum_warp``) and the benefit cumsum tile by tile (``tile_csum``).
 """
 from __future__ import annotations
 
@@ -78,6 +85,34 @@ def _csum(x):
     return torch.cat([torch.zeros((*cs.shape[:-1], 1), dtype=dt, device=cs.device), cs], dim=-1)
 
 
+#: rows per tile of H4's scan; the plain versions scan a shard, or a row of
+#: the single step with ``tile_scan``, tile by tile
+SCAN_TILE = 4096
+
+
+def tile_csum(x):
+    """[..., N] -> [..., N+1] exclusive-prefix cumsum in x's dtype, formed
+    as H4 and the sharded step form it: a cumsum inside each SCAN_TILE-row
+    tile, then each tile's exclusive prefix of the tile totals (summed
+    sequentially in tile order) added to its rows. Where the sums are not
+    exact, this is the order in which the single step equals a sharded one
+    whose shards fall on tiles."""
+    n = x.shape[-1]
+    nt = max(1, -(-n // SCAN_TILE))
+    xp = torch.zeros((*x.shape[:-1], nt * SCAN_TILE), dtype=x.dtype, device=x.device)
+    xp[..., :n] = x
+    cs = torch.cumsum(xp.reshape(*x.shape[:-1], nt, SCAN_TILE), dim=-1)
+    run = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    pre = []
+    for t in range(nt):
+        pre.append(run)
+        run = run + cs[..., t, -1]
+    if nt > 1:
+        cs[..., 1:, :] += torch.stack(pre[1:], dim=-1)[..., None]
+    zero = torch.zeros((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+    return torch.cat([zero, cs.reshape(*x.shape[:-1], -1)[..., :n]], dim=-1)
+
+
 def windowed_sums_fwd(cs, w, seg_end, rows):
     """out[..., r] = sum(x[r : min(r+w, seg_end[r])]) from cs = _csum(x)."""
     n = rows.shape[0]
@@ -92,16 +127,19 @@ def windowed_sums_rev(cs, w, seg_start, rows):
     return cs[..., 1 : n + 1] - cs[..., lo]
 
 
-def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 4):
+def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 4,
+                     tiled: bool = False):
     """(smu, benefit), both [..., N, 2], from downsampled scores [..., N].
 
     benefit = sum_i weight_i * window_sum(ccl_i) - smu, clipped >= 0, with
     the 10 CCL piece weights 0.95..0.05, accumulated as an unrolled
-    sequential chain in the reference order (genome_ops.py:121-128).
+    sequential chain in the reference order (genome_ops.py:121-128), in the
+    dtype of scores_ds. ``tiled``: the cumsum of ``tile_csum``, else one
+    sequential scan (the oracle's order).
     """
     n = scores_ds.shape[-1]
     rows = torch.arange(n, device=scores_ds.device)
-    cs = _csum(scores_ds)
+    cs = tile_csum(scores_ds) if tiled else _csum(scores_ds)
     wins = [max(int(w), 1) for w in approx_ccl_ds]
 
     def fwd(w):
@@ -122,22 +160,58 @@ def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 
 
 # ------------------------------------------------------------------- fhat ---
 
+def scalar(v: float, dtype, device) -> torch.Tensor:
+    """v as a 0-d tensor of ``dtype`` on ``device``: a divisor or dividend
+    the plain versions keep on their tensors' device, so that every
+    device divides as the kernels do (CUDA turns ``tensor / python
+    float`` into a product with the reciprocal, and PyTorch turns
+    ``python float / tensor`` into one everywhere)."""
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def log_beta(a, b):
+    """log B(a, b) = lgamma(a) + (lgamma(b) - lgamma(a + b)) in f64: the
+    form scipy's cephes ``lbeta`` takes once a + b exceeds MAXGAM (171.6),
+    which every realistic (2n - 1) alpha + csum does."""
+    return torch.lgamma(a) + (torch.lgamma(b) - torch.lgamma(a + b))
+
+
+def fhat_beta_denom(n_windows: int, alpha: float, dtype) -> float:
+    """B(alpha, (2n - 1) alpha) of the general point mass, in ``dtype`` (a
+    Python float holding a ``dtype`` value): f64 lgamma on the host of the
+    arguments rounded to ``dtype``, 1e-20 where the result is 0 in
+    ``dtype`` (genome_ops.py:151-155 of the JAX package). The plain version
+    and H3 divide by this same number."""
+    t = lambda v: torch.tensor(v, dtype=dtype).double()
+    bd = torch.exp(log_beta(t(alpha), t((2.0 * n_windows - 1.0) * alpha))).to(dtype)
+    return float(torch.where(bd == 0, torch.tensor(1e-20, dtype=dtype), bd))
+
+
 def fhat_pointmass(read_starts, row_valid, n_windows: int, alpha: float = 1.0, p0: float = 0.1):
     """Posterior-mean read-start probability per (window, strand), with a
-    point mass at zero for unobserved windows (readstartdist.py:86-117).
+    point mass at zero for unobserved windows (readstartdist.py:86-117), in
+    the dtype of ``read_starts`` (the decision dtype).
 
-    The port implements the production prior alpha == 1, where the beta
-    function closes to B(1, z) = 1/z; a general alpha needs betaln."""
-    if alpha != 1.0:
-        raise NotImplementedError("fhat_pointmass: the port implements alpha == 1 only")
-    csum = read_starts.sum()
+    alpha == 1 closes the beta function to B(1, z) = 1/z. A general alpha
+    takes exp(log_beta) in f64 (also for f32 read starts, where the JAX
+    package's f32 betaln keeps few digits at these arguments), rounded to
+    the dtype. The read-start total is an exact f64 sum of counts, rounded
+    to the dtype once."""
+    dt, dev = read_starts.dtype, read_starts.device
+    csum = read_starts.sum(dtype=torch.float64).to(dt)
     denom = 2.0 * n_windows * alpha + csum
-    beta_num = 1.0 / ((2.0 * n_windows - 1.0) + csum)
-    beta_denom = 1.0 / (2.0 * n_windows - 1.0)
-    if beta_denom == 0:
-        beta_denom = 1e-20
+    a = scalar(alpha, dt, dev)
+    if alpha == 1.0:
+        beta_num = 1.0 / ((2.0 * n_windows - 1.0) + csum)
+        beta_denom = 1.0 / (2.0 * n_windows - 1.0)
+        if beta_denom == 0:
+            beta_denom = 1e-20
+    else:
+        b = (2.0 * n_windows - 1.0) * alpha + csum
+        beta_num = torch.exp(log_beta(a.double(), b.double())).to(dt)
+        beta_denom = fhat_beta_denom(n_windows, alpha, dt)
     p0_bit = p0 / (p0 + (1.0 - p0))
-    expected_post = (1.0 - p0_bit * (beta_num / beta_denom)) * (alpha / denom)
+    expected_post = (1.0 - p0_bit * (beta_num / scalar(beta_denom, dt, dev))) * (a / denom)
     fh = torch.where(read_starts > 0, (alpha + read_starts) / denom, expected_post)
     return torch.where(row_valid[:, None], fh, 0.0)
 
@@ -166,8 +240,9 @@ class ThresholdResult(NamedTuple):
 
 
 def bin_benefit(benefit, fhat, norm, nbins: int):
-    """(counts, fsum) [nbins] exponent bins of benefit / norm. Counts are
-    integers and fsum sums f32-rounded fhat weights: exact in any order."""
+    """(counts in benefit's dtype, fsum in f64) [nbins] exponent bins of
+    benefit / norm. Counts are integers and fsum sums f32-rounded fhat
+    weights in f64: exact in any order."""
     dtype = benefit.dtype
     b = benefit.reshape(-1)
     f = fhat.reshape(-1).to(dtype)
@@ -176,14 +251,15 @@ def bin_benefit(benefit, fhat, norm, nbins: int):
     idx = frexp_abs_exponent(torch.where(nz, b / norm_safe, 1.0), nbins)
     counts = torch.zeros(nbins, dtype=torch.int64, device=b.device)
     counts.index_add_(0, idx, nz.long())
-    fsum = torch.zeros(nbins, dtype=dtype, device=b.device)
-    fsum.index_add_(0, idx, f * nz.to(dtype))
+    fsum = torch.zeros(nbins, dtype=torch.float64, device=b.device)
+    fsum.index_add_(0, idx, (f * nz.to(dtype)).double())
     return counts.to(dtype), fsum
 
 
 def ubar0_partial(fhat, smu, dtype):
-    """Sum of f32-rounded fhat*smu products (exact in any order)."""
-    return (fhat.to(dtype) * smu.to(dtype)).float().to(dtype).sum()
+    """f64 sum of the f32-rounded fhat*smu products (in ``dtype``): exact in
+    any order; the caller rounds it to the decision dtype."""
+    return (fhat.to(dtype) * smu.to(dtype)).float().double().sum()
 
 
 def threshold_from_bins(counts, fsum, norm, ubar0, time_cost: float, nbins: int,
@@ -213,12 +289,14 @@ def threshold_from_bins(counts, fsum, norm, ubar0, time_cost: float, nbins: int,
 
 def find_strategy(benefit, smu, fhat, time_cost: float, nbins: int = NBINS,
                   window: int = 100) -> ThresholdResult:
-    """Global accept/reject threshold via binary-exponent binning."""
+    """Global accept/reject threshold via binary-exponent binning, in the
+    dtype of ``benefit``."""
     dtype = benefit.dtype
     any_nz = (benefit > 0).any()
     norm = benefit.max()
     counts, fsum = bin_benefit(benefit, fhat, norm, nbins)
-    ubar0 = ubar0_partial(fhat, smu, dtype)
+    ubar0 = ubar0_partial(fhat, smu, dtype).to(dtype)
+    fsum = fsum.to(dtype)
     threshold = threshold_from_bins(counts, fsum, norm, ubar0, time_cost, nbins, window)
     return ThresholdResult(strat=benefit >= threshold, threshold=threshold, any_nonzero=any_nz)
 
@@ -363,6 +441,39 @@ def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, 
 
 # ============================================================ H3: row_stage ==
 
+def default_dtypes(score_dtype, decision_dtype) -> bool:
+    """Whether (score dtype, decision dtype) is the default (f32, f64), whose
+    decision sums are exact in any order."""
+    return score_dtype == torch.float32 and decision_dtype == torch.float64
+
+
+def row_sum_warp(x, dtype):
+    """Sums of the ds rows x [..., DS] in ``dtype``, in the order of H3's
+    row_apply: lane l of a warp adds x[l], x[l+32], x[l+64], x[l+96] in turn
+    (each rounded to ``dtype`` first), then the warp tree adds lanes l and
+    l+o for o = 16, 8, 4, 2, 1. Elementwise adds only, so every device
+    gives the kernel's bits."""
+    x = x.to(dtype)
+    pad = torch.zeros((*x.shape[:-1], 128 - DS), dtype=dtype, device=x.device)
+    lanes = torch.cat([x, pad], dim=-1).reshape(*x.shape[:-1], 4, 32)
+    acc = lanes[..., 0, :]
+    for k in range(1, 4):
+        acc = acc + lanes[..., k, :]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o: 2 * o]
+    return acc[..., 0]
+
+
+def ds_row_sums(scores, dtype):
+    """scores [nb, G] -> [nb, G // DS] ds-row sums in ``dtype``: a plain
+    torch sum where it is exact (f32 scores in f64), else ``row_sum_warp``."""
+    nb, G = scores.shape
+    x = scores.reshape(nb, G // DS, DS)
+    if default_dtypes(scores.dtype, dtype):
+        return x.sum(dim=2, dtype=dtype)
+    return row_sum_warp(x, dtype)
+
+
 def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, aux,
                     rs_row, rs_strand, rs_w=None, rs_read=None, bits=None,
                     site_valid, contig_id_ds, contig_denom, win_id_ds, n_win_pad: int,
@@ -372,22 +483,23 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
                     fhat_p0: float, on_target: float):
     """Plain version of H3 (models/runs.py:592-663).
 
-    In place: scores (dropout/sticky zeros), zeroed, bucket_on, read_starts,
-    aux[0] (any bucket on) and aux[3] (mean coverage). Returns
-    (scores_ds f64 [nb, Gd], fhat_exp f64 [Gd, 2])."""
-    f64 = torch.float64
+    Scores, read_starts and aux are in the score dtype S; contig_denom and
+    fhat_rows in the decision dtype D. Coverage sums are exact int64 sums,
+    rounded to D. In place: scores (dropout/sticky zeros), zeroed,
+    bucket_on, read_starts, aux[0] (any bucket on) and aux[3] (mean
+    coverage). Returns (scores_ds D [nb, Gd], fhat_exp D [Gd, 2])."""
+    S, D = scores.dtype, contig_denom.dtype
     nb, G = scores.shape
     Gd = G // DS
     dev = scores.device
-    covsum_f = covsum.float()
-    covsum_ds = covsum_f.reshape(nb, Gd, DS).sum(dim=2, dtype=f64)
+    covsum_ds = covsum.long().reshape(nb, Gd, DS).sum(dim=2)
     cid = contig_id_ds.long()
-    per_contig = torch.zeros(contig_denom.shape[0], dtype=f64, device=dev)
+    per_contig = torch.zeros(contig_denom.shape[0], dtype=torch.int64, device=dev)
     per_contig.index_add_(0, cid, covsum_ds.sum(dim=0))
-    contig_mean = (per_contig / contig_denom).float()
-    thr_ds = torch.floor(contig_mean / dropout_mod)[cid]
+    contig_mean = (per_contig.to(D) / contig_denom).to(S)
+    thr_ds = torch.floor(contig_mean / scalar(dropout_mod, S, dev))[cid]
     active_ds = (contig_mean > dropout_min_mean)[cid]
-    low = (covsum_f.reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
+    low = (covsum.to(S).reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
     drop_site = (low & active_ds[:, None]).reshape(G) & site_valid
     recomputed = changed[None, :] & ~(covsum >= freeze_cov)
     zero = (zeroed & ~recomputed) | drop_site[None, :]
@@ -397,48 +509,50 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
     win = win_id_ds.long()
     row_off = torch.arange(nb, device=dev)[:, None] * n_win_pad
     win_idx = torch.where((win >= 0)[None, :], win[None, :] + row_off, nb * n_win_pad)
-    winsums = torch.zeros(nb * n_win_pad + 1, dtype=f64, device=dev)
+    winsums = torch.zeros(nb * n_win_pad + 1, dtype=torch.int64, device=dev)
     winsums.index_add_(0, win_idx.reshape(-1), covsum_ds.reshape(-1))
-    winsums = winsums[:-1].reshape(nb, n_win_pad)
+    winsums = winsums[:-1].reshape(nb, n_win_pad).to(D)
     src = bucket_src.long()
     wsum = winsums[:, torch.clamp_min(src, 0)]
-    bucket_mean = torch.where((src >= 0)[None, :], wsum / BUCKET, 0.0).float()
+    bucket_mean = torch.where((src >= 0)[None, :], wsum / scalar(BUCKET, D, dev), 0.0).to(S)
     bucket_on |= (bucket_mean >= bucket_threshold) & bucket_valid[None, :]
-    aux[0] = bucket_on.any().float()
+    aux[0] = bucket_on.any()
 
     # gated flow: a read start counts iff its read was accepted
     w = rs_w if rs_read is None else _gate(rs_read, bits, True).to(torch.float32)
     row, st = rs_row.long(), rs_strand.long()
     ok = (row >= 0) & (row < read_starts.shape[0]) & (st >= 0) & (st < 2)
-    read_starts.view(-1).index_add_(0, (row * 2 + st)[ok], w[ok])
-    fhat_w = fhat_pointmass(read_starts.to(f64), fhat_valid, n_fhat, fhat_alpha, fhat_p0)
-    tot = torch.sum(fhat_w * fhat_rows[:, None])
+    read_starts.view(-1).index_add_(0, (row * 2 + st)[ok], w[ok].to(S))
+    fhat_w = fhat_pointmass(read_starts.to(D), fhat_valid, n_fhat, fhat_alpha, fhat_p0)
+    tot = (fhat_w * fhat_rows[:, None]).sum(dtype=torch.float64).to(D)
     fidx = fhat_idx.long()
     fhat_exp = torch.where((fidx >= 0)[:, None], fhat_w[torch.clamp_min(fidx, 0)], 0.0)
-    fhat_exp = fhat_exp * torch.where(tot > 0, on_target / tot, 0.0)
-    fhat_exp = fhat_exp.float().to(f64)
+    fhat_exp = fhat_exp * torch.where(tot > 0, scalar(on_target, D, dev) / tot, 0.0)
+    fhat_exp = fhat_exp.float().to(D)
 
-    scores_ds = scores.reshape(nb, Gd, DS).sum(dim=2, dtype=f64)
-    aux[3] = (covsum_ds.sum() / n_real_sites).float()
+    scores_ds = ds_row_sums(scores, D)
+    aux[3] = covsum_ds.sum().to(D) / scalar(n_real_sites, D, dev)
     return scores_ds, fhat_exp
 
 
-def _check_rows(kw) -> None:
-    """Raise unless the arguments of an H3 launch are the tensors it takes."""
+def _check_rows(kw) -> str:
+    """Raise unless the arguments of an H3 launch are the tensors it takes;
+    returns the entry point's suffix (``K.row_variant``) for the score dtype
+    S of ``scores`` and the decision dtype D of ``contig_denom``."""
     scores = kw["scores"]
-    if kw["fhat_alpha"] != 1.0:
-        raise NotImplementedError("the row_stage kernel implements fhat_alpha == 1 only")
     dev = scores.device
     nb, G = scores.shape
     Gd = G // DS
+    S, D = scores.dtype, kw["contig_denom"].dtype
+    variant = K.row_variant(S, D)
     c = K.check
-    c(scores, "scores", torch.float32, (nb, G))
+    c(scores, "scores", S, (nb, G))
     c(kw["covsum"], "covsum", torch.int32, (nb, G), dev)
     c(kw["changed"], "changed", torch.bool, (G,), dev)
     c(kw["zeroed"], "zeroed", torch.bool, (nb, G), dev)
     c(kw["site_valid"], "site_valid", torch.bool, (G,), dev)
     n_c1 = kw["contig_denom"].shape[0]
-    c(kw["contig_denom"], "contig_denom", torch.float64, (n_c1,), dev)
+    c(kw["contig_denom"], "contig_denom", D, (n_c1,), dev)
     c(kw["contig_id_ds"], "contig_id_ds", torch.int32, (Gd,), dev)
     c(kw["win_id_ds"], "win_id_ds", torch.int32, (Gd,), dev)
     nbk = kw["bucket_src"].shape[0]
@@ -446,11 +560,11 @@ def _check_rows(kw) -> None:
     c(kw["bucket_valid"], "bucket_valid", torch.bool, (nbk,), dev)
     c(kw["bucket_on"], "bucket_on", torch.bool, (nb, nbk), dev)
     wf = kw["read_starts"].shape[0]
-    c(kw["read_starts"], "read_starts", torch.float32, (wf, 2), dev)
+    c(kw["read_starts"], "read_starts", S, (wf, 2), dev)
     c(kw["fhat_valid"], "fhat_valid", torch.bool, (wf,), dev)
-    c(kw["fhat_rows"], "fhat_rows", torch.float64, (wf,), dev)
+    c(kw["fhat_rows"], "fhat_rows", D, (wf,), dev)
     c(kw["fhat_idx"], "fhat_idx", torch.int32, (Gd,), dev)
-    c(kw["aux"], "aux", torch.float32, (4,), dev)
+    c(kw["aux"], "aux", S, (4,), dev)
     n_rs = kw["rs_row"].shape[0]
     c(kw["rs_row"], "rs_row", torch.int32, (n_rs,), dev)
     c(kw["rs_strand"], "rs_strand", torch.int32, (n_rs,), dev)
@@ -466,6 +580,7 @@ def _check_rows(kw) -> None:
                      ("site_valid", 4)):
         if kw[k].data_ptr() % align:
             raise ValueError(f"{k}: row kernels need a {align}-byte aligned base")
+    return variant
 
 
 #: normaliser entries per block of H3's posterior launch (TAB_CHUNK in csrc/rows.cu)
@@ -476,25 +591,27 @@ ROW_SCRATCH = ("tab", "slots")
 
 
 def row_workspace(scores, contig_denom, n_win_pad: int, read_starts, low: bool = False) -> dict:
-    """Outputs and scratch of H3 for ``scores`` [nb, G]: scores_ds, fhat_exp
-    and the per-contig, per-window and fhat tables; ``low`` adds the
-    per-site mask of the sharded step's low phase. ``tab`` (the read-start
-    total, the any-bucket flag and the finished-block count) and ``slots``
-    (one partial sum of the normaliser per posterior block) are the table
-    launches' scratch."""
+    """Outputs and scratch of H3 for ``scores`` [nb, G] (score dtype S) and
+    ``contig_denom`` (decision dtype D): scores_ds and fhat_exp (D), the
+    per-contig and per-window sums (int64), the dropout table (S) and the
+    fhat weights and scale (D); ``low`` adds the per-site mask of the
+    sharded step's low phase. ``tab`` (the read-start total, the any-bucket
+    flag and the finished-block count) and ``slots`` (one f64 partial sum of
+    the normaliser per posterior block) are the table launches' scratch."""
     nb, G = scores.shape
     dev, i64 = scores.device, torch.int64
+    S, D = scores.dtype, contig_denom.dtype
     n_c1, wf = contig_denom.shape[0], read_starts.shape[0]
     return dict(
-        scores_ds=torch.empty((nb, G // DS), dtype=torch.float64, device=dev),
-        fhat_exp=torch.empty((G // DS, 2), dtype=torch.float64, device=dev),
+        scores_ds=torch.empty((nb, G // DS), dtype=D, device=dev),
+        fhat_exp=torch.empty((G // DS, 2), dtype=D, device=dev),
         per_contig=torch.empty(n_c1, dtype=i64, device=dev),
         winsums=torch.empty(nb * n_win_pad, dtype=i64, device=dev),
         total=torch.empty(1, dtype=i64, device=dev),
-        thr_c=torch.empty(n_c1, dtype=torch.float32, device=dev),
+        thr_c=torch.empty(n_c1, dtype=S, device=dev),
         active_c=torch.empty(n_c1, dtype=torch.uint8, device=dev),
-        fhat_w=torch.empty(wf * 2, dtype=torch.float64, device=dev),
-        scale=torch.empty(1, dtype=torch.float64, device=dev),
+        fhat_w=torch.empty(wf * 2, dtype=D, device=dev),
+        scale=torch.empty(1, dtype=D, device=dev),
         low=torch.empty(G, dtype=torch.uint8, device=dev) if low else None,
         tab=torch.empty(4, dtype=i64, device=dev),
         slots=torch.empty(max(1, -(-2 * wf // ROW_TABLE_CHUNK)), dtype=torch.float64, device=dev),
@@ -505,17 +622,22 @@ def _row_struct(kw, ws) -> K.RowArgs:
     nb, G = kw["scores"].shape
     n = kw["n_fhat"]
     alpha, p0 = kw["fhat_alpha"], kw["fhat_p0"]
-    beta_denom = 1.0 / (2.0 * n - 1.0)
+    D = kw["contig_denom"].dtype
+    if alpha == 1.0:
+        beta_denom = 1.0 / (2.0 * n - 1.0)
+        beta_denom = beta_denom if beta_denom != 0 else 1e-20
+    else:
+        beta_denom = fhat_beta_denom(n, alpha, D)
     bits = kw.get("bits")
     return K.RowArgs(
         nb=nb, G=G, n_c1=kw["contig_denom"].shape[0], nw_pad=kw["n_win_pad"],
         nbk=kw["bucket_src"].shape[0], n_bits=0 if bits is None else bits.shape[0],
         n_rs=kw["rs_row"].shape[0], wf=kw["read_starts"].shape[0],
         freeze_cov=kw["freeze_cov"], gated=int(kw.get("rs_read") is not None),
-        dropout_mod=float(kw["dropout_mod"]), dropout_min_mean=kw["dropout_min_mean"],
-        bucket_threshold=kw["bucket_threshold"], pad0=0.0,
-        c_denom0=2.0 * n * alpha, c_bn0=2.0 * n - 1.0,
-        beta_denom=beta_denom if beta_denom != 0 else 1e-20,
+        alpha_one=int(alpha == 1.0), pad0=0,
+        dropout_mod=float(kw["dropout_mod"]), dropout_min_mean=float(kw["dropout_min_mean"]),
+        bucket_threshold=float(kw["bucket_threshold"]),
+        c_denom0=2.0 * n * alpha, c_bn0=(2.0 * n - 1.0) * alpha, beta_denom=beta_denom,
         p0_bit=p0 / (p0 + (1.0 - p0)), alpha=alpha, on_target=kw["on_target"],
         n_real_sites=kw["n_real_sites"],
         **{k: K.ptr(kw.get(k)) for k in (
@@ -530,13 +652,14 @@ def _row_struct(kw, ws) -> K.RowArgs:
 
 def row_stage(**kw):
     """H3: dropout, sticky zeroing, buckets and the read-start posterior.
-    Same arguments, in-place updates and results as ``row_stage_plain``."""
+    Same arguments, in-place updates and results as ``row_stage_plain``;
+    the entry point follows the dtypes of ``scores`` and ``contig_denom``."""
     scores = kw["scores"]
     if scores.device.type == "cpu":
         return row_stage_plain(**kw)
-    _check_rows(kw)
+    variant = _check_rows(kw)
     ws = row_workspace(scores, kw["contig_denom"], kw["n_win_pad"], kw["read_starts"])
-    K.KERNELS["row_stage"](_row_struct(kw, ws), K.stream_ptr(scores))
+    K.KERNELS["row_stage" + variant](_row_struct(kw, ws), K.stream_ptr(scores))
     return ws["scores_ds"], ws["fhat_exp"]
 
 
@@ -544,14 +667,19 @@ def row_stage(**kw):
 
 def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on,
                            bucket_idx, strat_valid, strat, aux, mu_ds: int, windows,
-                           time_cost: float, reference_quirks: bool = False):
-    """Plain version of H4 (models/runs.py:666-687).
+                           time_cost: float, reference_quirks: bool = False,
+                           tile_scan: bool = False):
+    """Plain version of H4 (models/runs.py:666-687), in the decision dtype
+    D of scores_ds and fhat_exp.
 
     windows: the 10 CCL windows in ds rows (>= 1). In place: strat (where
     the bucket gate is open and the step updates), aux[1] (updated) and
-    aux[2] (threshold as f32); aux[0] (any bucket on) is read. Returns
-    (smu, benefit) [nb, Gd, 2] f64 and the f64 threshold (0-d)."""
-    smu, benefit = expected_benefit(scores_ds, windows, seg_start, seg_end, mu_ds=mu_ds)
+    aux[2] (threshold, in aux's dtype); aux[0] (any bucket on) is read.
+    Returns (smu, benefit) [nb, Gd, 2] and the threshold (0-d), in D.
+    ``tile_scan``: the cumsum of ``tile_csum`` (sharded == single where the
+    sums are not exact), else one sequential scan (the oracle's order)."""
+    smu, benefit = expected_benefit(scores_ds, windows, seg_start, seg_end, mu_ds=mu_ds,
+                                    tiled=tile_scan)
     fhat_b = fhat_exp[None].expand_as(benefit)
     res = find_strategy(benefit, benefit if reference_quirks else smu, fhat_b, time_cost)
     bidx = bucket_idx.long()
@@ -559,8 +687,8 @@ def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on
     do_update = (aux[0] > 0) & res.any_nonzero
     write = do_update & gate & strat_valid[None, :]
     strat.copy_(torch.where(write[:, :, None], res.strat, strat))
-    aux[1] = do_update.float()
-    aux[2] = res.threshold.float()
+    aux[1] = do_update
+    aux[2] = res.threshold
     return smu, benefit, res.threshold
 
 
@@ -569,49 +697,58 @@ def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on
 MAX_WINDOW_ROWS = 12000
 
 
-def _check_benefit(kw) -> tuple[int, list[int]]:
+def _check_benefit(kw) -> tuple[int, list[int], str]:
     """Raise unless the arguments of an H4 launch are the tensors it takes;
-    returns the bucket count and the 10 CCL windows (>= 1)."""
+    returns the bucket count, the 10 CCL windows (>= 1) and the entry
+    point's suffix for the decision dtype of ``scores_ds``."""
     scores_ds = kw["scores_ds"]
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
+    D = scores_ds.dtype
+    if D not in (torch.float32, torch.float64):
+        raise ValueError(f"the benefit kernels take float32 or float64, got {D}")
     c = K.check
-    c(scores_ds, "scores_ds", torch.float64, (nb, Gd))
+    c(scores_ds, "scores_ds", D, (nb, Gd))
     for k in ("seg_start", "seg_end", "bucket_idx"):
         c(kw[k], k, torch.int32, (Gd,), dev)
     c(kw["strat_valid"], "strat_valid", torch.bool, (Gd,), dev)
-    c(kw["fhat_exp"], "fhat_exp", torch.float64, (Gd, 2), dev, align=16)
+    c(kw["fhat_exp"], "fhat_exp", D, (Gd, 2), dev, align=16)
     nbk = kw["bucket_on"].shape[1]
     c(kw["bucket_on"], "bucket_on", torch.bool, (nb, nbk), dev)
     c(kw["strat"], "strat", torch.bool, (nb, Gd, 2), dev, align=2)
-    c(kw["aux"], "aux", torch.float32, (4,), dev)
+    aux = kw["aux"]
+    if aux.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"aux: dtype {aux.dtype}, expected float32 or float64")
+    c(aux, "aux", aux.dtype, (4,), dev)
     windows = [max(int(w), 1) for w in kw["windows"]]
     if len(windows) != 10:
         raise ValueError("expected 10 CCL windows")
     if max(windows + [int(kw["mu_ds"])]) > MAX_WINDOW_ROWS:
         raise ValueError(f"H4 stages windows of at most {MAX_WINDOW_ROWS} rows in shared memory")
-    return nbk, windows
+    return nbk, windows, "_d32" if D == torch.float32 else ""
 
 
 def benefit_strategy(**kw):
     """H4: benefit windows, exponent-binned threshold and the gated strategy
     write. Same arguments, in-place updates and results as
-    ``benefit_strategy_plain``."""
+    ``benefit_strategy_plain`` (whose ``tile_scan`` the kernel, which always
+    scans tile by tile, does not read); the entry point follows the dtype
+    of ``scores_ds``."""
     scores_ds = kw["scores_ds"]
     if scores_ds.device.type == "cpu":
         return benefit_strategy_plain(**kw)
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
-    nbk, windows = _check_benefit(kw)
+    nbk, windows, variant = _check_benefit(kw)
 
-    f64 = torch.float64
-    smu = torch.empty((nb, Gd, 2), dtype=f64, device=dev)
-    benefit = torch.empty((nb, Gd, 2), dtype=f64, device=dev)
-    threshold = torch.empty((), dtype=f64, device=dev)
-    n_tiles = -(-Gd // 4096)
+    D, f64 = scores_ds.dtype, torch.float64
+    smu = torch.empty((nb, Gd, 2), dtype=D, device=dev)
+    benefit = torch.empty((nb, Gd, 2), dtype=D, device=dev)
+    threshold = torch.empty((), dtype=D, device=dev)
+    n_tiles = -(-Gd // SCAN_TILE)
     scratch = dict(
-        cs=torch.empty(nb * (Gd + 1), dtype=f64, device=dev),
-        tile_sums=torch.empty(nb * n_tiles, dtype=f64, device=dev),
+        cs=torch.empty(nb * (Gd + 1), dtype=D, device=dev),
+        tile_sums=torch.empty(nb * n_tiles, dtype=D, device=dev),
         norm_bits=torch.empty(1, dtype=torch.int64, device=dev),
         any_nz=torch.empty(1, dtype=torch.int32, device=dev),
         counts=torch.empty(NBINS, dtype=torch.int32, device=dev),
@@ -624,7 +761,7 @@ def benefit_strategy(**kw):
         quirks=int(kw.get("reference_quirks", False)),
         win=(ctypes.c_int32 * 10)(*windows),
         weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
-        tc=float(kw["time_cost"]) // 100,
+        tc=float(kw["time_cost"]) // 100, aux64=int(kw["aux"].dtype == f64), pad0=0,
         smu=smu.data_ptr(), benefit=benefit.data_ptr(), threshold=threshold.data_ptr(),
         **{k: kw[k].data_ptr() for k in (
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
@@ -633,7 +770,7 @@ def benefit_strategy(**kw):
         row0=0, halo=0, cs_stride=Gd + 1, n_tiles_g=n_tiles, tile0=0,
         ext=scratch["cs"].data_ptr(), tiles_g=scratch["tile_sums"].data_ptr(),
     )
-    K.KERNELS["benefit_strategy"](a, K.stream_ptr(scores_ds))
+    K.KERNELS["benefit_strategy" + variant](a, K.stream_ptr(scores_ds))
     return smu, benefit, threshold
 
 
@@ -649,8 +786,6 @@ def benefit_strategy(**kw):
 
 ROW_PHASES = ("sums", "tables", "low", "apply")
 BENEFIT_PHASES = ("scan", "prefix", "windows", "bins", "threshold")
-#: rows per tile of H4's scan; the plain version scans a shard as one tile
-SCAN_TILE = 4096
 
 
 def local_run_indices(mr_bc, mr_g, mr_len, b0: int, g0: int, nb_l: int, Gl: int):
@@ -742,8 +877,8 @@ def shard_rows_plain(phase: str, ws: dict, **kw) -> None:
     tables: the dropout and fhat tables, bucket switches, read starts,
     aux[0] and aux[3]; low: the any-barcode low mask; apply: the zeroing,
     scores_ds and fhat_exp (reading ws["low"] when it exists)."""
-    f64 = torch.float64
     scores, covsum = kw["scores"], kw["covsum"]
+    S, D = scores.dtype, kw["contig_denom"].dtype
     nb, G = scores.shape
     Gd = G // DS
     dev = scores.device
@@ -760,39 +895,40 @@ def shard_rows_plain(phase: str, ws: dict, **kw) -> None:
         ws["winsums"].copy_(sums[:-1])
         ws["total"].copy_(covsum_ds.sum().reshape(1))
     elif phase == "tables":
-        contig_mean = (ws["per_contig"].to(f64) / kw["contig_denom"]).float()
-        ws["thr_c"].copy_(torch.floor(contig_mean / kw["dropout_mod"]))
+        contig_mean = (ws["per_contig"].to(D) / kw["contig_denom"]).to(S)
+        ws["thr_c"].copy_(torch.floor(contig_mean / scalar(kw["dropout_mod"], S, dev)))
         ws["active_c"].copy_(contig_mean > kw["dropout_min_mean"])
-        winsums = ws["winsums"].to(f64).reshape(nb, kw["n_win_pad"])
+        winsums = ws["winsums"].to(D).reshape(nb, kw["n_win_pad"])
         src = kw["bucket_src"].long()
         wsum = winsums[:, torch.clamp_min(src, 0)]
-        bucket_mean = torch.where((src >= 0)[None, :], wsum / BUCKET, 0.0).float()
+        bucket_mean = torch.where((src >= 0)[None, :], wsum / scalar(BUCKET, D, dev), 0.0).to(S)
         bucket_on = kw["bucket_on"]
         bucket_on |= (bucket_mean >= kw["bucket_threshold"]) & kw["bucket_valid"][None, :]
         aux = kw["aux"]
-        aux[0] = bucket_on.any().float()
+        aux[0] = bucket_on.any()
         read_starts = kw["read_starts"]
         rs_read = kw.get("rs_read")
         w = kw["rs_w"] if rs_read is None else _gate(rs_read, kw["bits"], True).float()
         row, st = kw["rs_row"].long(), kw["rs_strand"].long()
         ok = (row >= 0) & (row < read_starts.shape[0]) & (st >= 0) & (st < 2)
-        read_starts.view(-1).index_add_(0, (row * 2 + st)[ok], w[ok])
-        fhat_w = fhat_pointmass(read_starts.to(f64), kw["fhat_valid"], kw["n_fhat"],
+        read_starts.view(-1).index_add_(0, (row * 2 + st)[ok], w[ok].to(S))
+        fhat_w = fhat_pointmass(read_starts.to(D), kw["fhat_valid"], kw["n_fhat"],
                                 kw["fhat_alpha"], kw["fhat_p0"])
-        tot = torch.sum(fhat_w * kw["fhat_rows"][:, None])
+        tot = (fhat_w * kw["fhat_rows"][:, None]).sum(dtype=torch.float64).to(D)
         ws["fhat_w"].copy_(fhat_w.reshape(-1))
-        ws["scale"].copy_(torch.where(tot > 0, kw["on_target"] / tot, 0.0).reshape(1))
-        aux[3] = (ws["total"].to(f64)[0] / kw["n_real_sites"]).float()
+        ws["scale"].copy_(torch.where(tot > 0, scalar(kw["on_target"], D, dev) / tot, 0.0)
+                          .reshape(1))
+        aux[3] = ws["total"][0].to(D) / scalar(kw["n_real_sites"], D, dev)
     elif phase == "low":
         thr_ds = ws["thr_c"][cid]
-        low = (covsum.float().reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
+        low = (covsum.to(S).reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
         ws["low"].copy_(low.reshape(G))
     elif phase == "apply":
         if ws.get("low") is not None:
             low = ws["low"].bool().reshape(Gd, DS)
         else:
             thr_ds = ws["thr_c"][cid]
-            low = (covsum.float().reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
+            low = (covsum.to(S).reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
         active_ds = ws["active_c"].bool()[cid]
         drop_site = (low & active_ds[:, None]).reshape(G) & kw["site_valid"]
         recomputed = kw["changed"][None, :] & ~(covsum >= kw["freeze_cov"])
@@ -800,18 +936,19 @@ def shard_rows_plain(phase: str, ws: dict, **kw) -> None:
         zero = (zeroed & ~recomputed) | drop_site[None, :]
         scores.masked_fill_(zero, 0.0)
         zeroed.copy_(zero)
-        ws["scores_ds"].copy_(scores.reshape(nb, Gd, DS).sum(dim=2, dtype=f64))
+        ws["scores_ds"].copy_(ds_row_sums(scores, D))
         fidx = kw["fhat_idx"].long()
         fhat_w = ws["fhat_w"].reshape(-1, 2)
         fhat_exp = torch.where((fidx >= 0)[:, None], fhat_w[torch.clamp_min(fidx, 0)], 0.0)
-        ws["fhat_exp"].copy_((fhat_exp * ws["scale"]).float().to(f64))
+        ws["fhat_exp"].copy_((fhat_exp * ws["scale"]).float().to(D))
     else:
         raise ValueError(f"unknown row phase {phase!r}")
 
 
 def shard_rows(phase: str, ws: dict, **kw) -> None:
     """H8, rows: one phase (``ROW_PHASES``) of H3 on one shard. Same
-    arguments, in-place updates and workspace as ``shard_rows_plain``."""
+    arguments, in-place updates and workspace as ``shard_rows_plain``; the
+    entry point follows the dtypes as row_stage's."""
     scores = kw["scores"]
     if scores.device.type == "cpu":
         return shard_rows_plain(phase, ws, **kw)
@@ -819,32 +956,34 @@ def shard_rows(phase: str, ws: dict, **kw) -> None:
         raise ValueError(f"unknown row phase {phase!r}")
     if phase == "low" and ws.get("low") is None:
         raise ValueError("the low phase needs a workspace made with low=True")
-    _check_rows(kw)
-    K.KERNELS["shard_rows"](_row_struct(kw, ws), ROW_PHASES.index(phase), K.stream_ptr(scores))
+    variant = _check_rows(kw)
+    K.KERNELS["shard_rows" + variant](_row_struct(kw, ws), ROW_PHASES.index(phase),
+                                      K.stream_ptr(scores))
     return None
 
 
 def benefit_workspace(scores_ds) -> dict:
-    """Outputs and scratch of H8's benefit entry for scores_ds [nb_l, Gdl]:
-    the tile-local cumsum and its tile totals (H4's 4096-row tiles), smu,
-    benefit, the norm (f64, reduced as a max), any-nonzero,
-    the bins, ubar0 and the threshold. The caller adds ``tiles_g`` (the
-    gathered tile totals), ``tile0`` (this shard's first tile in it) and
-    ``ext`` (the halo-extended cumsum)."""
+    """Outputs and scratch of H8's benefit entry for scores_ds [nb_l, Gdl]
+    in the decision dtype D: the tile-local cumsum and its tile totals
+    (H4's 4096-row tiles), smu, benefit and the threshold in D; the norm
+    (f64, reduced as a max), any-nonzero, the bins (fsum in f64) and ubar0
+    (f64). The caller adds ``tiles_g`` (the gathered tile totals),
+    ``tile0`` (this shard's first tile in it) and ``ext`` (the
+    halo-extended cumsum)."""
     nb, Gd = scores_ds.shape
-    dev, f64 = scores_ds.device, torch.float64
+    dev, D, f64 = scores_ds.device, scores_ds.dtype, torch.float64
     n_tiles = -(-Gd // SCAN_TILE)
     return dict(
-        cs=torch.empty((nb, Gd + 1), dtype=f64, device=dev),
-        tile_sums=torch.empty((nb, n_tiles), dtype=f64, device=dev),
-        smu=torch.empty((nb, Gd, 2), dtype=f64, device=dev),
-        benefit=torch.empty((nb, Gd, 2), dtype=f64, device=dev),
+        cs=torch.empty((nb, Gd + 1), dtype=D, device=dev),
+        tile_sums=torch.empty((nb, n_tiles), dtype=D, device=dev),
+        smu=torch.empty((nb, Gd, 2), dtype=D, device=dev),
+        benefit=torch.empty((nb, Gd, 2), dtype=D, device=dev),
         norm=torch.empty(1, dtype=f64, device=dev),
         any_nz=torch.empty(1, dtype=torch.int32, device=dev),
         counts=torch.empty(NBINS, dtype=torch.int32, device=dev),
         fsum=torch.empty(NBINS, dtype=f64, device=dev),
         ubar0=torch.empty(1, dtype=f64, device=dev),
-        threshold=torch.empty((), dtype=f64, device=dev),
+        threshold=torch.empty((), dtype=D, device=dev),
         tiles_g=None, tile0=0, ext=None,
     )
 
@@ -852,22 +991,23 @@ def benefit_workspace(scores_ds) -> dict:
 def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, fhat_exp,
                         bucket_on, bucket_idx, strat_valid, strat, aux, mu_ds: int, windows,
                         time_cost: float, row0: int, halo: int,
-                        reference_quirks: bool = False) -> None:
+                        reference_quirks: bool = False, tile_scan: bool = False) -> None:
     """Plain version of H8's benefit entry: one phase of
     ``benefit_strategy_plain`` on one shard, its outputs in ``ws``
-    (``benefit_workspace``). seg_start/seg_end hold global ds rows; windows
-    are at most ``halo`` rows. scan: the cumsum of each SCAN_TILE-row tile
-    from zero, and the tile totals; prefix: add each tile's exclusive
-    prefix over the gathered totals (global tile order, summed
-    sequentially); windows: smu, benefit,
-    norm, any-nonzero and ubar0 from the halo-extended cumsum; bins: counts
-    and fsum against the (reduced) norm; threshold: the threshold scan and
-    the gated strategy write."""
-    f64 = torch.float64
+    (``benefit_workspace``), in the decision dtype D of scores_ds. seg_start/seg_end hold
+    global ds rows; windows are at most ``halo`` rows. scan: the cumsum of
+    each SCAN_TILE-row tile from zero, and the tile totals; prefix: add
+    each tile's exclusive prefix over the gathered totals (global tile
+    order, summed sequentially); windows: smu, benefit, norm, any-nonzero
+    and ubar0 from the halo-extended cumsum; bins: counts and fsum against
+    the (reduced) norm; threshold: the threshold scan and the gated
+    strategy write. A shard always scans tile by tile (``tile_scan`` is the
+    single step's choice)."""
+    D, f64 = scores_ds.dtype, torch.float64
     nb, Gd = scores_ds.shape
     n_tiles = ws["tile_sums"].shape[1]
     if phase == "scan":
-        x = torch.zeros((nb, n_tiles * SCAN_TILE), dtype=f64, device=scores_ds.device)
+        x = torch.zeros((nb, n_tiles * SCAN_TILE), dtype=D, device=scores_ds.device)
         x[:, :Gd] = scores_ds
         cs = torch.cumsum(x.reshape(nb, n_tiles, SCAN_TILE), dim=2)
         ws["cs"][:, 1:] = cs.reshape(nb, -1)[:, :Gd]  # column 0 is set by the prefix
@@ -878,7 +1018,7 @@ def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, 
         # in place, as the kernel: the gathered totals become their
         # exclusive prefix, summed sequentially in global tile order
         tiles, t0 = ws["tiles_g"], ws["tile0"]
-        run = torch.zeros(nb, dtype=f64, device=tiles.device)
+        run = torch.zeros(nb, dtype=D, device=tiles.device)
         for t in range(tiles.shape[1]):
             total = tiles[:, t].clone()
             tiles[:, t] = run
@@ -919,24 +1059,24 @@ def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, 
         ws["norm"].copy_(benefit.max().reshape(1))
         ws["any_nz"].copy_((benefit > 0).any().reshape(1))
         fhat_b = fhat_exp[None].expand_as(benefit)
-        ws["ubar0"].copy_(ubar0_partial(fhat_b, benefit if reference_quirks else smu, f64)
+        ws["ubar0"].copy_(ubar0_partial(fhat_b, benefit if reference_quirks else smu, D)
                           .reshape(1))
     elif phase == "bins":
         benefit = ws["benefit"]
-        counts, fsum = bin_benefit(benefit, fhat_exp[None].expand_as(benefit), ws["norm"][0],
-                                   NBINS)
+        counts, fsum = bin_benefit(benefit, fhat_exp[None].expand_as(benefit),
+                                   ws["norm"][0].to(D), NBINS)
         ws["counts"].copy_(counts)
         ws["fsum"].copy_(fsum)
     elif phase == "threshold":
-        threshold = threshold_from_bins(ws["counts"].to(f64), ws["fsum"], ws["norm"][0],
-                                        ws["ubar0"][0], time_cost, NBINS)
+        threshold = threshold_from_bins(ws["counts"].to(D), ws["fsum"].to(D), ws["norm"][0].to(D),
+                                        ws["ubar0"][0].to(D), time_cost, NBINS)
         bidx = bucket_idx.long()
         gate = bucket_on[:, torch.clamp_min(bidx, 0)] & (bidx >= 0)[None, :]
         do_update = (aux[0] > 0) & (ws["any_nz"][0] > 0)
         write = do_update & gate & strat_valid[None, :]
         strat.copy_(torch.where(write[:, :, None], ws["benefit"] >= threshold, strat))
-        aux[1] = do_update.float()
-        aux[2] = threshold.float()
+        aux[1] = do_update
+        aux[2] = threshold
         ws["threshold"].copy_(threshold)
     else:
         raise ValueError(f"unknown benefit phase {phase!r}")
@@ -945,7 +1085,8 @@ def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, 
 def shard_benefit(phase: str, ws: dict, **kw) -> None:
     """H8, benefit: one phase (``BENEFIT_PHASES``) of H4 on one shard.
     Same arguments, in-place updates and workspace as
-    ``shard_benefit_plain``."""
+    ``shard_benefit_plain``; the entry point follows the dtype of
+    scores_ds."""
     scores_ds = kw["scores_ds"]
     if scores_ds.device.type == "cpu":
         return shard_benefit_plain(phase, ws, **kw)
@@ -953,21 +1094,22 @@ def shard_benefit(phase: str, ws: dict, **kw) -> None:
         raise ValueError(f"unknown benefit phase {phase!r}")
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
-    nbk, windows = _check_benefit(kw)
+    nbk, windows, variant = _check_benefit(kw)
+    D = scores_ds.dtype
     halo = int(kw["halo"])
     if max(windows + [int(kw["mu_ds"])]) > max(halo, 1):
         raise ValueError("the CCL windows must be at most halo rows")
     ext, tiles = ws["ext"], ws["tiles_g"]
     if phase == "prefix":
-        K.check(tiles, "tiles_g", torch.float64, (nb, tiles.shape[1]), dev)
+        K.check(tiles, "tiles_g", D, (nb, tiles.shape[1]), dev)
     if phase == "windows":
-        K.check(ext, "ext", torch.float64, (nb, Gd + 1 + 2 * halo), dev)
+        K.check(ext, "ext", D, (nb, Gd + 1 + 2 * halo), dev)
     a = K.StratArgs(
         nb=nb, Gd=Gd, nbk=nbk, mu_ds=int(kw["mu_ds"]),
         quirks=int(kw.get("reference_quirks", False)),
         win=(ctypes.c_int32 * 10)(*windows),
         weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
-        tc=float(kw["time_cost"]) // 100,
+        tc=float(kw["time_cost"]) // 100, aux64=int(kw["aux"].dtype == torch.float64), pad0=0,
         **{k: kw[k].data_ptr() for k in (
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
             "strat_valid", "strat", "aux")},
@@ -979,7 +1121,7 @@ def shard_benefit(phase: str, ws: dict, **kw) -> None:
         n_tiles_g=0 if tiles is None else tiles.shape[1], tile0=int(ws["tile0"]),
         ext=K.ptr(ext), tiles_g=K.ptr(tiles),
     )
-    K.KERNELS["shard_benefit"](a, BENEFIT_PHASES.index(phase), K.stream_ptr(scores_ds))
+    K.KERNELS["shard_benefit" + variant](a, BENEFIT_PHASES.index(phase), K.stream_ptr(scores_ds))
     return None
 
 

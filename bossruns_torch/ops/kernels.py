@@ -44,10 +44,10 @@ class RowArgs(ctypes.Structure):
     _fields_ = [
         *[(n, _I64) for n in ("nb", "G", "n_c1", "nw_pad", "nbk", "n_bits", "n_rs", "wf")],
         ("freeze_cov", ctypes.c_int32), ("gated", ctypes.c_int32),
-        *[(n, ctypes.c_float) for n in
-          ("dropout_mod", "dropout_min_mean", "bucket_threshold", "pad0")],
-        *[(n, ctypes.c_double) for n in
-          ("c_denom0", "c_bn0", "beta_denom", "p0_bit", "alpha", "on_target", "n_real_sites")],
+        ("alpha_one", ctypes.c_int32), ("pad0", ctypes.c_int32),
+        *[(n, ctypes.c_double) for n in (
+            "dropout_mod", "dropout_min_mean", "bucket_threshold",
+            "c_denom0", "c_bn0", "beta_denom", "p0_bit", "alpha", "on_target", "n_real_sites")],
         *[(n, _P) for n in (
             "covsum", "changed", "site_valid", "contig_id_ds", "contig_denom",
             "win_id_ds", "bucket_src", "bucket_valid", "rs_row", "rs_strand",
@@ -70,6 +70,7 @@ class StratArgs(ctypes.Structure):
         ("win", ctypes.c_int32 * 10),
         ("weight", ctypes.c_double * 10),
         ("tc", ctypes.c_double),
+        ("aux64", ctypes.c_int32), ("pad0", ctypes.c_int32),
         *[(n, _P) for n in (
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on",
             "bucket_idx", "strat_valid", "strat", "aux", "smu", "benefit",
@@ -118,21 +119,31 @@ class Kernel:
         self.launches += 1
 
 
+def _score_args(tiny_type) -> list:
+    return [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, ctypes.c_int, tiny_type,
+            _P, _P, _P]
+
+
+#: suffixes of the engine options' entry points: "_s64" takes f64 scores
+#: (RunsConfig.dtype), "_d32" runs the f32 decision path
+#: (RunsConfig.benefit_dtype); the entry point without a suffix is the
+#: default (f32 scores, f64 decisions)
+ROW_VARIANTS = ("", "_s64", "_d32", "_s64_d32")
+BENEFIT_VARIANTS = ("", "_d32")
+
 KERNELS = {
     "coverage_update": Kernel(
         "coverage_update", "bk_coverage_update",
         [_P, _P, _P, _P, _I64] * 2 + [_P, _P, _P, _I64] * 2
         + [_P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _P],
     ),
-    "site_scores": Kernel(
-        "site_scores", "bk_site_scores",
-        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64,
-         ctypes.c_int, ctypes.c_float, _P, _P, _P],
-    ),
-    "row_stage": Kernel("row_stage", "bk_row_stage", [ctypes.POINTER(RowArgs), _P]),
-    "benefit_strategy": Kernel(
-        "benefit_strategy", "bk_benefit_strategy", [ctypes.POINTER(StratArgs), _P]
-    ),
+    "site_scores": Kernel("site_scores", "bk_site_scores", _score_args(ctypes.c_float)),
+    "site_scores_s64": Kernel("site_scores_s64", "bk_site_scores_s64",
+                              _score_args(ctypes.c_double)),
+    **{f"row_stage{v}": Kernel(f"row_stage{v}", f"bk_row_stage{v}",
+                               [ctypes.POINTER(RowArgs), _P]) for v in ROW_VARIANTS},
+    **{f"benefit_strategy{v}": Kernel(f"benefit_strategy{v}", f"bk_benefit_strategy{v}",
+                                      [ctypes.POINTER(StratArgs), _P]) for v in BENEFIT_VARIANTS},
     "seed_topn": Kernel(
         "seed_topn", "bk_seed_topn",
         [_P, _I64, *[ctypes.c_int] * 5, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
@@ -150,13 +161,22 @@ KERNELS = {
         "shard_coverage", "bk_shard_coverage",
         [_P, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     ),
-    "shard_rows": Kernel(
-        "shard_rows", "bk_shard_rows", [ctypes.POINTER(RowArgs), ctypes.c_int, _P]
-    ),
-    "shard_benefit": Kernel(
-        "shard_benefit", "bk_shard_benefit", [ctypes.POINTER(StratArgs), ctypes.c_int, _P]
-    ),
+    **{f"shard_rows{v}": Kernel(f"shard_rows{v}", f"bk_shard_rows{v}",
+                                [ctypes.POINTER(RowArgs), ctypes.c_int, _P]) for v in ROW_VARIANTS},
+    **{f"shard_benefit{v}": Kernel(f"shard_benefit{v}", f"bk_shard_benefit{v}",
+                                   [ctypes.POINTER(StratArgs), ctypes.c_int, _P])
+       for v in BENEFIT_VARIANTS},
 }
+
+
+def row_variant(score_dtype: torch.dtype, decision_dtype: torch.dtype) -> str:
+    """The ROW_VARIANTS suffix of H3's and H8's row entry points for these
+    dtypes; raises for any dtype but float32 and float64."""
+    for t in (score_dtype, decision_dtype):
+        if t not in (torch.float32, torch.float64):
+            raise ValueError(f"the row kernels take float32 or float64, got {t}")
+    return ("_s64" if score_dtype == torch.float64 else "") + \
+        ("_d32" if decision_dtype == torch.float32 else "")
 
 
 def launches() -> dict[str, int]:

@@ -89,8 +89,9 @@ def prior_score(model: ObservationModel, dtype=torch.float64, *, device) -> tupl
 
 def site_scores_plain(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
                       tiny: float):
-    """Plain version of H2: (scores f32 [nb, G], covsum int32 [nb, G]) from
-    coverage uint16 [nb, 5, G], with the masking of models/runs.py:577-590."""
+    """Plain version of H2: (scores [nb, G] in the tables' dtype, covsum
+    int32 [nb, G]) from coverage uint16 [nb, 5, G], with the masking of
+    models/runs.py:577-590."""
     fresh = site_scores_t(coverage, seq, tables)[0]
     covsum = torch.sum(widen(coverage), dim=1, dtype=torch.int32)
     scores = torch.where(site_valid[None, :], torch.clamp_min(fresh, 0.0), 0.0)
@@ -100,22 +101,26 @@ def site_scores_plain(coverage, seq, site_valid, tables: ScoreTables, freeze_cov
 
 def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int, tiny: float):
     """H2: per-site scores and coverage sums; same results as
-    ``site_scores_plain`` (f32, summed in another order; the posterior is
-    exp(lp - lse), a second exponential pass, as the plain version forms
-    it). Any G and base alignment:
-    the kernel takes 16-byte accesses where G % 4 == 0 and the bases are
-    aligned, scalar ones otherwise."""
+    ``site_scores_plain`` (in the tables' dtype, summed in another order;
+    the posterior is exp(lp - lse), a second exponential pass, as the plain
+    version forms it). f32 tables launch ``site_scores``, f64 tables
+    ``site_scores_s64``. Any G and base alignment: the kernel takes
+    16-byte accesses where G % 4 == 0 and the bases are aligned, scalar
+    ones otherwise."""
     if coverage.device.type == "cpu":
         return site_scores_plain(coverage, seq, site_valid, tables, freeze_cov, tiny)
     nb, _, G = coverage.shape
     dev = coverage.device
+    dt = tables.packed.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"H2 takes float32 or float64 tables, got {dt}")
     K.check(coverage, "coverage", torch.uint16, (nb, 5, G))
     K.check(seq, "seq", torch.int8, (G,), dev)
     K.check(site_valid, "site_valid", torch.bool, (G,), dev)
-    K.check(tables.packed, "tables", torch.float32, None, dev)
-    scores = torch.empty((nb, G), dtype=torch.float32, device=dev)
+    K.check(tables.packed, "tables", dt, None, dev)
+    scores = torch.empty((nb, G), dtype=dt, device=dev)
     covsum = torch.empty((nb, G), dtype=torch.int32, device=dev)
-    K.KERNELS["site_scores"](
+    K.KERNELS["site_scores" if dt == torch.float32 else "site_scores_s64"](
         coverage.data_ptr(), seq.data_ptr(), site_valid.data_ptr(), tables.packed.data_ptr(),
         tables.len_b, tables.len_g, nb, G, freeze_cov, tiny,
         scores.data_ptr(), covsum.data_ptr(), K.stream_ptr(coverage),

@@ -33,7 +33,11 @@ the in-process mesh sums in shard order. The benefit cumsum takes the
 exclusive prefix of the all-gathered 4096-row tile totals, so when the
 shard bounds fall on tiles it equals the single-device scan bit for bit.
 Layouts must be built with ``align_chunks = Sg`` so every shard gets whole
-chunks.
+chunks. The engine options keep this: their only sum that is not exact
+across shards is that cumsum (f64 scores, or the f32 decision path), so
+there the sharded step equals the single one when the shard bounds fall on
+4096-row tiles (``align_chunks = 4 * Sg``, or a chunk count that 4 * Sg
+divides, as chip_smoke.py's 8.05 Mb and chromosome meshes have).
 """
 from __future__ import annotations
 
@@ -63,8 +67,8 @@ class Comm:
     """The collectives of the step body over a (Sb, Sg) mesh. Every method
     takes the list of this process's shard tensors, in the mesh's local
     order, and updates them in place (``sum``, ``max``) or returns one new
-    tensor per shard (``gather_g``, ``shift_g``). Tensors are int32, int64
-    or float64 (collective backends do not reduce uint16 or bool)."""
+    tensor per shard (``gather_g``, ``shift_g``). Tensors are int32, int64,
+    float32 or float64 (collective backends do not reduce uint16 or bool)."""
 
     def __init__(self, Sb: int, Sg: int, coords: list[tuple[int, int]]):
         self.Sb, self.Sg, self.coords = Sb, Sg, coords
@@ -326,7 +330,7 @@ class ShardedRunsEngine(RunsEngine):
                     a = a[row0: row0 + self.Gdl]
                 c[name] = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
             if dev not in tables:
-                tables[dev] = ScoreTables(self.model, torch.float32, device=dev)
+                tables[dev] = ScoreTables(self.model, self.dtype, device=dev)
             self.shards.append(Shard(b, g, dev, b * self.nb_l, g0, row0, c, tables[dev]))
 
     def gather_scores(self, scores: list[torch.Tensor]) -> torch.Tensor:
@@ -351,7 +355,7 @@ class ShardedRunsEngine(RunsEngine):
             fields["bucket_on"].append(
                 torch.zeros((self.nb_l, lay.NBk_pad), dtype=torch.bool, device=d))
             fields["read_starts"].append(
-                torch.zeros((lay.Wf_pad, 2), dtype=torch.float32, device=d))
+                torch.zeros((lay.Wf_pad, 2), dtype=self.dtype, device=d))
             fields["strat"].append(
                 sh.c["strat_valid"][None, :, None].expand(self.nb_l, self.Gdl, 2).contiguous())
         return GenomeState(**fields)
@@ -454,7 +458,7 @@ class ShardedRunsEngine(RunsEngine):
             covsum.append(c)
 
         # -- 3. dropout, buckets, fhat (mesh.py:287-336) ----------------------
-        aux = [torch.zeros(4, dtype=torch.float32, device=sh.device) for sh in S]
+        aux = [torch.zeros(4, dtype=self.dtype, device=sh.device) for sh in S]
         rkw = [self._row_kw(state, i, scores[i], covsum[i], changed[i], aux[i], params,
                             batches[i]) for i in idx]
         rws = [gops.row_workspace(scores[i], S[i].c["contig_denom"], self.NW_pad,

@@ -13,6 +13,7 @@ import logging
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..models.convert import state_from_numpy, state_to_numpy
 from ..models.runs import GenomeState
@@ -29,10 +30,13 @@ def save_checkpoint(out_dir: str | Path, state, host_state: dict,
                     tag=tag, extra_arrays=extra_arrays)
 
 
-def load_checkpoint(out_dir: str | Path, device, tag: str = "state", *, numpy: bool = False):
-    """(GenomeState on device, host_state, extra arrays), or None if absent.
-    With ``numpy=True`` the state comes back as a dict of NumPy arrays (for
-    an engine that places it itself, such as the sharded one)."""
+def load_checkpoint(out_dir: str | Path, device, tag: str = "state", *, numpy: bool = False,
+                    dtype=torch.float32):
+    """(GenomeState on device, host_state, extra arrays), or None if absent;
+    read_starts come back in ``dtype`` (the engine's score dtype), whatever
+    dtype wrote them. With ``numpy=True`` the state comes back as a dict of
+    NumPy arrays (for an engine that places it itself, such as the sharded
+    one)."""
     ckpt = Path(out_dir) / "checkpoint"
     final = ckpt / f"{tag}.npz"
     meta = ckpt / f"{tag}_meta.json"
@@ -44,7 +48,7 @@ def load_checkpoint(out_dir: str | Path, device, tag: str = "state", *, numpy: b
     if numpy:
         state = {k: fields[k] for k in GenomeState._fields}
     else:
-        state = state_from_numpy(fields, device)
+        state = state_from_numpy(fields, device, dtype)
     host_state = json.loads(meta.read_text())
     logger.info(f"restored checkpoint from {final}")
     return state, host_state, extra

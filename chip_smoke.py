@@ -77,10 +77,27 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      TorchMapperPlugin on the card over the first 400 bases of 4000
      corpus reads, every decision equal to make_decision on the CPU
      plugin's alignments, and an all-false mask's hot reload turning the
-     next batch's mapped chunks to unblock (reads/s and chunks/s).
-Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15, and each run
-of 16 and 17) runs with the launch counts set to 0 just before it and
-read just after. H2's bound is
+     next batch's mapped chunks to unblock (reads/s and chunks/s);
+ 18. the engine options (RunsConfig fhat_alpha=1.7, dtype="float64",
+     benefit_dtype="float32" and both dtypes): at phase 3's shape each
+     option's engine for 4 counted steps beside the default, the steps
+     taken in turns (host-clock p50 and the device time of one step), and
+     each kernel variant against its plain version with
+     times and bounds (H2 with f64 tables within rtol 1e-12; H3 exact but
+     for fhat_exp's f32 rounding and a general alpha's fhat weights, rtol
+     1e-13; H4's f32 path exact given its own benefit and, end to end,
+     within one exponent bin of the plain version, differing cells
+     counted); the f64-score engine against the port's oracle on the
+     oracle's own f64 scores (0 differing valid cells asserted, the
+     default's count printed beside it); fhat_alpha=1.7 against the
+     oracle given its scores, bit for bit; the (2, 2) mesh under each
+     option equal to the single engine, H8's variants timed on one
+     shard; and, with phase 14's chromosome genome, the single engine's
+     step p50 and peak memory with each dtype option and its strategy
+     against the default's.
+Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15, each run
+of 16 and 17, and each option's engine and mesh run of 18) runs with the
+launch counts set to 0 just before it and read just after. H2's bound is
 the larger of its byte bound and
 the arithmetic (FMAs and special functions) of the sites these inputs need
 contracted. Every kernel
@@ -373,6 +390,11 @@ def coverage_bound(rows, seq, changed, before, after) -> dict:
     return dict(bound(nbytes(rows, seq, changed) + 4 * n), entries_changed=n)
 
 
+#: f64 rate outside the tensor cores of one H100 SXM (NVIDIA's H100 data
+#: sheet, 700 W)
+F64_FLOP_PER_MS = 34e12 / 1e3
+
+
 def score_bound(args: dict, scores, covsum) -> dict:
     """H2's bound for these inputs: the larger of the byte bound (each input
     read once, scores and covsum written once) and the arithmetic of the
@@ -384,7 +406,10 @@ def score_bound(args: dict, scores, covsum) -> dict:
     come from the log-sum-exp's own terms (e_j / se), so the kernel's second
     exponential pass, exp(lp - lse), which it keeps to round as the plain
     version does, is not counted. Every other site's score is one of four
-    constants and costs no arithmetic."""
+    constants and costs no arithmetic. With f64 tables (dtype="float64")
+    the FMAs run at the f64 rate and each exponential or log, a sequence of
+    f64 FMAs in software on this card, counts as one f64 operation (a
+    floor of its cost)."""
     t = args["tables"]
     LB, LG = t.len_b, t.len_g
     cov = args["coverage"]
@@ -392,21 +417,29 @@ def score_bound(args: dict, scores, covsum) -> dict:
     need = nz & (covsum < args["freeze_cov"]) & args["site_valid"][None, :]
     n = int(need.sum())
     by = bound(nbytes(args) + nbytes(scores, covsum))
-    fma_ms = 2 * (2 * LB * LG + LG + LB) * n / F32_FLOP_PER_MS
-    sfu_ms = (LG + LB + 2) * n / (N_SMS * SFU_PER_SM_CLOCK * SM_CLOCK_MHZ * 1e3)
+    f64 = t.dtype == torch.float64
+    if f64:
+        fma_ms = (2 * (2 * LB * LG + LG + LB) + LG + LB + 2) * n / F64_FLOP_PER_MS
+        sfu_ms = 0.0
+    else:
+        fma_ms = 2 * (2 * LB * LG + LG + LB) * n / F32_FLOP_PER_MS
+        sfu_ms = (LG + LB + 2) * n / (N_SMS * SFU_PER_SM_CLOCK * SM_CLOCK_MHZ * 1e3)
     ops_ms = max(fma_ms, sfu_ms)
     out = dict(by, n_contract=n, sites=int(need.numel()), byte_ms=by["bound_ms"],
-               fma_ms=fma_ms, sfu_ms=sfu_ms)
+               fma_ms=fma_ms, sfu_ms=sfu_ms, f64=f64)
     if ops_ms > by["bound_ms"]:
         out.update(bound_ms=ops_ms, bound_by="operations")
     return out
 
 
 def fmt_score_bound(b: dict) -> str:
+    if b.get("f64"):
+        ops = f"f64 FMAs and exp/log {b['fma_ms']:.4f} ms at 34 TFLOP/s"
+    else:
+        ops = (f"FMAs {b['fma_ms']:.4f} ms, special functions {b['sfu_ms']:.4f} ms at "
+               f"{SM_CLOCK_MHZ:.0f} MHz")
     return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes {b['byte_ms']:.4f} ms for "
-            f"{b['bytes']} B; {b['n_contract']} of {b['sites']} sites contracted: FMAs "
-            f"{b['fma_ms']:.4f} ms, special functions {b['sfu_ms']:.4f} ms at "
-            f"{SM_CLOCK_MHZ:.0f} MHz)")
+            f"{b['bytes']} B; {b['n_contract']} of {b['sites']} sites contracted: {ops})")
 
 
 def deep_clone(o):
@@ -434,11 +467,15 @@ class ShardProbe:
     runs the kernel and its plain version on copies of the arguments,
     compares them, and (with ``timed``) times both with CUDA events.
 
-    Everything is exact except the f64 sums of non-integers (``_approx``),
+    Everything is exact except the sums of non-integers (``_approx``),
     which other summation orders move by ulps of the running total: there
-    the bar is rtol 1e-12 + 256 eps * the largest value (the bar of the H4
-    check). Inputs of each phase are the engine's
-    own, so the decision phases are compared exactly given equal inputs."""
+    the bar is rtol 1e-12 + 256 eps * the largest value for f64 (the bar of
+    the H4 check), and for the f32 decision path's scan rtol 1e-6 + 4096
+    eps * the largest value (a float sum of at most one 4096-row tile's
+    non-negative terms, in another order); a general fhat_alpha adds the
+    fhat weights (CUDA's lgamma and exp in the kernel, torch's in the plain
+    version). Inputs of each phase are the engine's own, so the decision
+    phases are compared exactly given equal inputs."""
 
     def __init__(self, shards, timed: bool = True):
         self.shards = set(shards)
@@ -471,15 +508,25 @@ class ShardProbe:
             add(self.written[name], t)
 
     @staticmethod
-    def _approx(name, phase, key, t) -> bool:
-        """The f64 sums of non-integers, which other orders move by ulps:
-        the benefit phases' scan, windows and bins, and H3's fhat
-        normaliser (a fixed-order block reduction against torch.sum)."""
-        if t.dtype != torch.float64:
+    def _approx(name, phase, key, t, kw) -> bool:
+        """The sums of non-integers, which other orders move by ulps: the
+        benefit phases' scan, windows and bins, H3's fhat normaliser (a
+        fixed-order block reduction against torch.sum) and, under a general
+        fhat_alpha, the fhat weights."""
+        if not t.is_floating_point():
             return False
         if name == "shard_benefit":
             return phase in ("scan", "prefix", "windows", "bins")
-        return name == "shard_rows" and phase == "tables" and key == "scale"
+        if name != "shard_rows" or phase != "tables":
+            return False
+        return key == "scale" or (key == "fhat_w" and kw.get("fhat_alpha", 1.0) != 1.0)
+
+    @staticmethod
+    def _tol(y):
+        """The bar of ``_approx``'s values for the plain version's y."""
+        rtol, n = (1e-12, 256) if y.dtype == torch.float64 else (1e-6, 4096)
+        return rtol * y.abs() + n * float(torch.finfo(y.dtype).eps) * float(
+            y[~torch.isnan(y)].abs().max())
 
     def bytes(self, name) -> int:
         if name == "shard_coverage":
@@ -515,7 +562,7 @@ class ShardProbe:
         else:
             ws = a1[1]
             ws = {k: v for k, v in ws.items() if k not in gops.ROW_SCRATCH}
-            pairs = [(k, v, a2[1][k], not self._approx(name, phase, k, v))
+            pairs = [(k, v, a2[1][k], not self._approx(name, phase, k, v, kw))
                      for k, v in ws.items() if isinstance(v, torch.Tensor)]
             pairs += [(k, k1[k], k2[k], True) for k in SHARD_WRITES[name]]
             outs = [*ws.values(), *(kw.get(k) for k in SHARD_WRITES[name])]
@@ -525,8 +572,7 @@ class ShardProbe:
             elif bool(differ(x, y).any()):
                 d = differ(x, y)
                 e = (x - y).abs()[d]
-                tol = (1e-12 * y.abs() + 256 * np.finfo(np.float64).eps
-                       * float(y[~torch.isnan(y)].abs().max()))[d]
+                tol = self._tol(y)[d]
                 if not bool((e <= tol).all()):
                     raise AssertionError(f"{name} {phase} {k} (shard {i}): max err {float(e.max())}")
             self.err[name] = max(self.err[name], max_abs_err((x, y)))
@@ -1681,18 +1727,13 @@ def chrom_benefit(eng, st, b, card: str, launches: int) -> dict:
     return res
 
 
-def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
-    """Phase 15: the (2, 2) mesh with two barcodes on the 8.05 Mb genome
-    against the single engine, and BossRunsSim(mesh_shards=(1, 4)) over the
-    corpus against the unsharded sims of phase 4 (gated == classic there)."""
+def mesh_inputs(dev):
+    """The 8.05 Mb genome with two barcodes (align_chunks 2: its 80 chunks
+    put the bounds of two genome shards on H4's 4096-row tiles) and three
+    4000-read batches on the card, their reads spread over both barcodes."""
     from bossruns_torch.io.coo_native import pad_split, split_runs
     from bossruns_torch.models.convert import batch_from_numpy
     from bossruns_torch.models.layout import build_layout
-    from bossruns_torch.models.runs import RunsEngine
-    from bossruns_torch.models.runs_sim import BossRunsSim
-    from bossruns_torch.ops import kernels
-    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
-    from bossruns_torch.utils.misc import read_strategy_npz
 
     rng = np.random.default_rng(15)
     contigs = {n: rng.integers(0, 4, L).astype(np.uint8) for n, L in GENOME.items()}
@@ -1713,6 +1754,20 @@ def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
             pad_split(split), rs_row=rng.integers(0, layout.n_fhat, N_READS).astype(np.int32),
             rs_strand=rng.integers(0, 2, N_READS).astype(np.int32),
             rs_w=np.ones(N_READS, np.float32)), dev))
+    return layout, batches
+
+
+def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
+    """Phase 15: the (2, 2) mesh with two barcodes on the 8.05 Mb genome
+    against the single engine, and BossRunsSim(mesh_shards=(1, 4)) over the
+    corpus against the unsharded sims of phase 4 (gated == classic there)."""
+    from bossruns_torch.models.runs import RunsEngine
+    from bossruns_torch.models.runs_sim import BossRunsSim
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+    from bossruns_torch.utils.misc import read_strategy_npz
+
+    layout, batches = mesh_inputs(dev)
     s_res = _run_engine(lambda: RunsEngine(layout, device=dev), batches, dev)
     m_res = _run_engine(lambda: ShardedRunsEngine(layout, make_mesh([dev] * 4, barcode_shards=2)),
                         batches, dev)
@@ -2086,6 +2141,380 @@ def run_readfish(dev, card: str, work: Path, paths: dict, seqs: dict) -> dict:
     return dict(chunks_per_s=len(chunks) / loop_s)
 
 
+# ------------------------------------------------------ phase 18: options --
+
+#: RunsConfig options of phase 18, beside the default
+OPTIONS = {
+    "fhat_alpha=1.7": dict(fhat_alpha=1.7),
+    "dtype=float64": dict(dtype="float64"),
+    "benefit_dtype=float32": dict(benefit_dtype="float32"),
+    "dtype=float64, benefit_dtype=float32": dict(dtype="float64", benefit_dtype="float32"),
+}
+#: phase 18's rows of the kernel table: name -> (entry point, option whose
+#: run counts its launches, source, TPU kernel)
+OPTION_ROWS = {
+    "site_scores_s64": ("site_scores_s64", "dtype=float64", "csrc/scores.cu",
+                        "bossruns_tpu/ops/scores.py:102"),
+    "row_stage_alpha": ("row_stage", "fhat_alpha=1.7", "csrc/rows.cu",
+                        "bossruns_tpu/ops/genome_ops.py:134"),
+    "row_stage_s64": ("row_stage_s64", "dtype=float64", "csrc/rows.cu",
+                      "bossruns_tpu/models/runs.py:592"),
+    "row_stage_d32": ("row_stage_d32", "benefit_dtype=float32", "csrc/rows.cu",
+                      "bossruns_tpu/models/runs.py:592"),
+    "row_stage_s64_d32": ("row_stage_s64_d32", "dtype=float64, benefit_dtype=float32",
+                          "csrc/rows.cu", "bossruns_tpu/models/runs.py:592"),
+    "benefit_strategy_d32": ("benefit_strategy_d32", "benefit_dtype=float32", "csrc/strategy.cu",
+                             "bossruns_tpu/ops/genome_ops.py:88"),
+    "shard_rows_alpha": ("shard_rows", "fhat_alpha=1.7", "csrc/rows.cu",
+                         "bossruns_tpu/parallel/mesh.py:209"),
+    "shard_rows_s64": ("shard_rows_s64", "dtype=float64", "csrc/rows.cu",
+                       "bossruns_tpu/parallel/mesh.py:209"),
+    "shard_rows_d32": ("shard_rows_d32", "benefit_dtype=float32", "csrc/rows.cu",
+                       "bossruns_tpu/parallel/mesh.py:209"),
+    "shard_rows_s64_d32": ("shard_rows_s64_d32", "dtype=float64, benefit_dtype=float32",
+                           "csrc/rows.cu", "bossruns_tpu/parallel/mesh.py:209"),
+    "shard_benefit_d32": ("shard_benefit_d32", "benefit_dtype=float32", "csrc/strategy.cu",
+                          "bossruns_tpu/parallel/mesh.py:209"),
+}
+
+
+def threshold_rule(what: str, thr_a: float, thr_b: float, strat_a, strat_b, benefit,
+                   slack) -> int:
+    """Test (d)'s rule for two strategies of one step: equal, or thresholds
+    at most one exponent bin apart and every differing cell's benefit
+    between them, widened by ``slack`` (per cell: the bar within which the
+    two sides' benefits agree, since a cell at a shared threshold flips
+    when its benefit rounds to either side). Returns the count of
+    differing cells."""
+    diff = strat_a != strat_b
+    n = int(diff.sum())
+    if n:
+        lo, hi = sorted((thr_a, thr_b))
+        if not hi <= 2 * lo * (1 + 1e-5):
+            raise AssertionError(f"{what}: thresholds {thr_a!r} and {thr_b!r} more than a bin apart")
+        b = benefit[diff]
+        e = slack[diff] if isinstance(slack, torch.Tensor) else slack
+        if not bool(((b >= lo - e) & (b <= hi + e)).all()):
+            raise AssertionError(f"{what}: a differing cell's benefit lies outside the thresholds")
+    return n
+
+
+def option_kernels(name: str, eng, state, batch, params, card: str) -> dict:
+    """The option's kernel variants against their plain versions on the
+    engine's own state and batch, with times and bounds: H2 with f64
+    tables, H3 (exact, but for fhat_exp's f32 rounding, one ulp, and the
+    fhat weights of a general alpha, rtol 1e-13), H4's f32 decision path
+    (the windows within the scan's rounding, the threshold and strategy
+    exact given the kernel's own benefit, and against the plain version
+    end to end test (d)'s rule)."""
+    from bossruns_torch.ops import genome_ops as gops
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.ops import scores as sc
+
+    S, D = eng.dtype, eng.benefit_dtype
+    v = kernels.row_variant(S, D)
+    out = {}
+    sargs = eng.score_args(state)
+    s_k, cs_k = sc.site_scores(**sargs)
+    if S == torch.float64:
+        s_p, cs_p = sc.site_scores_plain(**sargs)
+        exact("H2 f64 covsum", cs_k, cs_p)
+        err = (s_k - s_p).abs()
+        if not bool((err <= 1e-12 + 1e-12 * s_p.abs()).all()):
+            raise AssertionError(f"H2 f64 scores outside rtol 1e-12 / atol 1e-12: {float(err.max())}")
+        out["site_scores_s64"] = dict(ms=time_ms(lambda: sc.site_scores(**sargs)),
+                                      plain_ms=time_ms(lambda: sc.site_scores_plain(**sargs)),
+                                      max_abs_err=float(err.max()),
+                                      **device(lambda: sc.site_scores(**sargs)),
+                                      **score_bound(sargs, s_k, cs_k))
+        log(f"H2 site_scores_s64 ({name}): covsum exact, f64 scores max abs err "
+            f"{float(err.max()):.3g} (rtol 1e-12, atol 1e-12); "
+            f"{fmt_score_bound(out['site_scores_s64'])}")
+        del s_p, cs_p
+    rows = gops.CovRows(batch.mr_bc, batch.mr_g, batch.mr_len, batch.ex_bcsym, batch.ex_g)
+    changed = gops.coverage_update(**eng.coverage_args(
+        state._replace(coverage=state.coverage.clone()), rows))
+    aux = torch.zeros(4, dtype=S, device=s_k.device)
+    args = eng.row_args(state, s_k, cs_k, changed, aux, params, batch.rs_row, batch.rs_strand,
+                        rs_w=batch.rs_w)
+    ak, ap = clone(args), clone(args)
+    ds_k, fe_k = gops.row_stage(**ak)
+    ds_p, fe_p = gops.row_stage_plain(**ap)
+    pairs = [("scores_ds", ds_k, ds_p)] + [(k, ak[k], ap[k]) for k in (
+        "scores", "zeroed", "bucket_on", "read_starts", "aux")]
+    for k, a, b in pairs:
+        exact(f"H3{v} ({name}) {k}", a, b)
+    fe_err = (fe_k - fe_p).abs()
+    if not bool((fe_err <= 2.0 ** -23 * fe_p.abs()).all()):
+        raise AssertionError(f"H3{v} ({name}) fhat_exp beyond one f32 ulp")
+    wk = gops.row_workspace(s_k, eng.contig_denom, eng.NW_pad, state.read_starts)
+    wp = gops.row_workspace(s_k, eng.contig_denom, eng.NW_pad, state.read_starts)
+    k1, k2 = clone(args), clone(args)
+    for phase in ("sums", "tables"):
+        gops.shard_rows(phase, wk, **k1)
+        gops.shard_rows_plain(phase, wp, **k2)
+    fw_err = float(((wk["fhat_w"] - wp["fhat_w"]).abs() / wp["fhat_w"].abs().clamp_min(
+        torch.finfo(D).tiny)).max())
+    if fw_err > 1e-13:
+        raise AssertionError(f"H3{v} ({name}) fhat_w relative error {fw_err} beyond 1e-13")
+    row = "row_stage_alpha" if name == "fhat_alpha=1.7" else f"row_stage{v}"
+    gk, gp = clone(args), clone(args)
+    out[row] = dict(ms=time_ms(lambda: gops.row_stage(**gk)),
+                    plain_ms=time_ms(lambda: gops.row_stage_plain(**gp)),
+                    max_abs_err=max(max_abs_err(*((a, b) for _, a, b in pairs)),
+                                    float(fe_err.max())),
+                    **device(lambda: gops.row_stage(**gk)),
+                    **bound(nbytes(args) + nbytes(ds_k, fe_k, *(args[k] for k in (
+                        "scores", "zeroed", "bucket_on", "read_starts", "aux")))))
+    log(f"H3 {row} ({name}): scores_ds, scores, zeroed, bucket_on, read_starts, aux exact; "
+        f"fhat_exp max abs err {float(fe_err.max()):.3g} (one f32 ulp allowed); fhat_w max "
+        f"relative err {fw_err:.3g} (rtol 1e-13)")
+    del wk, wp, k1, k2, gk, gp
+    bargs = eng.benefit_args(state, ds_k, fe_k, ak["aux"], params)
+    bk, bp = clone(bargs), clone(bargs)
+    smu_k, ben_k, thr_k = gops.benefit_strategy(**bk)
+    smu_p, ben_p, thr_p = gops.benefit_strategy_plain(**bp)
+    eps, rtol = (256 * 2.0 ** -52, 1e-12) if D == torch.float64 else (4096 * 2.0 ** -23, 1e-6)
+    atol = eps * float(ds_k.sum(dim=1).max())
+    worst = 0.0
+    for k, a, b in (("smu", smu_k, smu_p), ("benefit", ben_k, ben_p)):
+        e = (a - b).abs()
+        worst = max(worst, float(e.max()))
+        if not bool((e <= rtol * b.abs() + atol).all()):
+            raise AssertionError(f"H4 ({name}) {k}: max err {float(e.max())} beyond rtol {rtol} + "
+                                 f"{atol:.3g}")
+    ref = gops.find_strategy(ben_k, smu_k, fe_k[None].expand_as(ben_k), bargs["time_cost"])
+    if float(ref.threshold) != float(thr_k):
+        raise AssertionError(f"H4 ({name}) threshold {float(thr_k)!r} != plain "
+                             f"{float(ref.threshold)!r} on the kernel's benefit")
+    bidx = eng.bucket_idx.long()
+    gate = bargs["bucket_on"][:, bidx.clamp_min(0)] & (bidx >= 0)[None] & eng.strat_valid[None]
+    want = torch.where((gate & (bk["aux"][1] > 0))[..., None], ref.strat, bargs["strat"])
+    exact(f"H4 ({name}) strat", bk["strat"], want)
+    flips = threshold_rule(f"H4 ({name}) vs plain", float(thr_k), float(thr_p), bk["strat"],
+                           bp["strat"], ben_k, rtol * ben_p.abs() + atol)
+    log(f"H4 benefit_strategy{'_d32' if D == torch.float32 else ''} ({name}): smu/benefit max "
+        f"abs err {worst:.3g} (rtol {rtol:g} + atol {atol:.3g}), threshold {float(thr_k)!r} "
+        f"and strat exact given the kernel's benefit; end to end vs plain {flips} strat cells "
+        f"differ, threshold {float(thr_p)!r} (test (d)'s rule, within the windows' bar)")
+    if D == torch.float32:
+        ck, cp = clone(bargs), clone(bargs)
+        out["benefit_strategy_d32"] = dict(
+            ms=time_ms(lambda: gops.benefit_strategy(**ck)),
+            plain_ms=time_ms(lambda: gops.benefit_strategy_plain(**cp)), max_abs_err=worst,
+            **device(lambda: gops.benefit_strategy(**ck)),
+            **bound(nbytes(bargs) + nbytes(smu_k, ben_k, thr_k, bargs["strat"], bargs["aux"])))
+    for k, r in out.items():
+        log(f"time {k} ({name}): kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} [{card}]")
+        log(f"device split {k} (launch ms): {fmt_split(r['split'])}")
+    return out
+
+
+def check_options(dev, card: str) -> dict:
+    """Phase 18 at phase 3's 8.05 Mb shape: each option's engine (the
+    default beside them) for 4 counted steps, its step p50 and its kernel
+    variants against their plain versions; the f64-score engine and the
+    default against the port's oracle on the oracle's own f64 scores; the
+    fhat_alpha=1.7 engine against the oracle given its scores, bit for
+    bit; then the (2, 2) mesh under each option."""
+    from bossruns_torch import oracle
+    from bossruns_torch.models.convert import batch_from_numpy, state_to_numpy
+    from bossruns_torch.models.runs import RunsConfig, RunsEngine
+    from bossruns_torch.ops import kernels
+
+    layout, batch_np, _, _ = build_inputs(np.random.default_rng(11))
+    batch = batch_from_numpy(batch_np, dev)
+    rows, launches, engines = {}, {}, {}
+    for name, opt in (("default", {}), *OPTIONS.items()):
+        eng = RunsEngine(layout, config=RunsConfig(**opt), device=dev)
+        params = eng.make_params(CCL, TIME_COST)
+        state = eng.init_state()
+        rv = kernels.row_variant(eng.dtype, eng.benefit_dtype)
+        path = ("coverage_update", "site_scores" + ("_s64" if eng.dtype == torch.float64 else ""),
+                "row_stage" + rv,
+                "benefit_strategy" + ("_d32" if eng.benefit_dtype == torch.float32 else ""))
+
+        def steps():
+            nonlocal state
+            aux = None
+            for _ in range(4):
+                state, aux = eng.step(state, batch, params)
+            return eng.pull_aux(aux)
+
+        ah, launches[name] = count_path(f"engine ({name}), 4 steps", steps, path)
+        if not (ah.any_on and ah.updated):
+            raise AssertionError(f"engine ({name}): the strategy did not update ({ah})")
+        if name != "default":  # a kernel shared by two options keeps its first measurement
+            for k, r in option_kernels(name, eng, state, batch, params, card).items():
+                rows.setdefault(k, r)
+        engines[name] = (eng, state, params)
+    # the steps in turns (the options in order, then reversed, three times)
+    # against the host's drift: host-clock p50 over 30 steps each, and the
+    # card's own time of one step (queued events)
+    times = {k: [] for k in engines}
+    order = list(engines)
+    for r in range(6):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            eng, state, params = engines[name]
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.pull_aux(eng.step(state, batch, params)[1])
+                times[name].append((time.perf_counter() - t0) * 1000.0)
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    dev_ms = {k: queued_ms(lambda: e.step(st, batch, pr)) for k, (e, st, pr) in engines.items()}
+    del engines
+    torch.cuda.empty_cache()
+    log("step by option (4000 reads, 8.05 Mb; host-clock p50 incl. aux pull over 30 steps "
+        "taken in turns / device ms of one step): "
+        + ", ".join(f"{k} {p50[k]:.3f} / {dev_ms[k]:.4f} ms" for k in p50) + f" [{card}]")
+    log(f"the f64 decision contract's cost per step: default {p50['default']:.3f} ms (device "
+        f"{dev_ms['default']:.4f}) vs benefit_dtype=float32 {p50['benefit_dtype=float32']:.3f} "
+        f"ms (device {dev_ms['benefit_dtype=float32']:.4f}), bench.py's f32_ms counterpart "
+        f"[{card}]")
+
+    # dtype=float64 against the oracle's own f64 scores, the default beside it
+    e64 = RunsEngine(layout, config=RunsConfig(dtype="float64"), device=dev)
+    e32 = RunsEngine(layout, device=dev)
+    params = e64.make_params(CCL, TIME_COST)
+    s64, s32 = e64.init_state(), e32.init_state()
+    st_np = state_to_numpy(s64)
+    valid = e64.strat_valid.cpu().numpy()
+    n_valid = int(valid.sum()) * 2 * e64.nb
+    d64, d32 = [], []
+    for i in range(N_ORACLE_STEPS):
+        s64, a64 = e64.step(s64, batch, params)
+        s32, _ = e32.step(s32, batch, params)
+        st_np, aux_o = oracle.full_update(e64, st_np, batch_np, CCL, TIME_COST, fast_scores=True)
+        want = st_np["strat"][:, valid]
+        d64.append(int((s64.strat.cpu().numpy()[:, valid] != want).sum()))
+        d32.append(int((s32.strat.cpu().numpy()[:, valid] != want).sum()))
+        if e64.pull_aux(a64).updated != aux_o["updated"]:
+            raise AssertionError(f"dtype=float64 step {i}: updated differs from the oracle")
+    log(f"dtype=float64 engine vs oracle.full_update(fast_scores=True) on the oracle's own f64 "
+        f"scores: valid strat cells differing per step {d64} of {n_valid} (expected 0); default "
+        f"engine (f32 scores) vs the same oracle: {d32} ({N_READS} reads, {genome_mb()}) [{card}]")
+    if any(d64):
+        raise AssertionError(f"dtype=float64 engine differs from the oracle's own scores: {d64}")
+    del e64, e32, s64, s32
+
+    # fhat_alpha=1.7 against the oracle given the engine's scores
+    ea = RunsEngine(layout, config=RunsConfig(debug_aux=True, fhat_alpha=1.7), device=dev)
+    sa = ea.init_state()
+    st_np = state_to_numpy(sa)
+    st_np["read_starts"] = st_np["read_starts"].astype(np.float64)
+    for i in range(N_ORACLE_STEPS):
+        sa, aa = ea.step(sa, batch, params)
+        st_np, aux_o = oracle.full_update(ea, st_np, batch_np, CCL, TIME_COST,
+                                          scores_override=aa.scores.cpu().numpy())
+        got = state_to_numpy(sa)
+        for k in ("strat", "bucket_on", "coverage"):
+            if not np.array_equal(got[k], st_np[k]):
+                raise AssertionError(f"fhat_alpha=1.7 step {i}: {k} differs from the oracle")
+        if not np.array_equal(got["read_starts"].astype(np.float64), st_np["read_starts"]):
+            raise AssertionError(f"fhat_alpha=1.7 step {i}: read_starts differ from the oracle")
+    log(f"fhat_alpha=1.7 engine == the port's f64 oracle given its scores, bit for bit on all "
+        f"{N_ORACLE_STEPS} steps (strat, bucket_on, read_starts, coverage) [{card}]")
+    del ea, sa
+    rows.update(check_option_meshes(dev, card))
+    return dict(rows=rows, launches=launches, p50=p50, device_ms=dev_ms)
+
+
+def check_option_meshes(dev, card: str) -> dict:
+    """Phase 18: the (2, 2) mesh with two barcodes on the 8.05 Mb genome
+    under each option, against the single engine bit for bit over 3 steps
+    (H8's launches counted in the sharded run), then one more step with H8
+    on shard (1, 1) against its plain version, timed."""
+    from bossruns_torch.models.runs import RunsConfig, RunsEngine
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    layout, batches = mesh_inputs(dev)
+    rows = {}
+    for name, opt in OPTIONS.items():
+        cfg = RunsConfig(**opt)
+        s_res = _run_engine(lambda: RunsEngine(layout, config=cfg, device=dev), batches, dev)
+        kernels.reset_launches()
+        m_res = _run_engine(lambda: ShardedRunsEngine(layout, make_mesh([dev] * 4, 2),
+                                                      config=cfg), batches, dev)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        compare_engines(f"(2, 2) mesh ({name})", s_res, m_res)
+        eng = m_res["engine"]
+        rv = kernels.row_variant(eng.dtype, eng.benefit_dtype)
+        bv = "_d32" if eng.benefit_dtype == torch.float32 else ""
+        if min(launches["shard_rows" + rv], launches["shard_benefit" + bv]) <= 0:
+            raise AssertionError(f"(2, 2) mesh ({name}): H8 never launched: {launches}")
+        ah = m_res["auxes"][-1][2]
+        log(f"(2, 2) mesh ({name}): == single engine bit for bit over 3 steps (threshold "
+            f"{ah.threshold!r}, updated={ah.updated}); H8 launches shard_rows{rv} "
+            f"{launches['shard_rows' + rv]}, shard_benefit{bv} {launches['shard_benefit' + bv]}")
+        target = next(i for i, sh in enumerate(eng.shards) if (sh.b, sh.g) == (1, 1))
+        probe = ShardProbe([target])
+        eng.probe = probe
+        eng.step(m_res["state"], batches[-1], eng.make_params(CCL, TIME_COST))
+        eng.probe = None
+        torch.cuda.synchronize()
+        for k, entry, which in (("shard_rows", "shard_rows" + rv, "rows"),
+                                ("shard_benefit", "shard_benefit" + bv, "benefit")):
+            row = ("shard_rows_alpha" if name == "fhat_alpha=1.7" and which == "rows"
+                   else entry)
+            if row not in OPTION_ROWS or OPTION_ROWS[row][1] != name:
+                continue
+            rows[row] = dict(ms=probe.ms[k], plain_ms=probe.plain_ms[k], max_abs_err=probe.err[k],
+                             device_ms=probe.device_ms[k],
+                             split={} if k in probe.split_missing else probe.split[k],
+                             launches=launches[entry], **bound(probe.bytes(k)))
+            r = rows[row]
+            log(f"H8 {row} ({name}, shard (1, 1), all phases) vs plain: max abs err "
+                f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
+                f"ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms [{card}]")
+        del s_res, m_res, eng, probe
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_options_chromosome(dev, card: str, genome: dict) -> dict:
+    """Phase 18 at human-chr1 scale (phase 14's single engine, its layout
+    and batches): the step p50 and peak memory of the default, of
+    dtype="float64" and of benefit_dtype="float32", and each option's
+    strategy agreement with the default's after the 4 steps."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.models.runs import RunsConfig, RunsEngine
+    from bossruns_torch.ops.model import make_model
+
+    layout = build_layout(genome, n_barcodes=1, align_chunks=4)
+    Gl = layout.G_pad // 4
+    rng = np.random.default_rng(14)
+    batches = [batch_from_numpy(b, dev) for b in
+               chrom_batches(rng, layout, N_CHR_STEPS, (Gl - 3_000_000, Gl + 3_000_000), 0.75, 1)]
+    model = make_model(ploidy=2)
+    out, strat = {}, {}
+    for name, opt in (("default", {}), ("dtype=float64", dict(dtype="float64")),
+                      ("benefit_dtype=float32", dict(benefit_dtype="float32"))):
+        r = _run_engine(lambda: RunsEngine(layout, model, RunsConfig(**opt), device=dev),
+                        batches, dev)
+        st = r["state"]
+        strat[name] = st.strat[:, r["engine"].strat_valid, :].clone()
+        out[name] = dict(p50=statistics.median(r["times"]), peak=r["peak"],
+                         updated=r["auxes"][-1][2].updated)
+        log(f"chromosome single ({name}): step p50 {out[name]['p50']:.2f} ms (steps "
+            f"{', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux pull), peak "
+            f"memory {r['peak'] / 2**30:.2f} GiB above resident; updated="
+            f"{out[name]['updated']} [{card}]")
+        del r, st
+        torch.cuda.empty_cache()
+    n = strat["default"].numel()
+    for name in ("dtype=float64", "benefit_dtype=float32"):
+        d = int((strat[name] != strat["default"]).sum())
+        out[name]["differ"] = d
+        log(f"chromosome single: {name} strategy vs the default's after {N_CHR_STEPS} steps: "
+            f"{d} of {n} valid cells differ ({d / n:.3g}) [{card}]")
+    return out
+
+
 def sm_clock_mhz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2094,7 +2523,7 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-ALL_PHASES = range(3, 18)
+ALL_PHASES = range(3, 19)
 
 
 def parse_phases(argv: list[str]) -> set[int]:
@@ -2103,11 +2532,11 @@ def parse_phases(argv: list[str]) -> set[int]:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-17)")
+    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-18)")
     a = ap.parse_args(argv)
     phases = {int(x) for x in a.phases.split(",") if x} or set(ALL_PHASES)
     if not phases <= set(ALL_PHASES):
-        ap.error(f"phases are 3-17, got {sorted(phases)}")
+        ap.error(f"phases are 3-18, got {sorted(phases)}")
     if 15 in phases and 4 not in phases:
         ap.error("phase 15 compares against the sims of phase 4")
     if 12 in phases and 11 not in phases:
@@ -2172,7 +2601,7 @@ def main(argv: list[str]) -> int:
             aeons = run_aeons_sim(dev, card, work)
         if 12 in phases:
             run_aeons_live(dev, card, work, aeons["paths"])
-        if phases & {13, 14}:
+        if phases & {13, 14, 18}:
             t0 = time.perf_counter()
             genome = chrom_genome(np.random.default_rng(12))
             log(f"chromosome genome: {CHR1_SITES} sites made in {time.perf_counter() - t0:.1f} s")
@@ -2180,6 +2609,8 @@ def main(argv: list[str]) -> int:
                 res.update(check_shard_kernels(dev, card, genome))
             if 14 in phases:
                 chrom = run_chromosome(dev, card, genome)
+            if 18 in phases:  # phase 18's chromosome part, while the genome is at hand
+                run_options_chromosome(dev, card, genome)
             del genome
         if 15 in phases:
             run_mesh_paths(dev, card, work, paths, sl)
@@ -2189,6 +2620,8 @@ def main(argv: list[str]) -> int:
         if 17 in phases:
             check_prepare(dev, card, work, paths)
             run_readfish(dev, card, work, paths, seqs)
+        if 18 in phases:
+            opt = check_options(dev, card)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     if loaded:
         raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")
@@ -2225,9 +2658,24 @@ def main(argv: list[str]) -> int:
          "split": res[k]["split"]}
         for k, (src, rep) in meta.items()
     ]}
-    for k in meta:
-        log(f"bound {k}: {res[k]['bytes']} bytes -> {res[k]['bound_ms']:.4f} ms at 3.35 TB/s; "
-            f"kernel {res[k]['ms']:.4f} ms, device {res[k]['device_ms']:.4f} ms")
+    # phase 18's variants: launches from their option's run (the 8.05 Mb
+    # engine for H2-H4, the (2, 2) mesh for H8)
+    for k, (entry, name, src, rep) in OPTION_ROWS.items():
+        r = opt["rows"][k]
+        table["kernels"].append(
+            {"name": k, "route": "cuda", "source": f"bossruns_torch/{src}", "replaces": rep,
+             "launches": r.get("launches", opt["launches"][name].get(entry)),
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": None, "split": r["split"]})
+        res[k] = r
+    for row in table["kernels"]:
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} was never launched on its path")
+    for k in (*meta, *OPTION_ROWS):
+        log(f"bound {k}: {res[k]['bytes']} bytes -> {res[k]['bound_ms']:.4f} ms "
+            f"({res[k]['bound_by']}); kernel {res[k]['ms']:.4f} ms, device "
+            f"{res[k]['device_ms']:.4f} ms")
     print(json.dumps(table), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -868,3 +868,145 @@ def test_score_kernel_ragged_and_unaligned(dev, G, offset):
     cov = up(np.concatenate([np.zeros(offset, np.uint16), data]))[offset:].view(1, 5, G)
     assert cov.is_contiguous() and (cov.data_ptr() % 8 != 0) == bool(offset)
     _score_both(dev, tables, cov, seq, valid)
+
+
+# ----------------------------------------------------------- engine options --
+# fhat_alpha != 1 (H3's general point mass), dtype="float64" (the _s64 entry
+# points of H2, H3 and H8's rows) and benefit_dtype="float32" (the _d32
+# entry points of H3, H4 and H8), each against its plain version
+
+OPTIONS = {
+    "alpha": dict(fhat_alpha=1.7),
+    "s64": dict(dtype="float64"),
+    "d32": dict(benefit_dtype="float32"),
+    "s64_d32": dict(dtype="float64", benefit_dtype="float32"),
+}
+
+
+@pytest.fixture(scope="module", params=list(OPTIONS))
+def option_world(request, dev):
+    rng = np.random.default_rng(3)
+    lay = build_layout({"a": rng.integers(0, 4, 150_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 120_000).astype(np.uint8)}, n_barcodes=2)
+    cfg = truns.RunsConfig(debug_aux=True, **OPTIONS[request.param])
+    eng = truns.RunsEngine(lay, config=cfg, device=dev)
+    state = eng.init_state()
+    params = eng.make_params(CCL, 5300.0)
+    for _ in range(3):
+        b = batch_from_numpy(_random_batch(rng, lay, n_obs=120_000, nb=2), dev)
+        state, _ = eng.step(state, b, params)
+    batch = batch_from_numpy(_random_batch(rng, lay, n_obs=120_000, nb=2), dev)
+    return request.param, eng, state, batch, params
+
+
+def _score_close(a, b):
+    if a.dtype == torch.float64:
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    else:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5)
+
+
+def test_option_engine_on_card_matches_cpu(option_world, dev):
+    option, eng, _, _, _ = option_world
+    rng = np.random.default_rng(19)
+    cpu = truns.RunsEngine(eng.layout, config=eng.config, device="cpu")
+    sg, sc = eng.init_state(), cpu.init_state()
+    params = eng.make_params(CCL, 5300.0)
+    updated = 0
+    for step in range(6):
+        b = _random_batch(rng, eng.layout, n_obs=120_000, nb=2)
+        sg, ag = eng.step(sg, batch_from_numpy(b, dev), params)
+        sc, ac = cpu.step(sc, batch_from_numpy(b, "cpu"), params)
+        g, c = state_to_numpy(sg), state_to_numpy(sc)
+        for k in ("coverage", "zeroed", "bucket_on", "read_starts"):
+            np.testing.assert_array_equal(g[k], c[k], err_msg=f"{option} {k} step {step}")
+        _score_close(ag.scores.cpu(), ac.scores)
+        assert bool(ag.updated) == bool(ac.updated)
+        updated += bool(ag.updated)
+    assert updated >= 1
+
+
+def test_option_stage_kernels_against_plain(option_world, dev):
+    """H2 (f64 tables), H3 and H4 of the option's entry points against
+    their plain versions on the same inputs: H3 exact but for the f32
+    rounding of fhat_exp (one ulp) and, under a general alpha, the fhat
+    weights (rtol 1e-13); H4's windows within the scan's rounding, its
+    threshold and strategy exact given the kernel's own benefit."""
+    option, eng, state, batch, params = option_world
+    S, D = eng.dtype, eng.benefit_dtype
+    args = eng.score_args(state)
+    sk, ck = ts.site_scores(**args)
+    sp, cp = ts.site_scores_plain(**args)
+    assert sk.dtype == S and torch.equal(ck, cp)
+    _score_close(sk, sp)
+    rows = tg.CovRows(batch.mr_bc, batch.mr_g, batch.mr_len, batch.ex_bcsym, batch.ex_g)
+    changed = tg.coverage_update_plain(**_clone(eng.coverage_args(state, rows)))
+    aux = torch.zeros(4, dtype=S, device=dev)
+    rargs = eng.row_args(state, sk, ck, changed, aux, params, batch.rs_row, batch.rs_strand,
+                         rs_w=batch.rs_w)
+    a, b = _clone(rargs), _clone(rargs)
+    (ds_k, fe_k), (ds_p, fe_p) = tg.row_stage(**a), tg.row_stage_plain(**b)
+    assert ds_k.dtype == D and torch.equal(ds_k, ds_p)
+    torch.testing.assert_close(fe_k, fe_p, rtol=2.0 ** -23, atol=0)
+    for k in ("scores", "zeroed", "bucket_on", "read_starts", "aux"):
+        assert torch.equal(a[k], b[k]), k
+    # the fhat weights, through H8's table phase on the whole genome
+    wk = tg.row_workspace(sk, eng.contig_denom, eng.NW_pad, state.read_starts)
+    wp = tg.row_workspace(sk, eng.contig_denom, eng.NW_pad, state.read_starts)
+    k1, k2 = _clone(rargs), _clone(rargs)
+    for phase in ("sums", "tables"):
+        tg.shard_rows(phase, wk, **k1)
+        tg.shard_rows_plain(phase, wp, **k2)
+    torch.testing.assert_close(wk["fhat_w"], wp["fhat_w"], rtol=1e-13, atol=0)
+    if eng.config.fhat_alpha == 1.0:
+        assert torch.equal(wk["fhat_w"], wp["fhat_w"])
+    bargs = eng.benefit_args(state, ds_k, fe_k, a["aux"], params)
+    a, b = _clone(bargs), _clone(bargs)
+    smu_k, ben_k, thr_k = tg.benefit_strategy(**a)
+    smu_p, ben_p, thr_p = tg.benefit_strategy_plain(**b)
+    assert thr_k.dtype == D
+    eps, rtol = (256 * 2.0 ** -52, 1e-12) if D == torch.float64 else (4096 * 2.0 ** -23, 1e-6)
+    atol = eps * float(ds_k.sum(dim=1).max())
+    torch.testing.assert_close(smu_k, smu_p, rtol=rtol, atol=atol)
+    torch.testing.assert_close(ben_k, ben_p, rtol=rtol, atol=atol)
+    ref = tg.find_strategy(ben_k, smu_k, fe_k[None].expand_as(ben_k), bargs["time_cost"])
+    assert float(ref.threshold) == float(thr_k)
+    bidx = eng.bucket_idx.long()
+    gate = bargs["bucket_on"][:, bidx.clamp_min(0)] & (bidx >= 0)[None] & eng.strat_valid[None]
+    want = torch.where((gate & (a["aux"][1] > 0))[..., None], ref.strat, bargs["strat"])
+    assert torch.equal(a["strat"], want)
+    lo, hi = sorted((float(thr_k), float(thr_p)))
+    assert hi <= 2 * lo * (1 + 1e-5)
+    flips = a["strat"] != b["strat"]
+    slack = (rtol * ben_p.abs() + atol)[flips]
+    assert bool(((ben_k[flips] >= lo - slack) & (ben_k[flips] <= hi + slack)).all())
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_option_shard_kernels_and_mesh_on_card(dev, option):
+    """H8 under the option: every phase of every shard of a (2, 2) mesh
+    against its plain version (chip_smoke's probe), and the sharded engine
+    equal to the single engine on the card bit for bit (tile-aligned
+    shards)."""
+    from chip_smoke import ShardProbe
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    lay, batches = _mesh_world(2, 43)
+    cfg = truns.RunsConfig(**OPTIONS[option])
+    single = truns.RunsEngine(lay, config=cfg, device=dev)
+    sharded = ShardedRunsEngine(lay, make_mesh([dev] * 4, barcode_shards=2), config=cfg)
+    probe = ShardProbe(range(4), timed=False)
+    sharded.probe = probe
+    s1, ss = single.init_state(), sharded.init_state()
+    params = single.make_params(CCL, 5300.0)
+    for i, b in enumerate(batches):
+        s1, a1 = single.step(s1, batch_from_numpy(b, dev), params)
+        ss, a_s = sharded.step(ss, batch_from_numpy(b, dev), params)
+        assert torch.equal(a_s.threshold, a1.threshold), i
+        assert torch.equal(a_s.vec, a1.vec), i
+    torch.cuda.synchronize()
+    assert len(probe.calls) == 3 * 4 * (1 + 4 + 5)
+    got, want = sharded.state_numpy(ss), single.state_numpy(s1)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert bool(a1.updated)

@@ -69,7 +69,29 @@
 //            a per-site mask that is OR-ed over the barcode axis
 //            (mesh.py:296-297);
 //   phase 3: row_apply, reading that mask when it is given.
+//
+// RunsConfig(dtype="float16") (bk_row_stage_h16, _h16_d32 and the
+// bk_shard_rows_h16 pair): S is __half. The JAX engine sums the per-site
+// coverage sums after rounding them to f16 (covsum.astype(dtype),
+// runs.py:578), so row_sums adds each site's sum rounded to half, and a
+// site above 65,519 (inf in half) sets INF_FLAG in the per-contig,
+// per-window and total sums with an atomicOr beside the integer atomicAdd
+// of the finite part, which stays below 2^49 and never carries into it;
+// the tables read a flagged sum as inf, as XLA carries it (the contig
+// mean inf or NaN, the bucket on). Means and the aux entries round to
+// half once with __double2half (__float2half_rn from float), the dropout
+// threshold divides and floors in half, a bucket mean is compared with the
+// f32 threshold exactly, and the low test compares each site's sum rounded
+// to half. The read-start adds are atomicAdd on __half: each add rounds,
+// and the order of the adds does not matter only because every weight is
+// 1.0 (or 0.0 in the gated flow), so each add is the same +1 and a count
+// above 2048 stays where f16 rounding holds it, as in the JAX engine's
+// scatter (F4 keeps every other sum that is not exact out of atomics).
+// The float and double instantiations take the code they took before.
+#include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -133,10 +155,52 @@ constexpr int SR = 64;               // ds rows per block of row_sums (8 per war
 constexpr int TR = 32;               // ds rows per block of row_apply
 constexpr int THREADS = 256;
 constexpr int TAB_CHUNK = 256;       // normaliser entries per row_posterior block (one per thread)
+// set in a coverage sum (per contig, per window, total) that a site's
+// half-rounded sum of inf reached (ops/genome_ops.INF_FLAG)
+constexpr unsigned long long INF_FLAG = 1ull << 56;
 
+template <class S>
+constexpr bool kHalf = std::is_same<S, __half>::value;
+
+// The half score type's conversions and comparisons (S = __half only)
+__device__ __forceinline__ __half h_of(double x) { return __double2half(x); }
+__device__ __forceinline__ __half h_of(float x) { return __float2half_rn(x); }
+__device__ __forceinline__ float f_of(__half x) { return __half2float(x); }
+// a site's coverage sum as the JAX f16 engine holds it (inf above 65,519)
+__device__ __forceinline__ float h_count(int c) { return __half2float(__int2half_rn(c)); }
+
+// a summed coverage count in D: INF_FLAG reads as inf (half scores only)
+template <class S, class D>
+__device__ __forceinline__ D count_d(unsigned long long x) {
+    if constexpr (kHalf<S>)
+        return x >= INF_FLAG ? (D)INFINITY : (D)x;
+    else
+        return (D)x;
+}
+
+// an S value widened to D, exactly
+template <class D, class S>
+__device__ __forceinline__ D wide(S x) {
+    if constexpr (kHalf<S>)
+        return (D)__half2float(x);
+    else
+        return (D)x;
+}
+
+// a site's coverage sum at or below the dropout threshold, in S
+template <class S>
+__device__ __forceinline__ bool low_site(int c, S thr) {
+    if constexpr (kHalf<S>)
+        return h_count(c) <= f_of(thr);
+    else
+        return (S)c <= thr;
+}
+
+template <class S>
 __global__ void __launch_bounds__(THREADS) row_sums(RowArgs a) {
     __shared__ long long s_row[SR];
     __shared__ int32_t s_c[SR], s_w[SR];
+    __shared__ bool s_inf[SR];  // a site of the row is inf in half (half scores only)
     const int64_t Gd = a.G / DS, b = blockIdx.y, r0 = (int64_t)blockIdx.x * SR;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     if (t < SR && r0 + t < Gd) {
@@ -145,48 +209,72 @@ __global__ void __launch_bounds__(THREADS) row_sums(RowArgs a) {
     }
     const int4* base = reinterpret_cast<const int4*>(a.covsum + b * a.G + r0 * DS);
     long long v[SR / 8];
+    bool inf[SR / 8];
 #pragma unroll
     for (int i = 0; i < SR / 8; ++i) {
         int row = warp * (SR / 8) + i;
         v[i] = 0;
+        inf[i] = false;
         if (lane < QD && r0 + row < Gd) {
             int4 x = base[row * QD + lane];
-            v[i] = (long long)x.x + x.y + x.z + x.w;
+            if constexpr (kHalf<S>) {
+                const float h[4] = {h_count(x.x), h_count(x.y), h_count(x.z), h_count(x.w)};
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    inf[i] |= isinf(h[j]);
+                    v[i] += isinf(h[j]) ? 0ll : (long long)h[j];
+                }
+            } else {
+                v[i] = (long long)x.x + x.y + x.z + x.w;
+            }
         }
     }
 #pragma unroll
     for (int i = 0; i < SR / 8; ++i) {
         long long s = bk_warp_sum(v[i]);
         if (lane == 0) s_row[warp * (SR / 8) + i] = s;
+        if constexpr (kHalf<S>) {
+            bool f = __any_sync(0xffffffffu, inf[i]);
+            if (lane == 0) s_inf[warp * (SR / 8) + i] = f;
+        }
     }
     __syncthreads();
     if (t != 0) return;
     long long tot = 0, acc_c = 0, acc_w = 0;
+    bool inf_t = false, inf_c = false, inf_w = false;
     int32_t cur_c = -1, cur_w = -1;
+    // the finite part with an integer add; an inf site's flag with an or
+    auto flush = [](unsigned long long* p, long long acc, bool f) {
+        if (acc) atomicAdd(p, (unsigned long long)acc);
+        if (kHalf<S> && f) atomicOr(p, INF_FLAG);
+    };
     for (int i = 0; i < SR && r0 + i < Gd; ++i) {
         long long rv = s_row[i];
+        const bool ri = kHalf<S> && s_inf[i];
         tot += rv;
+        inf_t |= ri;
         int32_t c = s_c[i];
         if (c != cur_c) {
-            if (cur_c >= 0 && cur_c < a.n_c1 && acc_c)
-                atomicAdd(a.per_contig + cur_c, (unsigned long long)acc_c);
+            if (cur_c >= 0 && cur_c < a.n_c1) flush(a.per_contig + cur_c, acc_c, inf_c);
             cur_c = c;
             acc_c = 0;
+            inf_c = false;
         }
         acc_c += rv;
+        inf_c |= ri;
         int32_t w = s_w[i];
         if (w != cur_w) {
-            if (cur_w >= 0 && cur_w < a.nw_pad && acc_w)
-                atomicAdd(a.winsums + b * a.nw_pad + cur_w, (unsigned long long)acc_w);
+            if (cur_w >= 0 && cur_w < a.nw_pad) flush(a.winsums + b * a.nw_pad + cur_w, acc_w, inf_w);
             cur_w = w;
             acc_w = 0;
+            inf_w = false;
         }
         acc_w += rv;
+        inf_w |= ri;
     }
-    if (cur_c >= 0 && cur_c < a.n_c1 && acc_c) atomicAdd(a.per_contig + cur_c, (unsigned long long)acc_c);
-    if (cur_w >= 0 && cur_w < a.nw_pad && acc_w)
-        atomicAdd(a.winsums + b * a.nw_pad + cur_w, (unsigned long long)acc_w);
-    if (tot) atomicAdd(a.total, (unsigned long long)tot);
+    if (cur_c >= 0 && cur_c < a.n_c1) flush(a.per_contig + cur_c, acc_c, inf_c);
+    if (cur_w >= 0 && cur_w < a.nw_pad) flush(a.winsums + b * a.nw_pad + cur_w, acc_w, inf_w);
+    flush(a.total, tot, inf_t);
 }
 
 // per-contig dropout table, sticky bucket switches, read-start scatter
@@ -198,15 +286,31 @@ __global__ void row_tables(RowArgs a) {
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
         if (i < a.n_c1) {  // in S, as the reference's contig_mean
             const D den = static_cast<const D*>(a.contig_denom)[i];
-            S mean = (S)bk_div((D)a.per_contig[i], den);
-            static_cast<S*>(a.thr_c)[i] = bk_floor(bk_div(mean, (S)a.dropout_mod));
-            a.active_c[i] = mean > (S)a.dropout_min_mean ? 1 : 0;
+            if constexpr (kHalf<S>) {
+                const float mean = f_of(h_of(bk_div(count_d<S, D>(a.per_contig[i]), den)));
+                static_cast<S*>(a.thr_c)[i] =
+                    h_of(floorf(f_of(h_of(__fdiv_rn(mean, f_of(h_of(a.dropout_mod)))))));
+                a.active_c[i] = mean > f_of(h_of(a.dropout_min_mean)) ? 1 : 0;
+            } else {
+                S mean = (S)bk_div((D)a.per_contig[i], den);
+                static_cast<S*>(a.thr_c)[i] = bk_floor(bk_div(mean, (S)a.dropout_mod));
+                a.active_c[i] = mean > (S)a.dropout_min_mean ? 1 : 0;
+            }
         } else if (i < a.n_c1 + n_bk) {
             int64_t k = i - a.n_c1, b = k / a.nbk, j = k - b * a.nbk;
             int32_t src = a.bucket_src[j];
-            S mean = 0;
-            if (src >= 0) mean = (S)bk_div((D)a.winsums[b * a.nw_pad + src], (D)20000);
-            bool on = a.bucket_on[k] || (mean >= (S)a.bucket_threshold && a.bucket_valid[j]);
+            bool hit;
+            if constexpr (kHalf<S>) {  // the half mean against the f32 threshold, exactly
+                float mean = 0.f;
+                if (src >= 0)
+                    mean = f_of(h_of(bk_div(count_d<S, D>(a.winsums[b * a.nw_pad + src]), (D)20000)));
+                hit = mean >= (float)a.bucket_threshold;
+            } else {
+                S mean = 0;
+                if (src >= 0) mean = (S)bk_div((D)a.winsums[b * a.nw_pad + src], (D)20000);
+                hit = mean >= (S)a.bucket_threshold;
+            }
+            bool on = a.bucket_on[k] || (hit && a.bucket_valid[j]);
             a.bucket_on[k] = on ? 1 : 0;
             any |= on;
         } else {
@@ -219,8 +323,12 @@ __global__ void row_tables(RowArgs a) {
                 w = a.rs_w[r];
             }
             int32_t row = a.rs_row[r], s = a.rs_strand[r];
-            if (w != 0.f && row >= 0 && row < a.wf && s >= 0 && s < 2)
-                atomicAdd(static_cast<S*>(a.read_starts) + (int64_t)row * 2 + s, (S)w);
+            if (w != 0.f && row >= 0 && row < a.wf && s >= 0 && s < 2) {
+                if constexpr (kHalf<S>)  // each add rounds; every w is 1.0 (see the header)
+                    atomicAdd(static_cast<__half*>(a.read_starts) + (int64_t)row * 2 + s, h_of(w));
+                else
+                    atomicAdd(static_cast<S*>(a.read_starts) + (int64_t)row * 2 + s, (S)w);
+            }
         }
     }
     if (__any_sync(0xffffffffu, any) && (threadIdx.x & 31) == 0) atomicOr(a.tab + 1, 1ull);
@@ -234,7 +342,7 @@ __global__ void row_csum(RowArgs a) {
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     double v = 0.0;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.wf * 2; i += stride)
-        v += (double)rs[i];
+        v += wide<double>(rs[i]);
     v = bk_block_sum(v, s_red);
     if (threadIdx.x == 0 && v != 0.0) atomicAdd(reinterpret_cast<double*>(a.tab), v);
 }
@@ -267,7 +375,7 @@ __global__ void __launch_bounds__(THREADS) row_posterior(RowArgs a) {
     double tv = 0.0;
     for (int64_t i = i0 + t; i < i1; i += THREADS) {
         int64_t row = i >> 1;
-        D rs = (D)rs_s[i];
+        D rs = wide<D>(rs_s[i]);
         D f = rs > (D)0 ? bk_div(bk_add(alpha, rs), denom) : ep;
         if (!a.fhat_valid[row]) f = 0;
         fhat_w[i] = f;
@@ -288,8 +396,13 @@ __global__ void __launch_bounds__(THREADS) row_posterior(RowArgs a) {
     if (t == 0) {
         static_cast<D*>(a.scale)[0] = tot > (D)0 ? bk_div((D)a.on_target, tot) : (D)0;
         S* aux = static_cast<S*>(a.aux);
-        aux[0] = __ldcg(a.tab + 1) ? (S)1 : (S)0;
-        aux[3] = (S)bk_div((D)a.total[0], (D)a.n_real_sites);
+        if constexpr (kHalf<S>) {
+            aux[0] = h_of(__ldcg(a.tab + 1) ? 1.f : 0.f);
+            aux[3] = h_of(bk_div(count_d<S, D>(a.total[0]), (D)a.n_real_sites));
+        } else {
+            aux[0] = __ldcg(a.tab + 1) ? (S)1 : (S)0;
+            aux[3] = (S)bk_div((D)a.total[0], (D)a.n_real_sites);
+        }
     }
 }
 
@@ -315,6 +428,24 @@ struct Quad<float> {
     }
     __device__ __forceinline__ void store(float* p) const {
         *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+};
+
+template <>
+struct Quad<__half> {
+    __half v[4];
+    __device__ __forceinline__ void load(const __half* p) {
+        const uint2 x = *reinterpret_cast<const uint2*>(p);
+        v[0] = __ushort_as_half((unsigned short)(x.x & 0xFFFFu));
+        v[1] = __ushort_as_half((unsigned short)(x.x >> 16));
+        v[2] = __ushort_as_half((unsigned short)(x.y & 0xFFFFu));
+        v[3] = __ushort_as_half((unsigned short)(x.y >> 16));
+    }
+    __device__ __forceinline__ void store(__half* p) const {
+        uint2 x;
+        x.x = (uint32_t)__half_as_ushort(v[0]) | ((uint32_t)__half_as_ushort(v[1]) << 16);
+        x.y = (uint32_t)__half_as_ushort(v[2]) | ((uint32_t)__half_as_ushort(v[3]) << 16);
+        *reinterpret_cast<uint2*>(p) = x;
     }
 };
 
@@ -379,12 +510,12 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
                 for (int j = 0; j < 4; ++j) low[j] = byte_of(lw, j);
             } else {
 #pragma unroll
-                for (int j = 0; j < 4; ++j) low[j] = (S)lane_of(cv, j) <= thr;
+                for (int j = 0; j < 4; ++j) low[j] = low_site<S>(lane_of(cv, j), thr);
                 for (int64_t bb = 0; bb < a.nb; ++bb) {
                     if (bb == b) continue;
                     const int4 co = *reinterpret_cast<const int4*>(a.covsum + bb * a.G + g);
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) low[j] |= (S)lane_of(co, j) <= thr;
+                    for (int j = 0; j < 4; ++j) low[j] |= low_site<S>(lane_of(co, j), thr);
                 }
             }
             uint32_t zn = 0;
@@ -396,7 +527,7 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
                 bool maxed = lane_of(cv, j) >= a.freeze_cov;
                 bool hold = byte_of(zr, j) && !(byte_of(ch, j) && !maxed);
                 bool zero = hold || drop;
-                out.v[j] = zero ? (S)0 : sv.v[j];
+                out.v[j] = zero ? S{} : sv.v[j];
                 zn |= (uint32_t)zero << (8 * j);
                 any_zero |= zero;
             }
@@ -412,7 +543,7 @@ __global__ void __launch_bounds__(THREADS) row_apply(RowArgs a) {
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
                 int j = lane + 32 * k;
-                if (j < DS) acc += (D)s_sc[row * DS + j];
+                if (j < DS) acc += wide<D>(s_sc[row * DS + j]);
             }
             acc = bk_warp_sum(acc);
             if (lane == 0) static_cast<D*>(a.scores_ds)[b * Gd + r0 + row] = acc;
@@ -433,19 +564,20 @@ __global__ void row_low(RowArgs a) {
         for (int64_t b = 0; b < a.nb; ++b) {
             const int4 c = *reinterpret_cast<const int4*>(a.covsum + b * a.G + g);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) lw |= (uint32_t)((S)lane_of(c, j) <= thr) << (8 * j);
+            for (int j = 0; j < 4; ++j) lw |= (uint32_t)low_site<S>(lane_of(c, j), thr) << (8 * j);
         }
         *reinterpret_cast<uint32_t*>(a.low + g) = lw;
     }
 }
 
+template <class S>
 int launch_sums(const RowArgs& a, cudaStream_t st) {
     const int64_t Gd = a.G / DS;
     BK_CHECK(cudaMemsetAsync(a.per_contig, 0, sizeof(unsigned long long) * a.n_c1, st));
     BK_CHECK(cudaMemsetAsync(a.winsums, 0, sizeof(unsigned long long) * a.nb * a.nw_pad, st));
     BK_CHECK(cudaMemsetAsync(a.total, 0, sizeof(unsigned long long), st));
     dim3 grid((unsigned)((Gd + SR - 1) / SR), (unsigned)a.nb);
-    row_sums<<<grid, THREADS, 0, st>>>(a);
+    row_sums<S><<<grid, THREADS, 0, st>>>(a);
     BK_LAUNCHED();
     return 0;
 }
@@ -482,7 +614,7 @@ int row_stage(const RowArgs* args, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const RowArgs a = *args;
     if (!supported(a)) return -1;
-    int err = launch_sums(a, st);
+    int err = launch_sums<S>(a, st);
     if (!err) err = launch_tables<S, D>(a, st);
     if (!err) err = launch_apply<S, D>(a, st);
     return err;
@@ -495,7 +627,7 @@ int shard_rows(const RowArgs* args, int phase, void* stream) {
     if (!supported(a)) return -1;
     switch (phase) {
         case 0:
-            return launch_sums(a, st);
+            return launch_sums<S>(a, st);
         case 1:
             return launch_tables<S, D>(a, st);
         case 2:
@@ -530,4 +662,14 @@ BK_API int bk_shard_rows_d32(const RowArgs* a, int phase, void* st) {
 }
 BK_API int bk_shard_rows_s64_d32(const RowArgs* a, int phase, void* st) {
     return shard_rows<double, float>(a, phase, st);
+}
+
+// dtype="float16": half scores with f64 (_h16) or f32 (_h16_d32) decisions
+BK_API int bk_row_stage_h16(const RowArgs* a, void* st) { return row_stage<__half, double>(a, st); }
+BK_API int bk_row_stage_h16_d32(const RowArgs* a, void* st) { return row_stage<__half, float>(a, st); }
+BK_API int bk_shard_rows_h16(const RowArgs* a, int phase, void* st) {
+    return shard_rows<__half, double>(a, phase, st);
+}
+BK_API int bk_shard_rows_h16_d32(const RowArgs* a, int phase, void* st) {
+    return shard_rows<__half, float>(a, phase, st);
 }

@@ -43,7 +43,24 @@
 // takes f64 tables and writes f64 scores, with exp/log/fma in double (no
 // fast-math) in the same order, and is bound by f64 arithmetic wherever
 // sites need the contraction.
+//
+// The half instantiation (bk_site_scores_h16, the JAX engine's
+// dtype="float16") reads f16 tables, widens them to f32 in shared memory
+// (exactly) and writes f16 scores: 18 B a site (10 B coverage, 1 B seq,
+// 1 B valid, 2 B score, 4 B covsum). It computes the JAX f16 program as
+// XLA's CPU backend runs it (ops/scores._scores_h16, which pins it): f32
+// arithmetic rounded to half with __float2half_rn after every op the JAX
+// program rounds (one f32 +, -, * or expf/logf rounded to half is the
+// correctly rounded half op), each dot an f32 sum of exact products in
+// XLA's lane order (lanes_dot), each reduction over genotypes or symbols
+// an f32 sum in index order rounded once. Every product it forms is of
+// two half values, exact in f32, so an FMA that nvcc contracts rounds as
+// the separate multiply and add. The float and double instantiations do
+// not change.
+#include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -114,22 +131,116 @@ __device__ __forceinline__ T contract(const T (&cnt)[LB], int ref, const T* tab)
     return sc_max(sk - sq, (T)0);
 }
 
+// f32 rounded to half and held in f32: the rounding after an f16 op
+__device__ __forceinline__ float h16(float x) { return __half2float(__float2half_rn(x)); }
+
+// sum_k w[k * stride] * x[k] in f32, in the order XLA's CPU dot takes for
+// the engine's batched operands (ops/scores._contract_lanes): four lane
+// sums over the whole groups of four, (l0 + l1) + (l2 + l3), then the rest
+template <int K>
+__device__ __forceinline__ float lanes_dot(const float* w, int stride, const float* x) {
+    constexpr int N4 = K / 4 * 4;
+    float out;
+    if (N4) {
+        float l[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) l[k] = w[k * stride] * x[k];
+#pragma unroll
+        for (int k = 4; k < N4; ++k) l[k % 4] += w[k * stride] * x[k];
+        out = (l[0] + l[1]) + (l[2] + l[3]);
+    } else {
+        out = w[0] * x[0];
+    }
+#pragma unroll
+    for (int k = (N4 ? N4 : 1); k < K; ++k) out += w[k * stride] * x[k];
+    return out;
+}
+
+// The unmasked f16 score of one site (f32 tables in shared memory holding
+// the half values), floored at 0 as torch.clamp_min floors (NaN stays)
+template <int LB, int LG>
+__device__ __forceinline__ float contract_h16(const float (&cnt)[LB], int ref, const float* tab) {
+    const float* lphi = tab;
+    const float* phi = tab + LB * LG;
+    const float* lprior = tab + 2 * LB * LG + ref * LG;
+    const float* kk = tab + 2 * LB * LG + 4 * LG;
+    float lp[LG];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < LG; ++j) {
+        lp[j] = h16(h16(lanes_dot<LB>(lphi + j, LG, cnt)) + lprior[j]);
+        m = fmaxf(m, lp[j]);
+    }
+    const float msafe = isfinite(m) ? m : 0.f;
+    float se = 0.f;
+#pragma unroll
+    for (int j = 0; j < LG; ++j) se += h16(expf(h16(lp[j] - msafe)));
+    const float lse = h16(h16(logf(fabsf(h16(se)))) + msafe);
+    float t1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < LG; ++j) {
+        lp[j] = h16(expf(h16(lp[j] - lse)));  // the posterior
+        t1 += h16(lp[j] * kk[j]);
+    }
+    float t2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < LB; ++s) {
+        const float q = h16(lanes_dot<LG>(phi + s * LG, 1, lp));
+        if (q > 0.f) t2 += h16(q * h16(logf(q)));
+    }
+    const float score = h16(h16(t1) - h16(t2));
+    return score < 0.f ? 0.f : score;
+}
+
+// the arithmetic type of a score type: half computes in float
+template <class T>
+struct Compute {
+    using type = T;
+};
+template <>
+struct Compute<__half> {
+    using type = float;
+};
+
+template <int LB, int LG, class T>
+__device__ __forceinline__ typename Compute<T>::type site_score(
+        const typename Compute<T>::type (&cnt)[LB], int ref, const typename Compute<T>::type* tab) {
+    if constexpr (std::is_same<T, __half>::value)
+        return contract_h16<LB, LG>(cnt, ref, tab);
+    else
+        return contract<LB, LG, T>(cnt, ref, tab);
+}
+
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+
+// four f16 scores (already rounded) as one 8-byte store
+__device__ __forceinline__ void store4(__half* p, const float (&v)[SPT]) {
+    const __half2 a = __floats2half2_rn(v[0], v[1]), b = __floats2half2_rn(v[2], v[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<const uint32_t*>(&a);
+    w.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = w;
+}
+
 template <int LB, int LG, bool kVec, class T>
 __global__ void __launch_bounds__(THREADS)
 site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
                    const uint8_t* __restrict__ site_valid, const T* __restrict__ tab, int G,
-                   int freeze_cov, T tiny, T* __restrict__ scores,
+                   int freeze_cov, typename Compute<T>::type tiny, T* __restrict__ scores,
                    int32_t* __restrict__ covsum) {
+    using C = typename Compute<T>::type;
     constexpr int NT = 2 * LB * LG + 5 * LG;
-    __shared__ __align__(16) T s_tab[NT];  // 16-byte aligned: vector loads of the tables
-    __shared__ T s_empty[4];  // the score of a valid site without counts, per reference
-    for (int i = threadIdx.x; i < NT; i += blockDim.x) s_tab[i] = tab[i];
+    __shared__ __align__(16) C s_tab[NT];  // 16-byte aligned: vector loads of the tables
+    __shared__ C s_empty[4];  // the score of a valid site without counts, per reference
+    for (int i = threadIdx.x; i < NT; i += blockDim.x) s_tab[i] = widen(tab[i]);
     __syncthreads();
     if (threadIdx.x < 4) {
-        T zero[LB];
+        C zero[LB];
 #pragma unroll
         for (int s = 0; s < LB; ++s) zero[s] = 0;
-        s_empty[threadIdx.x] = contract<LB, LG, T>(zero, threadIdx.x, s_tab);
+        s_empty[threadIdx.x] = site_score<LB, LG, T>(zero, threadIdx.x, s_tab);
     }
     __syncthreads();
 
@@ -170,7 +281,7 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
         }
     }
 
-    T res[SPT];
+    C res[SPT];
     int cs[SPT];
     bool need[SPT];
 #pragma unroll
@@ -184,17 +295,17 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
         cs[k] = (int)sum;
         bool frozen = cs[k] >= freeze_cov;
         need[k] = any != 0 && !frozen && valid[k];
-        res[k] = frozen ? tiny : (valid[k] ? s_empty[ref[k]] : (T)0);
+        res[k] = frozen ? tiny : (valid[k] ? s_empty[ref[k]] : (C)0);
     }
 #pragma unroll
     for (int k = 0; k < SPT; ++k) {
         // warp-uniform: the whole warp skips a slot in which no lane needs it
         if (__any_sync(0xffffffffu, need[k])) {
-            T cnt[LB];
+            C cnt[LB];
 #pragma unroll
             for (int s = 0; s < LB; ++s)
-                cnt[s] = (T)(v[s][k] < COUNT_CLIP ? v[s][k] : COUNT_CLIP);
-            T score = contract<LB, LG, T>(cnt, ref[k], s_tab);
+                cnt[s] = (C)(v[s][k] < COUNT_CLIP ? v[s][k] : COUNT_CLIP);
+            C score = site_score<LB, LG, T>(cnt, ref[k], s_tab);
             if (need[k]) res[k] = score;
         }
     }
@@ -210,7 +321,7 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
 #pragma unroll
         for (int k = 0; k < SPT; ++k) {
             if (g0 + k < (uint32_t)G) {
-                out_s[g0 + k] = res[k];
+                out_s[g0 + k] = (T)res[k];
                 out_c[g0 + k] = cs[k];
             }
         }
@@ -219,7 +330,8 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
 
 template <int LB, int LG, class T>
 int launch(const void* cov, const void* seq, const void* site_valid, const void* tab, int64_t nb,
-           int64_t G, int freeze_cov, T tiny, void* scores, void* covsum, cudaStream_t st) {
+           int64_t G, int freeze_cov, typename Compute<T>::type tiny, void* scores, void* covsum,
+           cudaStream_t st) {
     if (G <= 0 || nb <= 0) return 0;
     if (G >= (int64_t{1} << 31) - THREADS * SPT || nb > 65535) return -1;
     auto al = [](const void* p, uintptr_t a) { return (uintptr_t)p % a == 0; };
@@ -236,8 +348,8 @@ int launch(const void* cov, const void* seq, const void* site_valid, const void*
 
 template <class T>
 int site_scores(const void* coverage, const void* seq, const void* site_valid, const void* tab,
-                int len_b, int len_g, int64_t nb, int64_t G, int freeze_cov, T tiny, void* scores,
-                void* covsum, cudaStream_t st) {
+                int len_b, int len_g, int64_t nb, int64_t G, int freeze_cov,
+                typename Compute<T>::type tiny, void* scores, void* covsum, cudaStream_t st) {
     if (len_b == 5 && len_g == 5)
         return launch<5, 5, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
     if (len_b == 4 && len_g == 4)
@@ -267,4 +379,13 @@ BK_API int bk_site_scores_s64(const void* coverage, const void* seq, const void*
                               int freeze_cov, double tiny, void* scores, void* covsum, void* stream) {
     return site_scores<double>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov, tiny,
                                scores, covsum, (cudaStream_t)stream);
+}
+
+// the same with f16 tables and f16 scores (tiny: the half's smallest
+// normal, 6.1035e-05, passed as an exact float)
+BK_API int bk_site_scores_h16(const void* coverage, const void* seq, const void* site_valid,
+                              const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
+                              int freeze_cov, float tiny, void* scores, void* covsum, void* stream) {
+    return site_scores<__half>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov,
+                               tiny, scores, covsum, (cudaStream_t)stream);
 }

@@ -58,7 +58,9 @@
 // frexp_abs_exponent). Its ubar0 and the bins' fhat sums still accumulate
 // in f64 (f32 summands, exact in any order) and are rounded to f32 once at
 // the scan; the norm is kept as f64 bits (a widened f32, exact). aux is in
-// the score type (aux64: double).
+// the score type, which aux_kind names (0 float, 1 double, 2 half: the
+// threshold rounds to half once, from double with __double2half, as the
+// JAX engine's astype and the plain version's round_to).
 //
 // H8, part 3: bk_shard_benefit runs the same kernels for one shard of the
 // sharded step (bossruns_tpu/parallel/mesh.py:338-407, K11), one phase per
@@ -78,6 +80,7 @@
 //            (counts, fsum and ubar0 are summed over both axes);
 //   phase 4: threshold_scan (replicated, one block) and the shard's
 //            strat_write.
+#include <cuda_fp16.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -88,7 +91,7 @@ struct StratArgs {
     int32_t win[10];
     double weight[10];
     double tc;  // (time_cost // 100) in f64
-    int32_t aux64, pad0;  // aux holds doubles (f64 scores), else floats
+    int32_t aux_kind, pad0;  // aux's score type: 0 float, 1 double, 2 half
     // inputs (T: the decision type)
     const void* scores_ds;  // T
     const int32_t* seg_start;
@@ -149,14 +152,23 @@ static inline dim3 grid_rows(int64_t Gd, int64_t nb, int64_t max_blocks) {
     return dim3((unsigned)(x < 1 ? 1 : (x < cap ? x : cap)), (unsigned)nb);
 }
 
-__device__ __forceinline__ bool aux_on(const StratArgs& a) {
-    return a.aux64 ? static_cast<const double*>(a.aux)[0] != 0.0
-                   : static_cast<const float*>(a.aux)[0] != 0.f;
+// aux[i] != 0, in aux's score type
+__device__ __forceinline__ bool aux_nonzero(const StratArgs& a, int i) {
+    if (a.aux_kind == 2) return __half2float(static_cast<const __half*>(a.aux)[i]) != 0.f;
+    return a.aux_kind ? static_cast<const double*>(a.aux)[i] != 0.0
+                      : static_cast<const float*>(a.aux)[i] != 0.f;
 }
+
+__device__ __forceinline__ bool aux_on(const StratArgs& a) { return aux_nonzero(a, 0); }
+
+__device__ __forceinline__ __half to_half(double v) { return __double2half(v); }
+__device__ __forceinline__ __half to_half(float v) { return __float2half_rn(v); }
 
 template <class T>
 __device__ __forceinline__ void aux_set(const StratArgs& a, int i, T v) {
-    if (a.aux64)
+    if (a.aux_kind == 2)
+        static_cast<__half*>(a.aux)[i] = to_half(v);
+    else if (a.aux_kind)
         static_cast<double*>(a.aux)[i] = (double)v;
     else
         static_cast<float*>(a.aux)[i] = (float)v;
@@ -531,8 +543,7 @@ __global__ void __launch_bounds__(NBINS) threshold_scan(StratArgs a) {
 template <class T>
 __global__ void __launch_bounds__(THREADS) strat_write(StratArgs a) {
     using T2 = typename BkVec2<T>::type;
-    if (a.aux64 ? static_cast<const double*>(a.aux)[1] == 0.0 : static_cast<const float*>(a.aux)[1] == 0.f)
-        return;
+    if (!aux_nonzero(a, 1)) return;
     const T thr = *static_cast<const T*>(a.threshold);
     const int64_t b = blockIdx.y;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;

@@ -417,9 +417,11 @@ def pad_split(split, floors=(0, 0)):
     return out
 
 
-def pack_batch(layout, record_sets, *, device: str | torch.device, barcodes=None,
+def pack_batch(layout, record_sets, *, device: str | torch.device | None, barcodes=None,
                rs=None, floors=(0, 0), qt: int = 0, len_b: int = 5):
-    """Build a fully padded models.runs.ReadBatch on ``device`` from record sets.
+    """Build a fully padded models.runs.ReadBatch on ``device`` from record
+    sets; with ``device=None``, its fields as a dict of numpy arrays (a host
+    batch, for RunsEngine.step_from_numpy).
 
     rs: optional (rs_row, rs_strand, rs_w) arrays. floors: (mr_floor,
     ex_floor) minimum pad sizes — callers pass the largest sizes seen so
@@ -432,6 +434,5 @@ def pack_batch(layout, record_sets, *, device: str | torch.device, barcodes=None
 
     if rs is None:
         rs = (np.zeros(512, np.int32), np.zeros(512, np.int32), np.zeros(512, np.float32))
-    return batch_from_numpy(
-        dict(rs_row=rs[0], rs_strand=rs[1], rs_w=rs[2], **padded), device
-    )
+    fields = dict(rs_row=rs[0], rs_strand=rs[1], rs_w=rs[2], **padded)
+    return fields if device is None else batch_from_numpy(fields, device)

@@ -27,6 +27,7 @@ from ..ops.model import make_model
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.misc import make_output_dirs, write_strategy_npz
 from ..utils.readlen import ReadLengthDist
+from .convert import batch_from_numpy
 from .layout import build_layout
 from .runs import RunsConfig, RunsEngine
 
@@ -168,13 +169,18 @@ class BossRuns:
         )
         self._rs_floor = max(getattr(self, "_rs_floor", 512), rs[0].shape[0])
         batch = pack_batch(
-            self.layout, [(rec, rows, seqs, quals)], device=self.device, barcodes=read_bc,
-            rs=rs, floors=getattr(self, "_batch_floors", (0, 0)),
+            self.layout, [(rec, rows, seqs, quals)], device=None, barcodes=read_bc, rs=rs, floors=getattr(self, "_batch_floors", (0, 0)),
             len_b=self.engine.model.len_b,
         )
-        self._batch_floors = (batch.mr_g.shape[0], batch.ex_g.shape[0])
+        self._batch_floors = (batch["mr_g"].shape[0], batch["ex_g"].shape[0])
         params = self.engine.make_params(self.rl_dist.approx_ccl, self.rl_dist.time_cost)
-        self.state, aux = self.engine.step(self.state, batch, params)
+        # a wire-capable engine takes the host batch as one buffer, as the
+        # JAX package's does; the sharded engine places a ReadBatch itself
+        if self.engine.wire_capable:
+            self.state, aux = self.engine.step_from_numpy(self.state, batch, params)
+        else:
+            self.state, aux = self.engine.step(self.state, batch_from_numpy(batch, self.device),
+                                               params)
         ah = self.engine.pull_aux(aux)
         self.tracker.update(len(seqs), rec, best)
         if ah.updated:

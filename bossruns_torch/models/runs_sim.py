@@ -42,7 +42,7 @@ from ..parallel.distributed import is_primary
 from ..utils.checkpoint import MetricsWriter, load_checkpoint, save_checkpoint
 from ..utils.misc import make_output_dirs, random_id, write_strategy_npz
 from ..utils.readlen import ReadLengthDist
-from .convert import tensors_from_numpy
+from .convert import batch_from_numpy
 from .experiment import AbundanceTracker
 from .layout import DS, FHAT_WINDOW, GenomeLayout, build_layout
 from .runs import RunsConfig, RunsEngine
@@ -327,7 +327,8 @@ class BossRunsSim:
         """Sample + parse + build + upload both candidate coverage sets.
 
         All of it is strategy-independent, so it runs on the prefetch worker
-        while the previous batch's step runs. The upload is a plain
+        while the previous batch's step runs. The sets ship as one gated
+        wire buffer (RunsEngine.pack_gated), uploaded in one plain
         synchronous copy on the worker's current (default) stream, the
         stream the step also runs on."""
         seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
@@ -412,10 +413,11 @@ class BossRunsSim:
             "rs_read": pad_arr(np.array(rs_read, np.int32), "rs", fill=-1),
         }
         self._gated_floors = floors
+        wire, spec = self.engine.pack_gated(d)
         return dict(
             seqs=seqs, quals=quals, bc_names=bc_names, full=full, trunc=trunc,
             best_full=best_full, best_trunc=best_trunc, rid_list=rid_list,
-            rid_idx=rid_idx, read_bc=read_bc, gated=tensors_from_numpy(d, self.device),
+            rid_idx=rid_idx, read_bc=read_bc, wire=self.engine.upload_wire(wire), spec=spec,
         )
 
     def _submit_prefetch(self, fn) -> None:
@@ -478,7 +480,8 @@ class BossRunsSim:
         t["coo"] = time.perf_counter()
         params = self.engine.make_params(self.rl_dist.approx_ccl, self.rl_dist.time_cost)
         bits_dev = torch.from_numpy(bits).to(self.device)
-        self.state, aux = self.engine.step_gated(self.state, pre["gated"], bits_dev, params)
+        gated = self.engine.unpack_gated(pre["wire"], pre["spec"])
+        self.state, aux = self.engine.step_gated(self.state, gated, bits_dev, params)
         decided_bases = sum(len(s) for s in reads_decision.values())
         self.read_cache.update_times(
             total_bases=self.sampler.fq_stream.total_bases,
@@ -559,18 +562,24 @@ class BossRunsSim:
         batch = pack_batch(
             self.layout,
             [(full, full_rows, seqs, quals), (trunc, trunc_rows, trunc_seqs, trunc_quals)],
-            device=self.device,
+            device=None,
             barcodes=read_bc,
             rs=(rs_row, rs_strand, rs_w),
             floors=getattr(self, "_batch_floors", (0, 0)),
             len_b=self.engine.model.len_b,
         )
-        self._batch_floors = (batch.mr_g.shape[0], batch.ex_g.shape[0])
+        self._batch_floors = (batch["mr_g"].shape[0], batch["ex_g"].shape[0])
         t["coo"] = time.perf_counter()
         params = self.engine.make_params(self.rl_dist.approx_ccl, self.rl_dist.time_cost)
         # the step is queued on the device; the host overlaps it with the
         # pseudotime bookkeeping and the next batch's sample + parse
-        self.state, aux = self.engine.step(self.state, batch, params)
+        # a wire-capable engine takes the host batch as one buffer, as the
+        # JAX package's does; the sharded engine places a ReadBatch itself
+        if self.engine.wire_capable:
+            self.state, aux = self.engine.step_from_numpy(self.state, batch, params)
+        else:
+            self.state, aux = self.engine.step(self.state, batch_from_numpy(batch, self.device),
+                                               params)
         decided_bases = sum(len(s) for s in outc.reads_decision.values())
         self.read_cache.update_times(
             total_bases=self.sampler.fq_stream.total_bases,

@@ -17,7 +17,7 @@ kernels can be held against them on the card.
 Decision-path arithmetic follows the JAX package's order of operations in
 the engine's decision dtype (``RunsConfig.benefit_dtype``: f64 by default,
 or f32), beside per-site scores in its score dtype (``RunsConfig.dtype``:
-f32 by default, or f64). The default keeps the JAX package's
+f32 by default, f64 or f16). The default keeps the JAX package's
 reduction-order-invariance contract: sums of integer-valued or f32-rounded
 summands are exact in any order, so atomics are used only for those. The
 other dtypes keep every sum that is not exact in an order fixed by the
@@ -25,6 +25,10 @@ shape: integer sums run in int64 and are rounded to the decision dtype
 once, the fhat normaliser, ubar0 and the bins' fhat sums accumulate in f64
 and are rounded once, a ds row's score sum runs in the kernel's warp order
 (``row_sum_warp``) and the benefit cumsum tile by tile (``tile_csum``).
+With f16 scores the row stage follows the JAX engine's f16 rounding: each
+site's coverage sum is rounded to f16 before it is summed, inf above
+65,519 (``covsum_terms``, ``INF_FLAG``), and every mean and aux entry is
+rounded to f16 once (``round_to``).
 """
 from __future__ import annotations
 
@@ -160,13 +164,33 @@ def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 
 
 # ------------------------------------------------------------------- fhat ---
 
+#: numpy's dtype of each torch float dtype
+NP_FLOAT = {torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64}
+
+
 def scalar(v: float, dtype, device) -> torch.Tensor:
-    """v as a 0-d tensor of ``dtype`` on ``device``: a divisor or dividend
-    the plain versions keep on their tensors' device, so that every
-    device divides as the kernels do (CUDA turns ``tensor / python
-    float`` into a product with the reciprocal, and PyTorch turns
-    ``python float / tensor`` into one everywhere)."""
-    return torch.full((), v, dtype=dtype, device=device)
+    """v as a 0-d tensor of float ``dtype`` on ``device``: a divisor,
+    dividend or bound the plain versions keep on their tensors' device, so
+    that every device divides as the kernels do (CUDA turns ``tensor /
+    python float`` into a product with the reciprocal, and PyTorch turns
+    ``python float / tensor`` into one everywhere). Rounded to ``dtype``
+    once, by numpy, as the JAX package rounds a weak-typed Python float
+    (torch rounds a double to f16 through f32)."""
+    return torch.from_numpy(np.asarray(v, NP_FLOAT[dtype])).to(device)
+
+
+def round_to(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x in ``dtype``, rounded once to nearest even. torch takes f64 to f16
+    through f32, a double rounding; the JAX package (XLA's convert) and
+    ``__double2half`` on the card round once. So f64 -> f16 goes through
+    f32 rounded to odd, which then rounds to f16 exactly as a single
+    rounding would."""
+    if dtype != torch.float16 or x.dtype != torch.float64:
+        return x.to(dtype)
+    y = x.float()
+    inexact = y.double() != x
+    bits = y.view(torch.int32) - (inexact & (y.double().abs() > x.abs())).int()
+    return (bits | inexact.int()).view(torch.float32).half()
 
 
 def log_beta(a, b):
@@ -474,6 +498,90 @@ def ds_row_sums(scores, dtype):
     return row_sum_warp(x, dtype)
 
 
+#: the flag an int64 coverage sum carries when a summed site's coverage
+#: sum is inf in f16 (above 65,519; ``covsum_terms``): or-ed in once per
+#: shard, so a finite sum (below 2^49) never reaches it, and the sum over
+#: up to 127 shards stays below 2^63
+INF_FLAG = 1 << 56
+
+
+def covsum_terms(covsum, S):
+    """Per-site terms of the coverage sums: (int64 counts, bool inf or None).
+    The JAX engine sums ``covsum.astype(dtype)`` (runs.py:578): exact for
+    f32 and f64 (no flag), rounded to f16 per site for f16, where a sum
+    above 65,519 is inf."""
+    if S != torch.float16:
+        return covsum.long(), None
+    h = covsum.to(torch.float16)
+    fin = torch.isfinite(h)
+    return torch.where(fin, h, 0.0).long(), ~fin
+
+
+def flagged_sums(n: int, idx, vals, inf) -> torch.Tensor:
+    """int64 [n]: vals summed into their idx (out-of-range dropped), with
+    INF_FLAG where an inf term reached the entry."""
+    ok = (idx >= 0) & (idx < n)
+    out = torch.zeros(n, dtype=torch.int64, device=vals.device)
+    out.index_add_(0, idx[ok], vals[ok])
+    if inf is not None:
+        hit = torch.zeros(n, dtype=torch.int64, device=vals.device)
+        hit.index_add_(0, idx[ok], inf[ok].long())
+        out += INF_FLAG * (hit > 0)
+    return out
+
+
+def decode_sums(x, D):
+    """int64 sums with INF_FLAG -> D, inf where flagged."""
+    return torch.where(x >= INF_FLAG, torch.inf, x.to(D))
+
+
+def coverage_sums(covsum, S, contig_id_ds, n_c1: int, win_id_ds, n_win_pad: int):
+    """The row stage's coverage sums of covsum [nb, G] int32 as the score
+    dtype S holds it (``covsum_terms``), in int64 with INF_FLAG:
+    (per_contig [n_c1], winsums [nb * n_win_pad] (each barcode's 200-row
+    bucket windows), total [1])."""
+    nb, G = covsum.shape
+    dev = covsum.device
+    vals, inf = covsum_terms(covsum, S)
+    ds = vals.reshape(nb, G // DS, DS).sum(dim=2)
+    inf_ds = None if inf is None else inf.reshape(nb, G // DS, DS).any(dim=2)
+    flags = lambda f: None if inf_ds is None else f(inf_ds)  # noqa: E731
+    per_contig = flagged_sums(n_c1, contig_id_ds.long(), ds.sum(dim=0),
+                              flags(lambda x: x.any(dim=0)))
+    win = win_id_ds.long()
+    row_off = torch.arange(nb, device=dev)[:, None] * n_win_pad
+    win_idx = torch.where((win >= 0)[None, :], win[None, :] + row_off, nb * n_win_pad)
+    winsums = flagged_sums(nb * n_win_pad, win_idx.reshape(-1), ds.reshape(-1),
+                           flags(lambda x: x.reshape(-1)))
+    total = flagged_sums(1, torch.zeros(1, dtype=torch.int64, device=dev), ds.sum().reshape(1),
+                         flags(lambda x: x.any().reshape(1)))
+    return per_contig, winsums, total
+
+
+def dropout_table(per_contig, contig_denom, S, dropout_mod: int, dropout_min_mean: float):
+    """Per contig (the decision dtype D of contig_denom): the dropout
+    threshold floor(mean / dropout_mod) in S and whether the contig is
+    active (mean > dropout_min_mean), from the mean rounded to S
+    (models/runs.py:600-602)."""
+    dev = per_contig.device
+    mean = round_to(decode_sums(per_contig, contig_denom.dtype) / contig_denom, S)
+    return (torch.floor(mean / scalar(dropout_mod, S, dev)),
+            mean > scalar(dropout_min_mean, S, dev))
+
+
+def switch_buckets(winsums, D, S, bucket_src, bucket_valid, bucket_on,
+                   bucket_threshold: float) -> None:
+    """Sticky bucket switches in place (models/runs.py:630-635): a bucket's
+    window mean (the window sum over BUCKET in D, rounded to S) against the
+    f32 threshold, compared exactly (as XLA promotes the two)."""
+    nb = bucket_on.shape[0]
+    w = decode_sums(winsums, D).reshape(nb, -1)
+    src = bucket_src.long()
+    wsum = w[:, torch.clamp_min(src, 0)]
+    mean = round_to(torch.where((src >= 0)[None, :], wsum / scalar(BUCKET, D, w.device), 0.0), S)
+    bucket_on |= (mean.double() >= bucket_threshold) & bucket_valid[None, :]
+
+
 def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, aux,
                     rs_row, rs_strand, rs_w=None, rs_read=None, bits=None,
                     site_valid, contig_id_ds, contig_denom, win_id_ds, n_win_pad: int,
@@ -484,21 +592,21 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
     """Plain version of H3 (models/runs.py:592-663).
 
     Scores, read_starts and aux are in the score dtype S; contig_denom and
-    fhat_rows in the decision dtype D. Coverage sums are exact int64 sums,
-    rounded to D. In place: scores (dropout/sticky zeros), zeroed,
+    fhat_rows in the decision dtype D. Coverage sums are exact int64 sums of
+    the per-site sums in S (``covsum_terms``: f16 rounds each, inf above
+    65,519), rounded to D; a mean or threshold rounds to S once
+    (``round_to``). In place: scores (dropout/sticky zeros), zeroed,
     bucket_on, read_starts, aux[0] (any bucket on) and aux[3] (mean
     coverage). Returns (scores_ds D [nb, Gd], fhat_exp D [Gd, 2])."""
     S, D = scores.dtype, contig_denom.dtype
     nb, G = scores.shape
     Gd = G // DS
     dev = scores.device
-    covsum_ds = covsum.long().reshape(nb, Gd, DS).sum(dim=2)
+    per_contig, winsums, total = coverage_sums(covsum, S, contig_id_ds, contig_denom.shape[0],
+                                               win_id_ds, n_win_pad)
     cid = contig_id_ds.long()
-    per_contig = torch.zeros(contig_denom.shape[0], dtype=torch.int64, device=dev)
-    per_contig.index_add_(0, cid, covsum_ds.sum(dim=0))
-    contig_mean = (per_contig.to(D) / contig_denom).to(S)
-    thr_ds = torch.floor(contig_mean / scalar(dropout_mod, S, dev))[cid]
-    active_ds = (contig_mean > dropout_min_mean)[cid]
+    thr_c, active_c = dropout_table(per_contig, contig_denom, S, dropout_mod, dropout_min_mean)
+    thr_ds, active_ds = thr_c[cid], active_c[cid]
     low = (covsum.to(S).reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
     drop_site = (low & active_ds[:, None]).reshape(G) & site_valid
     recomputed = changed[None, :] & ~(covsum >= freeze_cov)
@@ -506,16 +614,7 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
     scores.masked_fill_(zero, 0.0)
     zeroed.copy_(zero)
 
-    win = win_id_ds.long()
-    row_off = torch.arange(nb, device=dev)[:, None] * n_win_pad
-    win_idx = torch.where((win >= 0)[None, :], win[None, :] + row_off, nb * n_win_pad)
-    winsums = torch.zeros(nb * n_win_pad + 1, dtype=torch.int64, device=dev)
-    winsums.index_add_(0, win_idx.reshape(-1), covsum_ds.reshape(-1))
-    winsums = winsums[:-1].reshape(nb, n_win_pad).to(D)
-    src = bucket_src.long()
-    wsum = winsums[:, torch.clamp_min(src, 0)]
-    bucket_mean = torch.where((src >= 0)[None, :], wsum / scalar(BUCKET, D, dev), 0.0).to(S)
-    bucket_on |= (bucket_mean >= bucket_threshold) & bucket_valid[None, :]
+    switch_buckets(winsums, D, S, bucket_src, bucket_valid, bucket_on, bucket_threshold)
     aux[0] = bucket_on.any()
 
     # gated flow: a read start counts iff its read was accepted
@@ -531,7 +630,7 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
     fhat_exp = fhat_exp.float().to(D)
 
     scores_ds = ds_row_sums(scores, D)
-    aux[3] = covsum_ds.sum().to(D) / scalar(n_real_sites, D, dev)
+    aux[3] = round_to(decode_sums(total, D)[0] / scalar(n_real_sites, D, dev), S)
     return scores_ds, fhat_exp
 
 
@@ -688,9 +787,12 @@ def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on
     write = do_update & gate & strat_valid[None, :]
     strat.copy_(torch.where(write[:, :, None], res.strat, strat))
     aux[1] = do_update
-    aux[2] = res.threshold
+    aux[2] = round_to(res.threshold, aux.dtype)
     return smu, benefit, res.threshold
 
+
+#: StratArgs.aux_kind of each score dtype of aux (csrc/strategy.cu)
+AUX_KIND = {torch.float32: 0, torch.float64: 1, torch.float16: 2}
 
 #: the widest window (ds rows) whose cumsum H4's window launch stages in
 #: shared memory (csrc/strategy.cu MAX_WINDOW)
@@ -717,8 +819,8 @@ def _check_benefit(kw) -> tuple[int, list[int], str]:
     c(kw["bucket_on"], "bucket_on", torch.bool, (nb, nbk), dev)
     c(kw["strat"], "strat", torch.bool, (nb, Gd, 2), dev, align=2)
     aux = kw["aux"]
-    if aux.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"aux: dtype {aux.dtype}, expected float32 or float64")
+    if aux.dtype not in AUX_KIND:
+        raise ValueError(f"aux: dtype {aux.dtype}, expected float16, float32 or float64")
     c(aux, "aux", aux.dtype, (4,), dev)
     windows = [max(int(w), 1) for w in kw["windows"]]
     if len(windows) != 10:
@@ -761,7 +863,7 @@ def benefit_strategy(**kw):
         quirks=int(kw.get("reference_quirks", False)),
         win=(ctypes.c_int32 * 10)(*windows),
         weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
-        tc=float(kw["time_cost"]) // 100, aux64=int(kw["aux"].dtype == f64), pad0=0,
+        tc=float(kw["time_cost"]) // 100, aux_kind=AUX_KIND[kw["aux"].dtype], pad0=0,
         smu=smu.data_ptr(), benefit=benefit.data_ptr(), threshold=threshold.data_ptr(),
         **{k: kw[k].data_ptr() for k in (
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
@@ -884,28 +986,19 @@ def shard_rows_plain(phase: str, ws: dict, **kw) -> None:
     dev = scores.device
     cid = kw["contig_id_ds"].long()
     if phase == "sums":
-        covsum_ds = covsum.long().reshape(nb, Gd, DS).sum(dim=2)
-        ws["per_contig"].zero_().index_add_(0, cid, covsum_ds.sum(dim=0))
-        nw = kw["n_win_pad"]
-        win = kw["win_id_ds"].long()
-        row_off = torch.arange(nb, device=dev)[:, None] * nw
-        win_idx = torch.where((win >= 0)[None, :], win[None, :] + row_off, nb * nw)
-        sums = torch.zeros(nb * nw + 1, dtype=torch.int64, device=dev)
-        sums.index_add_(0, win_idx.reshape(-1), covsum_ds.reshape(-1))
-        ws["winsums"].copy_(sums[:-1])
-        ws["total"].copy_(covsum_ds.sum().reshape(1))
+        sums = coverage_sums(covsum, S, kw["contig_id_ds"], ws["per_contig"].shape[0],
+                             kw["win_id_ds"], kw["n_win_pad"])
+        for k, v in zip(("per_contig", "winsums", "total"), sums):
+            ws[k].copy_(v)
     elif phase == "tables":
-        contig_mean = (ws["per_contig"].to(D) / kw["contig_denom"]).to(S)
-        ws["thr_c"].copy_(torch.floor(contig_mean / scalar(kw["dropout_mod"], S, dev)))
-        ws["active_c"].copy_(contig_mean > kw["dropout_min_mean"])
-        winsums = ws["winsums"].to(D).reshape(nb, kw["n_win_pad"])
-        src = kw["bucket_src"].long()
-        wsum = winsums[:, torch.clamp_min(src, 0)]
-        bucket_mean = torch.where((src >= 0)[None, :], wsum / scalar(BUCKET, D, dev), 0.0).to(S)
-        bucket_on = kw["bucket_on"]
-        bucket_on |= (bucket_mean >= kw["bucket_threshold"]) & kw["bucket_valid"][None, :]
+        thr_c, active_c = dropout_table(ws["per_contig"], kw["contig_denom"], S,
+                                        kw["dropout_mod"], kw["dropout_min_mean"])
+        ws["thr_c"].copy_(thr_c)
+        ws["active_c"].copy_(active_c)
+        switch_buckets(ws["winsums"], D, S, kw["bucket_src"], kw["bucket_valid"],
+                       kw["bucket_on"], kw["bucket_threshold"])
         aux = kw["aux"]
-        aux[0] = bucket_on.any()
+        aux[0] = kw["bucket_on"].any()
         read_starts = kw["read_starts"]
         rs_read = kw.get("rs_read")
         w = kw["rs_w"] if rs_read is None else _gate(rs_read, kw["bits"], True).float()
@@ -918,7 +1011,7 @@ def shard_rows_plain(phase: str, ws: dict, **kw) -> None:
         ws["fhat_w"].copy_(fhat_w.reshape(-1))
         ws["scale"].copy_(torch.where(tot > 0, scalar(kw["on_target"], D, dev) / tot, 0.0)
                           .reshape(1))
-        aux[3] = ws["total"][0].to(D) / scalar(kw["n_real_sites"], D, dev)
+        aux[3] = round_to(decode_sums(ws["total"], D)[0] / scalar(kw["n_real_sites"], D, dev), S)
     elif phase == "low":
         thr_ds = ws["thr_c"][cid]
         low = (covsum.to(S).reshape(nb, Gd, DS) <= thr_ds[None, :, None]).any(dim=0)
@@ -1076,7 +1169,7 @@ def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, 
         write = do_update & gate & strat_valid[None, :]
         strat.copy_(torch.where(write[:, :, None], ws["benefit"] >= threshold, strat))
         aux[1] = do_update
-        aux[2] = threshold
+        aux[2] = round_to(threshold, aux.dtype)
         ws["threshold"].copy_(threshold)
     else:
         raise ValueError(f"unknown benefit phase {phase!r}")
@@ -1109,7 +1202,7 @@ def shard_benefit(phase: str, ws: dict, **kw) -> None:
         quirks=int(kw.get("reference_quirks", False)),
         win=(ctypes.c_int32 * 10)(*windows),
         weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
-        tc=float(kw["time_cost"]) // 100, aux64=int(kw["aux"].dtype == torch.float64), pad0=0,
+        tc=float(kw["time_cost"]) // 100, aux_kind=AUX_KIND[kw["aux"].dtype], pad0=0,
         **{k: kw[k].data_ptr() for k in (
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
             "strat_valid", "strat", "aux")},

@@ -70,7 +70,7 @@ class StratArgs(ctypes.Structure):
         ("win", ctypes.c_int32 * 10),
         ("weight", ctypes.c_double * 10),
         ("tc", ctypes.c_double),
-        ("aux64", ctypes.c_int32), ("pad0", ctypes.c_int32),
+        ("aux_kind", ctypes.c_int32), ("pad0", ctypes.c_int32),
         *[(n, _P) for n in (
             "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on",
             "bucket_idx", "strat_valid", "strat", "aux", "smu", "benefit",
@@ -125,10 +125,12 @@ def _score_args(tiny_type) -> list:
 
 
 #: suffixes of the engine options' entry points: "_s64" takes f64 scores
-#: (RunsConfig.dtype), "_d32" runs the f32 decision path
-#: (RunsConfig.benefit_dtype); the entry point without a suffix is the
+#: and "_h16" f16 scores (RunsConfig.dtype), "_d32" runs the f32 decision
+#: path (RunsConfig.benefit_dtype); the entry point without a suffix is the
 #: default (f32 scores, f64 decisions)
-ROW_VARIANTS = ("", "_s64", "_d32", "_s64_d32")
+ROW_VARIANTS = ("", "_s64", "_d32", "_s64_d32", "_h16", "_h16_d32")
+#: the score-type suffix of each score dtype
+SCORE_SUFFIX = {torch.float32: "", torch.float64: "_s64", torch.float16: "_h16"}
 BENEFIT_VARIANTS = ("", "_d32")
 
 KERNELS = {
@@ -140,6 +142,9 @@ KERNELS = {
     "site_scores": Kernel("site_scores", "bk_site_scores", _score_args(ctypes.c_float)),
     "site_scores_s64": Kernel("site_scores_s64", "bk_site_scores_s64",
                               _score_args(ctypes.c_double)),
+    # f16 tables and scores; tiny (the half's smallest normal) as an exact float
+    "site_scores_h16": Kernel("site_scores_h16", "bk_site_scores_h16",
+                              _score_args(ctypes.c_float)),
     **{f"row_stage{v}": Kernel(f"row_stage{v}", f"bk_row_stage{v}",
                                [ctypes.POINTER(RowArgs), _P]) for v in ROW_VARIANTS},
     **{f"benefit_strategy{v}": Kernel(f"benefit_strategy{v}", f"bk_benefit_strategy{v}",
@@ -171,12 +176,14 @@ KERNELS = {
 
 def row_variant(score_dtype: torch.dtype, decision_dtype: torch.dtype) -> str:
     """The ROW_VARIANTS suffix of H3's and H8's row entry points for these
-    dtypes; raises for any dtype but float32 and float64."""
-    for t in (score_dtype, decision_dtype):
-        if t not in (torch.float32, torch.float64):
-            raise ValueError(f"the row kernels take float32 or float64, got {t}")
-    return ("_s64" if score_dtype == torch.float64 else "") + \
-        ("_d32" if decision_dtype == torch.float32 else "")
+    dtypes; raises for a score dtype but float16, float32 and float64 or a
+    decision dtype but float32 and float64."""
+    if score_dtype not in SCORE_SUFFIX:
+        raise ValueError(f"the row kernels take float16, float32 or float64 scores, "
+                         f"got {score_dtype}")
+    if decision_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the row kernels take float32 or float64 decisions, got {decision_dtype}")
+    return SCORE_SUFFIX[score_dtype] + ("_d32" if decision_dtype == torch.float32 else "")
 
 
 def launches() -> dict[str, int]:

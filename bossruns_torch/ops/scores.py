@@ -12,6 +12,17 @@ freeze at ``freeze_cov``) and launches kernel H2 (csrc/scores.cu) for CUDA
 tensors. The JAX package's ``site_scores_t_scan`` block loop is not ported:
 it only capped [genotypes, G] temporaries, which a per-site kernel never
 creates. Counts are clipped at 990 like the reference (sequences.py:493).
+
+With f16 tables (``RunsConfig(dtype="float16")``) the plain version
+follows the JAX engine's f16 program as XLA compiles it on the CPU, which
+rounds to f16 after every op: each contraction (an f16 dot) is an f32 sum
+of exact products, rounded once, in the lane order of ``_contract_lanes``; each elementwise op and
+each exp/log is an f32 op rounded to f16; each reduction over genotypes or
+symbols (jnp.sum of f16) is an f32 sum in index order, rounded once
+(``_scores_h16``). Against the JAX f16 scores (JAX 0.9 on the CPU) it is
+bit for bit equal at every one of 4M sites measured (haploid and diploid,
+0-1200 counts per symbol; tests/test_torch_f16.py holds it); an f32 score
+rounded to f16 once differs at ~97% of them.
 """
 from __future__ import annotations
 
@@ -27,6 +38,12 @@ from .genome_ops import widen
 COUNT_CLIP = 990
 
 
+#: numpy's dtype of each table dtype: the f64 model tables are rounded to
+#: the table dtype once, by numpy, as the JAX package rounds them (torch
+#: rounds f64 to f16 through f32, which differs at ties of the f32 value)
+NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64}
+
+
 class ScoreTables(nn.Module):
     """The observation model's tables as tensors (buffers) on ``device``."""
 
@@ -39,7 +56,8 @@ class ScoreTables(nn.Module):
         phi = model.phi
         with np.errstate(divide="ignore", invalid="ignore"):
             k = np.where(phi > 0, phi * np.log(np.where(phi > 0, phi, 1.0)), 0.0).sum(0)
-        t = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
+        t = lambda a: torch.from_numpy(
+            np.asarray(a, np.float64).astype(NP_DTYPES[dtype])).to(device)
         self.register_buffer("phi", t(phi))
         self.register_buffer("log_phi", t(model.log_phi))
         self.register_buffer("log_prior", t(model.log_prior))
@@ -60,10 +78,67 @@ def _contract(w, x):
     return out
 
 
+def _contract_lanes(w, x):
+    """``_contract``'s sums in f32 in the order XLA's CPU dot takes for the
+    engine's batched [nb, B, N] operands (measured, module docstring): four
+    lane sums over k = l, l+4, l+8, ... below the last whole group of four,
+    added as (l0 + l1) + (l2 + l3), then the remaining k in order. Every
+    product of two f16 values is exact in f32, so only this order rounds."""
+    K = w.shape[0]
+    n4 = K // 4 * 4
+    term = lambda j: w[j][:, None] * x[..., j: j + 1, :]
+    lanes = [term(j) for j in range(min(4, n4))]
+    for j in range(4, n4):
+        lanes[j % 4] = lanes[j % 4] + term(j)
+    out = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3]) if n4 else term(0)
+    for j in range(n4 if n4 else 1, K):
+        out = out + term(j)
+    return out
+
+
+def _h(x):
+    """An f32 tensor rounded to f16 and held in f32: the rounding XLA's CPU
+    program makes after each f16 op (every f16 value is exact in f32)."""
+    return x.to(torch.float16).float()
+
+
+def _seq_sum(x):
+    """Sum over axis -2 in index order, in x's dtype."""
+    acc = x[..., 0, :]
+    for j in range(1, x.shape[-2]):
+        acc = acc + x[..., j, :]
+    return acc
+
+
+def _scores_h16(counts_t, ref_base, tables: ScoreTables):
+    """(score, entropy) f16 of ``site_scores_t`` with f16 tables, in the op
+    sequence of bossruns_tpu/ops/scores.py:102-150 as XLA's CPU backend
+    runs it (module docstring): f32 arithmetic rounded to f16 (``_h``)
+    where that program rounds."""
+    f = lambda t: t.float()
+    c = torch.clamp(widen(counts_t[..., : tables.len_b, :]), 0, COUNT_CLIP).float()
+    ll = _h(_contract_lanes(f(tables.log_phi), c))            # f16 dot
+    lp = _h(ll + f(tables.log_prior).T[:, ref_base.long()])   # + the exact prior selection
+    m = lp.max(dim=-2, keepdim=True).values
+    msafe = torch.where(torch.isfinite(m), m, 0.0)
+    se = _h(_seq_sum(_h(torch.exp(_h(lp - msafe)))))
+    lse = _h(_h(torch.log(se.abs())) + msafe[..., 0, :])[..., None, :]
+    log_post = _h(lp - lse)
+    post = _h(torch.exp(log_post))
+    entropy = -_h(_seq_sum(_h(post * log_post)))
+    q = _h(_contract_lanes(f(tables.phi).T, post))            # f16 dot
+    qlogq = torch.where(q > 0, _h(q * _h(torch.log(torch.where(q > 0, q, 1.0)))), 0.0)
+    t1 = _h(_seq_sum(_h(post * f(tables.k)[:, None])))
+    score = _h(t1 - _h(_seq_sum(qlogq)))
+    return score.half(), entropy.half()
+
+
 def site_scores_t(counts_t, ref_base, tables: ScoreTables):
     """(score, entropy) with the genome on the last axis: counts_t [..., B, N],
     ref_base [N] in 0..3 -> [..., N] each (plain PyTorch)."""
     dtype = tables.dtype
+    if dtype == torch.float16:
+        return _scores_h16(counts_t, ref_base, tables)
     c = torch.clamp(widen(counts_t[..., : tables.len_b, :]), 0, COUNT_CLIP).to(dtype)
     ll = _contract(tables.log_phi, c)                    # [..., G, N]
     prior_n = tables.log_prior.T[:, ref_base.long()]     # [G, N] exact selection
@@ -104,23 +179,24 @@ def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
     ``site_scores_plain`` (in the tables' dtype, summed in another order;
     the posterior is exp(lp - lse), a second exponential pass, as the plain
     version forms it). f32 tables launch ``site_scores``, f64 tables
-    ``site_scores_s64``. Any G and base alignment: the kernel takes
-    16-byte accesses where G % 4 == 0 and the bases are aligned, scalar
-    ones otherwise."""
+    ``site_scores_s64``, f16 tables ``site_scores_h16`` (f32 arithmetic
+    rounded to f16 where the plain version rounds). Any G and base
+    alignment: the kernel takes 16-byte accesses where G % 4 == 0 and the
+    bases are aligned, scalar ones otherwise."""
     if coverage.device.type == "cpu":
         return site_scores_plain(coverage, seq, site_valid, tables, freeze_cov, tiny)
     nb, _, G = coverage.shape
     dev = coverage.device
     dt = tables.packed.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"H2 takes float32 or float64 tables, got {dt}")
+    if dt not in K.SCORE_SUFFIX:
+        raise ValueError(f"H2 takes float16, float32 or float64 tables, got {dt}")
     K.check(coverage, "coverage", torch.uint16, (nb, 5, G))
     K.check(seq, "seq", torch.int8, (G,), dev)
     K.check(site_valid, "site_valid", torch.bool, (G,), dev)
     K.check(tables.packed, "tables", dt, None, dev)
     scores = torch.empty((nb, G), dtype=dt, device=dev)
     covsum = torch.empty((nb, G), dtype=torch.int32, device=dev)
-    K.KERNELS["site_scores" if dt == torch.float32 else "site_scores_s64"](
+    K.KERNELS["site_scores" + K.SCORE_SUFFIX[dt]](
         coverage.data_ptr(), seq.data_ptr(), site_valid.data_ptr(), tables.packed.data_ptr(),
         tables.len_b, tables.len_g, nb, G, freeze_cov, tiny,
         scores.data_ptr(), covsum.data_ptr(), K.stream_ptr(coverage),

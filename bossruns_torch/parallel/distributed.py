@@ -110,24 +110,28 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-def gather(x, group=None) -> list[np.ndarray]:
-    """Every rank's ``x`` (same shape and dtype on each), in rank order, as
-    NumPy on every rank; bool and uint16 tensors travel as uint8 and
-    int16, which every backend gathers."""
+def all_gather_bits(x, group=None) -> list:
+    """Every rank's tensor ``x`` (same shape and dtype on each), in rank
+    order, as tensors of x's dtype: uint16 and float16 travel as their
+    bytes (gloo gathers neither, nor int16), bool as uint8."""
     import torch
 
     dist = _dist()
     dtype = x.dtype
-    y = x.to(torch.uint8) if dtype == torch.bool else x
-    y = (y.view(torch.int16) if dtype == torch.uint16 else y).contiguous()
+    y = x.to(torch.uint8) if dtype == torch.bool else x.contiguous()
+    if dtype in (torch.uint16, torch.float16):
+        y = y.reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, y, group=group)
-    out = [t.cpu().numpy() for t in parts]
     if dtype == torch.bool:
-        return [a.astype(bool) for a in out]
-    if dtype == torch.uint16:
-        return [a.view(np.uint16) for a in out]
-    return out
+        return [t.bool() for t in parts]
+    return [t.view(dtype).reshape(x.shape) for t in parts]
+
+
+def gather(x, group=None) -> list[np.ndarray]:
+    """Every rank's ``x`` (same shape and dtype on each), in rank order, as
+    NumPy on every rank (``all_gather_bits``)."""
+    return [t.cpu().numpy() for t in all_gather_bits(x, group)]
 
 
 def fetch(x, dim: int | None = None, group=None) -> np.ndarray:

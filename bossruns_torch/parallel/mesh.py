@@ -216,13 +216,8 @@ class ProcessGroupComm(Comm):
         return distributed.gather(x)
 
     def gather_mesh(self, xs):
-        import torch.distributed as dist
-
         (x,) = xs
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.Sb * self.Sg)]
-        dist.all_gather(parts, x)  # rank = bi*Sg + gi: flat order
-        return torch.stack(parts)
+        return torch.stack(distributed.all_gather_bits(x))  # rank = bi*Sg + gi: flat order
 
 
 @dataclass

@@ -94,10 +94,24 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      option equal to the single engine, H8's variants timed on one
      shard; and, with phase 14's chromosome genome, the single engine's
      step p50 and peak memory with each dtype option and its strategy
-     against the default's.
+     against the default's;
+ 19. dtype="float16" (with f64 and with f32 decisions): at phase 3's shape
+     each engine for 4 counted steps beside the default, the steps in
+     turns (host-clock p50, device ms of one step), and each half entry
+     point against its plain version with times and bounds (H2 _h16 and
+     H3 _h16 / _h16_d32 bit for bit, H4 with half aux); the f16 engine
+     against the f16 plain path on the card over 4 steps (state exact,
+     scores in f16 ulps); the (2, 2) mesh at f16 equal to the single
+     engine, H8 _h16 timed on one shard; with phase 14's genome, the f16
+     single engine's step p50 and peak memory and H2 _h16 on its state.
+Phase 3 also holds RunsEngine.step_from_numpy (one uint32 wire upload)
+equal to step on the card and times its pack + upload beside the
+per-field upload that pack_batch(device=...) makes; phase 4's classic
+sim steps through step_from_numpy and its gated sim ships pack_gated's
+buffer, each counted.
 Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15, each run
-of 16 and 17, and each option's engine and mesh run of 18) runs with the
-launch counts set to 0 just before it and read just after. H2's bound is
+of 16 and 17, and each option's engine and mesh run of 18 and 19) runs
+with the launch counts set to 0 just before it and read just after. H2's bound is
 the larger of its byte bound and
 the arithmetic (FMAs and special functions) of the sites these inputs need
 contracted. Every kernel
@@ -784,6 +798,8 @@ def check_kernels(dev, card: str) -> dict:
         **device(lambda: gops.benefit_strategy(**ck)),
         **bound(nbytes(args) + nbytes(smu_k, ben_k, thr_k, args["strat"], args["aux"])))
 
+    res["_wire"] = check_wire(eng, state, batch, batch_np, params, card)
+
     # the whole device step (host clock around step + the aux pull)
     st_times = []
     for _ in range(10):
@@ -801,6 +817,61 @@ def check_kernels(dev, card: str) -> dict:
     log(f"device step p50 (4000 reads, 8.05 Mb, host clock incl. aux pull): "
         f"{res['_step_p50_ms']:.3f} ms [{card}]")
     return res
+
+
+def host_ms(fn, reps: int = 15, warm: int = 2) -> float:
+    """Median host-clock ms of fn() between two synchronizes."""
+    for _ in range(warm):
+        fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1000.0)
+    return statistics.median(out)
+
+
+def check_wire(eng, state, batch, batch_np, params, card: str) -> dict:
+    """Phase 3: RunsEngine.step_from_numpy (the batch packed into one uint32
+    buffer, uploaded in one copy, its fields viewed on the card) against
+    step on the uploaded ReadBatch, from copies of one state, bit for bit;
+    then the pack + upload time beside batch_from_numpy's per-field upload
+    (what pack_batch(device=...) ends with), host clock."""
+    from bossruns_torch.models.convert import batch_from_numpy
+
+    s1, s2 = deep_clone(state), deep_clone(state)
+    s1, a1 = eng.step(s1, batch, params)
+    s2, a2 = eng.step_from_numpy(s2, batch_np, params)
+    for k in s1._fields:
+        exact(f"step_from_numpy {k}", getattr(s2, k), getattr(s1, k))
+    exact("step_from_numpy aux", a2.vec, a1.vec)
+    exact("step_from_numpy threshold", a2.threshold, a1.threshold)
+    wire, spec = eng.pack_wire(batch_np)
+
+    def wire_up():
+        w, sp = eng.pack_wire(batch_np)
+        return eng.unpack_wire(eng.upload_wire(w), sp)
+
+    out = dict(wire_ms=host_ms(wire_up), fields_ms=host_ms(lambda: batch_from_numpy(batch_np,
+                                                                                  eng.device)),
+               wire_bytes=int(wire.nbytes))
+    log(f"step_from_numpy == step on the card (state, aux, threshold bit for bit); pack + one "
+        f"upload of the {out['wire_bytes']} B wire {out['wire_ms']:.3f} ms vs the per-field upload "
+        f"of pack_batch(device=...) {out['fields_ms']:.3f} ms (8 copies), host clock [{card}]")
+    return out
+
+
+def counting(obj, name: str, tally: dict) -> None:
+    """Count the calls of obj.name (an instance attribute over the method)."""
+    real = getattr(obj, name)
+
+    def counted(*a, **kw):
+        tally[name] = tally.get(name, 0) + 1
+        return real(*a, **kw)
+
+    setattr(obj, name, counted)
 
 
 def check_sim(sim, what: str) -> float:
@@ -839,6 +910,8 @@ def run_slice(dev, card: str, work: Path, paths: dict) -> dict:
         return sim
 
     gsim = make(True, "gated")
+    wire_calls = {}
+    counting(gsim.engine, "pack_gated", wire_calls)
     torch.cuda.synchronize()
     kernels.reset_launches()
     snaps = []
@@ -863,6 +936,7 @@ def run_slice(dev, card: str, work: Path, paths: dict) -> dict:
     gsim.cleanup()
 
     csim = make(False, "classic")
+    counting(csim.engine, "step_from_numpy", wire_calls)
     kernels.reset_launches()
     for i, s in enumerate(snaps):
         csim.process_batch()
@@ -878,6 +952,10 @@ def run_slice(dev, card: str, work: Path, paths: dict) -> dict:
         f"(coverage, strat, read_starts, pseudotime, decisions); launches {classic}")
     if min(classic[k] for k in UPDATE_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the classic sim never launched: {classic}")
+    if wire_calls.get("step_from_numpy") != N_BATCHES or wire_calls.get("pack_gated", 0) < N_BATCHES:
+        raise AssertionError(f"the sims did not take the wire on every batch: {wire_calls}")
+    log(f"wire: the classic sim stepped through step_from_numpy on all {N_BATCHES} batches, the "
+        f"gated sim packed {wire_calls['pack_gated']} gated wires (one upload each)")
     csim.cleanup()
 
     return dict(launches=launches, phase=phase, sim_s=sim_s, snaps=snaps)
@@ -1727,34 +1805,39 @@ def chrom_benefit(eng, st, b, card: str, launches: int) -> dict:
     return res
 
 
+def reads_batch(rng, layout, n_reads: int, mean_len: float = MEAN_LEN) -> dict:
+    """A ReadBatch as numpy: n_reads reads (5% errors) over the layout's
+    contigs in proportion to their lengths, spread over its barcodes."""
+    from bossruns_torch.io.coo_native import pad_split, split_runs
+
+    lens = layout.lengths
+    cid = rng.choice(len(lens), n_reads, p=lens / lens.sum())
+    rlen = np.clip(rng.normal(mean_len, 2000, n_reads), 400, 20000).astype(np.int64)
+    rlen = np.minimum(rlen, lens[cid] - 1)
+    rstart = (layout.offsets[cid] + rng.random(n_reads) * (lens[cid] - rlen)).astype(np.int64)
+    pos = np.concatenate([s0 + np.arange(n) for s0, n in zip(rstart, rlen)])
+    sym = layout.seq_int[pos].astype(np.int8)
+    flip = rng.random(pos.shape[0]) < 0.05
+    sym[flip] = rng.integers(0, 5, int(flip.sum()))
+    split = split_runs(layout, sym, np.full(pos.shape[0], 40, np.int8), rstart,
+                       rlen.astype(np.int32),
+                       rng.integers(0, layout.n_barcodes, n_reads).astype(np.int32))
+    return dict(pad_split(split), rs_row=rng.integers(0, layout.n_fhat, n_reads).astype(np.int32),
+                rs_strand=rng.integers(0, 2, n_reads).astype(np.int32),
+                rs_w=np.ones(n_reads, np.float32))
+
+
 def mesh_inputs(dev):
     """The 8.05 Mb genome with two barcodes (align_chunks 2: its 80 chunks
     put the bounds of two genome shards on H4's 4096-row tiles) and three
     4000-read batches on the card, their reads spread over both barcodes."""
-    from bossruns_torch.io.coo_native import pad_split, split_runs
     from bossruns_torch.models.convert import batch_from_numpy
     from bossruns_torch.models.layout import build_layout
 
     rng = np.random.default_rng(15)
     contigs = {n: rng.integers(0, 4, L).astype(np.uint8) for n, L in GENOME.items()}
     layout = build_layout(contigs, n_barcodes=2, align_chunks=2)
-    batches = []
-    lens = layout.lengths
-    for _ in range(3):
-        cid = rng.choice(len(lens), N_READS, p=lens / lens.sum())
-        rlen = np.clip(rng.normal(MEAN_LEN, 2000, N_READS), 400, 20000).astype(np.int64)
-        rstart = (layout.offsets[cid] + rng.random(N_READS) * (lens[cid] - rlen)).astype(np.int64)
-        pos = np.concatenate([s0 + np.arange(n) for s0, n in zip(rstart, rlen)])
-        sym = layout.seq_int[pos].astype(np.int8)
-        flip = rng.random(pos.shape[0]) < 0.05
-        sym[flip] = rng.integers(0, 5, int(flip.sum()))
-        split = split_runs(layout, sym, np.full(pos.shape[0], 40, np.int8), rstart,
-                           rlen.astype(np.int32), rng.integers(0, 2, N_READS).astype(np.int32))
-        batches.append(batch_from_numpy(dict(
-            pad_split(split), rs_row=rng.integers(0, layout.n_fhat, N_READS).astype(np.int32),
-            rs_strand=rng.integers(0, 2, N_READS).astype(np.int32),
-            rs_w=np.ones(N_READS, np.float32)), dev))
-    return layout, batches
+    return layout, [batch_from_numpy(reads_batch(rng, layout, N_READS), dev) for _ in range(3)]
 
 
 def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
@@ -2231,6 +2314,17 @@ def option_kernels(name: str, eng, state, batch, params, card: str) -> dict:
             f"{float(err.max()):.3g} (rtol 1e-12, atol 1e-12); "
             f"{fmt_score_bound(out['site_scores_s64'])}")
         del s_p, cs_p
+    if S == torch.float16:
+        s_p, cs_p = sc.site_scores_plain(**sargs)
+        exact("H2 f16 covsum", cs_k, cs_p)
+        exact("H2 f16 scores (the f32 ops rounded to half at the same points)", s_k, s_p)
+        out["site_scores_h16"] = dict(ms=time_ms(lambda: sc.site_scores(**sargs)),
+                                      plain_ms=time_ms(lambda: sc.site_scores_plain(**sargs)),
+                                      max_abs_err=0.0, **device(lambda: sc.site_scores(**sargs)),
+                                      **score_bound(sargs, s_k, cs_k))
+        log(f"H2 site_scores_h16 ({name}): covsum and f16 scores exact; "
+            f"{fmt_score_bound(out['site_scores_h16'])}")
+        del s_p, cs_p
     rows = gops.CovRows(batch.mr_bc, batch.mr_g, batch.mr_len, batch.ex_bcsym, batch.ex_g)
     changed = gops.coverage_update(**eng.coverage_args(
         state._replace(coverage=state.coverage.clone()), rows))
@@ -2297,9 +2391,11 @@ def option_kernels(name: str, eng, state, batch, params, card: str) -> dict:
         f"abs err {worst:.3g} (rtol {rtol:g} + atol {atol:.3g}), threshold {float(thr_k)!r} "
         f"and strat exact given the kernel's benefit; end to end vs plain {flips} strat cells "
         f"differ, threshold {float(thr_p)!r} (test (d)'s rule, within the windows' bar)")
-    if D == torch.float32:
+    aux_row = ("benefit_strategy_d32" if D == torch.float32
+               else "benefit_strategy_aux_h16" if S == torch.float16 else None)
+    if aux_row is not None:
         ck, cp = clone(bargs), clone(bargs)
-        out["benefit_strategy_d32"] = dict(
+        out[aux_row] = dict(
             ms=time_ms(lambda: gops.benefit_strategy(**ck)),
             plain_ms=time_ms(lambda: gops.benefit_strategy_plain(**cp)), max_abs_err=worst,
             **device(lambda: gops.benefit_strategy(**ck)),
@@ -2421,18 +2517,20 @@ def check_options(dev, card: str) -> dict:
     return dict(rows=rows, launches=launches, p50=p50, device_ms=dev_ms)
 
 
-def check_option_meshes(dev, card: str) -> dict:
-    """Phase 18: the (2, 2) mesh with two barcodes on the 8.05 Mb genome
-    under each option, against the single engine bit for bit over 3 steps
-    (H8's launches counted in the sharded run), then one more step with H8
-    on shard (1, 1) against its plain version, timed."""
+def check_option_meshes(dev, card: str, options: dict = OPTIONS,
+                        rows_map: dict = OPTION_ROWS) -> dict:
+    """Phases 18 and 19: the (2, 2) mesh with two barcodes on the 8.05 Mb
+    genome under each option, against the single engine bit for bit over 3
+    steps (H8's launches counted in the sharded run), then one more step
+    with H8 on shard (1, 1) against its plain version, timed (the rows of
+    ``rows_map`` that name the option)."""
     from bossruns_torch.models.runs import RunsConfig, RunsEngine
     from bossruns_torch.ops import kernels
     from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
 
     layout, batches = mesh_inputs(dev)
     rows = {}
-    for name, opt in OPTIONS.items():
+    for name, opt in options.items():
         cfg = RunsConfig(**opt)
         s_res = _run_engine(lambda: RunsEngine(layout, config=cfg, device=dev), batches, dev)
         kernels.reset_launches()
@@ -2459,8 +2557,9 @@ def check_option_meshes(dev, card: str) -> dict:
         for k, entry, which in (("shard_rows", "shard_rows" + rv, "rows"),
                                 ("shard_benefit", "shard_benefit" + bv, "benefit")):
             row = ("shard_rows_alpha" if name == "fhat_alpha=1.7" and which == "rows"
-                   else entry)
-            if row not in OPTION_ROWS or OPTION_ROWS[row][1] != name:
+                   else "shard_benefit_aux_h16" if entry == "shard_benefit"
+                   and eng.dtype == torch.float16 else entry)
+            if row not in rows_map or rows_map[row][1] != name:
                 continue
             rows[row] = dict(ms=probe.ms[k], plain_ms=probe.plain_ms[k], max_abs_err=probe.err[k],
                              device_ms=probe.device_ms[k],
@@ -2475,14 +2574,23 @@ def check_option_meshes(dev, card: str) -> dict:
     return rows
 
 
-def run_options_chromosome(dev, card: str, genome: dict) -> dict:
-    """Phase 18 at human-chr1 scale (phase 14's single engine, its layout
-    and batches): the step p50 and peak memory of the default, of
-    dtype="float64" and of benefit_dtype="float32", and each option's
-    strategy agreement with the default's after the 4 steps."""
+#: phase 18's engines at chromosome scale
+CHR_OPTIONS = (("default", {}), ("dtype=float64", dict(dtype="float64")),
+               ("benefit_dtype=float32", dict(benefit_dtype="float32")))
+
+
+def run_options_chromosome(dev, card: str, genome: dict, options=CHR_OPTIONS) -> dict:
+    """Phases 18 and 19 at human-chr1 scale (phase 14's single engine, its
+    layout and batches): the step p50 and peak memory of the default and
+    of each option's engine, and each option's strategy agreement with the
+    default's after the 4 steps; with f16 scores, H2 _h16 on the state the
+    run leaves (device time, launches, bound; its plain version's f32
+    temporaries would not fit the card at this size)."""
     from bossruns_torch.models.convert import batch_from_numpy
     from bossruns_torch.models.layout import build_layout
     from bossruns_torch.models.runs import RunsConfig, RunsEngine
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.ops import scores as sc
     from bossruns_torch.ops.model import make_model
 
     layout = build_layout(genome, n_barcodes=1, align_chunks=4)
@@ -2492,10 +2600,11 @@ def run_options_chromosome(dev, card: str, genome: dict) -> dict:
                chrom_batches(rng, layout, N_CHR_STEPS, (Gl - 3_000_000, Gl + 3_000_000), 0.75, 1)]
     model = make_model(ploidy=2)
     out, strat = {}, {}
-    for name, opt in (("default", {}), ("dtype=float64", dict(dtype="float64")),
-                      ("benefit_dtype=float32", dict(benefit_dtype="float32"))):
+    for name, opt in options:
+        kernels.reset_launches()
         r = _run_engine(lambda: RunsEngine(layout, model, RunsConfig(**opt), device=dev),
                         batches, dev)
+        launches = kernels.launches()
         st = r["state"]
         strat[name] = st.strat[:, r["engine"].strat_valid, :].clone()
         out[name] = dict(p50=statistics.median(r["times"]), peak=r["peak"],
@@ -2504,15 +2613,192 @@ def run_options_chromosome(dev, card: str, genome: dict) -> dict:
             f"{', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux pull), peak "
             f"memory {r['peak'] / 2**30:.2f} GiB above resident; updated="
             f"{out[name]['updated']} [{card}]")
+        if r["engine"].dtype == torch.float16:
+            args = r["engine"].score_args(st)
+            h2 = score_bound(args, *sc.site_scores(**args))
+            h2.update(device_ms=queued_ms(lambda: sc.site_scores(**args)),
+                      launches=launches["site_scores_h16"])
+            out[name]["h2"] = h2
+            log(f"chromosome single ({name}), H2 site_scores_h16: {h2['launches']} launches, "
+                f"device {h2['device_ms']:.4f} ms, {fmt_score_bound(h2)} [{card}]")
+            del args
         del r, st
         torch.cuda.empty_cache()
     n = strat["default"].numel()
-    for name in ("dtype=float64", "benefit_dtype=float32"):
+    for name, _ in options[1:]:
         d = int((strat[name] != strat["default"]).sum())
         out[name]["differ"] = d
         log(f"chromosome single: {name} strategy vs the default's after {N_CHR_STEPS} steps: "
             f"{d} of {n} valid cells differ ({d / n:.3g}) [{card}]")
     return out
+
+
+# ------------------------------------------------------ phase 19: float16 --
+
+#: RunsConfig options of phase 19, beside the default
+F16_OPTIONS = {
+    "dtype=float16": dict(dtype="float16"),
+    "dtype=float16, benefit_dtype=float32": dict(dtype="float16", benefit_dtype="float32"),
+}
+#: phase 19's rows of the kernel table: name -> (entry point, option whose
+#: run counts its launches, source, TPU kernel); the _aux_h16 rows are the
+#: default entry point of H4 and H8's benefit writing a half aux
+F16_ROWS = {
+    "site_scores_h16": ("site_scores_h16", "dtype=float16", "csrc/scores.cu",
+                        "bossruns_tpu/ops/scores.py:102"),
+    "row_stage_h16": ("row_stage_h16", "dtype=float16", "csrc/rows.cu",
+                      "bossruns_tpu/models/runs.py:592"),
+    "row_stage_h16_d32": ("row_stage_h16_d32", "dtype=float16, benefit_dtype=float32",
+                          "csrc/rows.cu", "bossruns_tpu/models/runs.py:592"),
+    "benefit_strategy_aux_h16": ("benefit_strategy", "dtype=float16", "csrc/strategy.cu",
+                                 "bossruns_tpu/ops/genome_ops.py:88"),
+    "shard_rows_h16": ("shard_rows_h16", "dtype=float16", "csrc/rows.cu",
+                       "bossruns_tpu/parallel/mesh.py:209"),
+    "shard_rows_h16_d32": ("shard_rows_h16_d32", "dtype=float16, benefit_dtype=float32",
+                           "csrc/rows.cu", "bossruns_tpu/parallel/mesh.py:209"),
+    "shard_benefit_aux_h16": ("shard_benefit", "dtype=float16", "csrc/strategy.cu",
+                              "bossruns_tpu/parallel/mesh.py:209"),
+}
+#: phase 19's engines at chromosome scale
+F16_CHR = (("default", {}), ("dtype=float16", dict(dtype="float16")))
+
+
+def plain_step(eng, state, batch, params):
+    """RunsEngine._step through the plain versions (on the card here):
+    updates ``state`` in place; returns (scores, aux, threshold)."""
+    from bossruns_torch.ops import genome_ops as gops
+    from bossruns_torch.ops import scores as sc
+
+    full = gops.CovRows(batch.mr_bc, batch.mr_g, batch.mr_len, batch.ex_bcsym, batch.ex_g)
+    changed = gops.coverage_update_plain(**eng.coverage_args(state, full))
+    scores, covsum = sc.site_scores_plain(**eng.score_args(state))
+    aux = torch.zeros(4, dtype=eng.dtype, device=eng.device)
+    ds, fe = gops.row_stage_plain(**eng.row_args(state, scores, covsum, changed, aux, params,
+                                                 batch.rs_row, batch.rs_strand, rs_w=batch.rs_w))
+    _, _, thr = gops.benefit_strategy_plain(**eng.benefit_args(state, ds, fe, aux, params))
+    return scores, aux, thr
+
+
+def check_f16_overflow(dev, card: str) -> None:
+    """Phase 19: the f16 engine against the f16 plain path on the card over
+    2 steps where coverage sums pass 2048 (rounded to f16), 65,519 (inf)
+    and the contig means go inf and NaN: a 40 kb contig (whose f16 site
+    count is finite) beside a 130 kb one, with covsums of 2049, 4097 and
+    70,000 written into the state; everything bit for bit, aux's inf
+    mean included."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.models.runs import RunsConfig, RunsEngine
+
+    rng = np.random.default_rng(19)
+    layout = build_layout({c: rng.integers(0, 4, n).astype(np.uint8)
+                           for c, n in (("s", 40_000), ("a", 130_000))}, min_len=30_000)
+    cov = np.zeros((1, 5, layout.G_pad), np.uint16)
+    o_s, o_a = (int(layout.offsets[layout.names.index(c)]) for c in ("s", "a"))
+    cov[0, 0, o_s: o_s + 20_000] = 9
+    cov[0, 0, o_s + 100: o_s + 300] = 2049
+    cov[0, 1, o_s + 300: o_s + 500] = 4097
+    cov[0, :2, o_s + 700] = 35_000
+    cov[0, 2, o_a + 1000: o_a + 21_000] = 2051
+    cfg = RunsConfig(dtype="float16", debug_aux=True)
+    ek, ep = RunsEngine(layout, config=cfg, device=dev), RunsEngine(layout, config=cfg, device=dev)
+    sk, sp = ek.init_state(), ep.init_state()
+    for st in (sk, sp):
+        st.coverage.copy_(torch.from_numpy(cov.view(np.int16)).view(torch.uint16))
+    params = ek.make_params(CCL, TIME_COST)
+    for i in range(2):
+        batch = batch_from_numpy(reads_batch(rng, layout, 300), dev)
+        sk, ak = ek.step(sk, batch, params)
+        scores_p, aux_p, thr_p = plain_step(ep, sp, batch, params)
+        for k in sk._fields:
+            exact(f"f16 overflow, step {i}: {k}", getattr(sk, k), getattr(sp, k))
+        exact(f"f16 overflow, step {i}: aux", ak.vec, aux_p)
+        exact(f"f16 overflow, step {i}: threshold", ak.threshold, thr_p)
+        exact(f"f16 overflow, step {i}: scores", ak.scores, scores_p)
+    if not bool(torch.isinf(ak.vec[3])):
+        raise AssertionError(f"f16 overflow: the mean coverage {float(ak.vec[3])} is not inf")
+    log(f"f16 engine == the f16 plain path on coverage sums of 2049, 4097 and 70,000 over 2 "
+        f"steps (state, aux with its inf mean, threshold {float(ak.threshold)!r}, scores bit "
+        f"for bit; contig s dropped out: {bool(sk.zeroed[0, o_s: o_s + 20_000].all())}) [{card}]")
+
+
+def check_f16(dev, card: str) -> dict:
+    """Phase 19 at phase 3's 8.05 Mb shape: each f16 engine (the default
+    beside them) for 4 counted steps and its half entry points against
+    their plain versions (option_kernels), the steps in turns, the f16
+    engine against the f16 plain path on the card over 4 steps, and the
+    (2, 2) mesh at f16."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.runs import RunsConfig, RunsEngine
+    from bossruns_torch.ops import kernels
+
+    layout, batch_np, _, _ = build_inputs(np.random.default_rng(11))
+    batch = batch_from_numpy(batch_np, dev)
+    rows, launches, engines = {}, {}, {}
+    for name, opt in (("default", {}), *F16_OPTIONS.items()):
+        eng = RunsEngine(layout, config=RunsConfig(**opt), device=dev)
+        params = eng.make_params(CCL, TIME_COST)
+        state = eng.init_state()
+        path = ("coverage_update", "site_scores" + kernels.SCORE_SUFFIX[eng.dtype],
+                "row_stage" + kernels.row_variant(eng.dtype, eng.benefit_dtype),
+                "benefit_strategy" + ("_d32" if eng.benefit_dtype == torch.float32 else ""))
+
+        def steps():
+            nonlocal state
+            aux = None
+            for _ in range(4):
+                state, aux = eng.step(state, batch, params)
+            return eng.pull_aux(aux)
+
+        ah, launches[name] = count_path(f"engine ({name}), 4 steps", steps, path)
+        if not (ah.any_on and ah.updated):
+            raise AssertionError(f"engine ({name}): the strategy did not update ({ah})")
+        if name != "default":
+            if state.read_starts.dtype != eng.dtype:
+                raise AssertionError(f"engine ({name}): read_starts {state.read_starts.dtype}")
+            for k, r in option_kernels(name, eng, state, batch, params, card).items():
+                rows.setdefault(k, r)
+        engines[name] = (eng, state, params)
+    times = {k: [] for k in engines}
+    order = list(engines)
+    for r in range(6):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            eng, state, params = engines[name]
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.pull_aux(eng.step(state, batch, params)[1])
+                times[name].append((time.perf_counter() - t0) * 1000.0)
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    dev_ms = {k: queued_ms(lambda: e.step(st, batch, pr)) for k, (e, st, pr) in engines.items()}
+    del engines
+    torch.cuda.empty_cache()
+    log("step by dtype (4000 reads, 8.05 Mb; host-clock p50 incl. aux pull over 30 steps "
+        "taken in turns / device ms of one step): "
+        + ", ".join(f"{k} {p50[k]:.3f} / {dev_ms[k]:.4f} ms" for k in p50) + f" [{card}]")
+
+    # the f16 engine against the f16 plain path on the card, step by step
+    cfg = RunsConfig(dtype="float16", debug_aux=True)
+    ek, ep = RunsEngine(layout, config=cfg, device=dev), RunsEngine(layout, config=cfg, device=dev)
+    sk, sp = ek.init_state(), ep.init_state()
+    params = ek.make_params(CCL, TIME_COST)
+    for i in range(4):
+        sk, ak = ek.step(sk, batch, params)
+        scores_p, aux_p, thr_p = plain_step(ep, sp, batch, params)
+        for k in sk._fields:
+            exact(f"f16 engine vs plain path, step {i}: {k}", getattr(sk, k), getattr(sp, k))
+        exact(f"f16 engine vs plain path, step {i}: aux", ak.vec, aux_p)
+        exact(f"f16 engine vs plain path, step {i}: threshold", ak.threshold, thr_p)
+        # the kernel rounds to half where the plain version does: bar 0 ulps
+        exact(f"f16 engine vs plain path, step {i}: scores", ak.scores, scores_p)
+    log(f"f16 engine == the f16 plain path on the card over 4 steps (coverage, zeroed, "
+        f"bucket_on, read_starts, strat, aux, threshold and f16 scores bit for bit; threshold "
+        f"{float(ak.threshold)!r}, read_starts max {float(sk.read_starts.max())}) [{card}]")
+    del ek, ep, sk, sp
+    torch.cuda.empty_cache()
+    check_f16_overflow(dev, card)
+    rows.update(check_option_meshes(dev, card, F16_OPTIONS, F16_ROWS))
+    return dict(rows=rows, launches=launches, p50=p50, device_ms=dev_ms)
 
 
 def sm_clock_mhz() -> float:
@@ -2523,7 +2809,7 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-ALL_PHASES = range(3, 19)
+ALL_PHASES = range(3, 20)
 
 
 def parse_phases(argv: list[str]) -> set[int]:
@@ -2532,11 +2818,11 @@ def parse_phases(argv: list[str]) -> set[int]:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-18)")
+    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-19)")
     a = ap.parse_args(argv)
     phases = {int(x) for x in a.phases.split(",") if x} or set(ALL_PHASES)
     if not phases <= set(ALL_PHASES):
-        ap.error(f"phases are 3-18, got {sorted(phases)}")
+        ap.error(f"phases are 3-19, got {sorted(phases)}")
     if 15 in phases and 4 not in phases:
         ap.error("phase 15 compares against the sims of phase 4")
     if 12 in phases and 11 not in phases:
@@ -2601,7 +2887,7 @@ def main(argv: list[str]) -> int:
             aeons = run_aeons_sim(dev, card, work)
         if 12 in phases:
             run_aeons_live(dev, card, work, aeons["paths"])
-        if phases & {13, 14, 18}:
+        if phases & {13, 14, 18, 19}:
             t0 = time.perf_counter()
             genome = chrom_genome(np.random.default_rng(12))
             log(f"chromosome genome: {CHR1_SITES} sites made in {time.perf_counter() - t0:.1f} s")
@@ -2611,6 +2897,8 @@ def main(argv: list[str]) -> int:
                 chrom = run_chromosome(dev, card, genome)
             if 18 in phases:  # phase 18's chromosome part, while the genome is at hand
                 run_options_chromosome(dev, card, genome)
+            if 19 in phases:  # and phase 19's
+                run_options_chromosome(dev, card, genome, F16_CHR)
             del genome
         if 15 in phases:
             run_mesh_paths(dev, card, work, paths, sl)
@@ -2622,6 +2910,8 @@ def main(argv: list[str]) -> int:
             run_readfish(dev, card, work, paths, seqs)
         if 18 in phases:
             opt = check_options(dev, card)
+        if 19 in phases:
+            f16 = check_f16(dev, card)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     if loaded:
         raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")
@@ -2660,11 +2950,12 @@ def main(argv: list[str]) -> int:
     ]}
     # phase 18's variants: launches from their option's run (the 8.05 Mb
     # engine for H2-H4, the (2, 2) mesh for H8)
-    for k, (entry, name, src, rep) in OPTION_ROWS.items():
-        r = opt["rows"][k]
+    for k, (entry, name, src, rep) in (*OPTION_ROWS.items(), *F16_ROWS.items()):
+        o = opt if k in OPTION_ROWS else f16
+        r = o["rows"][k]
         table["kernels"].append(
             {"name": k, "route": "cuda", "source": f"bossruns_torch/{src}", "replaces": rep,
-             "launches": r.get("launches", opt["launches"][name].get(entry)),
+             "launches": r.get("launches", o["launches"][name].get(entry)),
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": None, "split": r["split"]})
@@ -2672,7 +2963,7 @@ def main(argv: list[str]) -> int:
     for row in table["kernels"]:
         if not row["launches"]:
             raise AssertionError(f"{row['name']} was never launched on its path")
-    for k in (*meta, *OPTION_ROWS):
+    for k in (*meta, *OPTION_ROWS, *F16_ROWS):
         log(f"bound {k}: {res[k]['bytes']} bytes -> {res[k]['bound_ms']:.4f} ms "
             f"({res[k]['bound_by']}); kernel {res[k]['ms']:.4f} ms, device "
             f"{res[k]['device_ms']:.4f} ms")

@@ -854,6 +854,82 @@ def test_score_kernel_all_models_mixed_warps(dev, ploidy, deletion_error):
         assert vals.numel() > 0 and bool((vals == vals[0]).all()), r
 
 
+@pytest.mark.parametrize("ploidy,deletion_error", [(1, 0.03), (1, 0.0), (2, 0.03), (2, 0.0)])
+def test_score_kernel_f16_all_models(dev, ploidy, deletion_error):
+    """H2's half instantiation at all four model shapes against the plain
+    f16 version on the card, on mixed warps plus clipped counts: bit for
+    bit, and the empty sites' per-block constants equal the contraction."""
+    from bossruns_torch.ops.model import make_model
+
+    rng = np.random.default_rng(ploidy * 20 + int(deletion_error * 100))
+    nb, G = 2, 40_000
+    tables = ts.ScoreTables(make_model(ploidy=ploidy, deletion_error=deletion_error),
+                            torch.float16, device=dev)
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8)).to(dev)
+    valid = torch.from_numpy(rng.random(G) < 0.9).to(dev)
+    cov = _mixed_coverage(rng, nb, G)
+    cov[:, :, 1000:1400] = rng.integers(985, 1200, (nb, 5, 400))  # the 990 clip, unfrozen below
+    cov[:, :, 1000:1400] *= (rng.random(400) < 0.01)                # most of them frozen
+    cov = torch.from_numpy(cov).to(dev)
+    args = dict(coverage=cov, seq=seq, site_valid=valid, tables=tables, freeze_cov=30,
+                tiny=float(np.finfo(np.float16).tiny))
+    sk, ck = ts.site_scores(**args)
+    sp, cp = ts.site_scores_plain(**args)
+    assert sk.dtype == torch.float16 and torch.equal(ck, cp)
+    assert torch.equal(sk.view(torch.int16), sp.view(torch.int16))
+
+
+def test_f16_overflow_on_card_matches_cpu(dev):
+    """The f16 engine on the card against the CPU where coverage sums pass
+    2048 and 65,519 (inf in f16) and a 40 kb contig's f16 mean goes inf:
+    state, aux (its inf mean included), threshold and scores equal."""
+    rng = np.random.default_rng(29)
+    lay = build_layout({c: rng.integers(0, 4, n).astype(np.uint8)
+                        for c, n in (("s", 40_000), ("a", 130_000))}, min_len=30_000)
+    cov = np.zeros((1, 5, lay.G_pad), np.uint16)
+    o_s, o_a = int(lay.offsets[0]), int(lay.offsets[1])
+    cov[0, 0, o_s: o_s + 20_000] = 9
+    cov[0, 0, o_s + 100: o_s + 300] = 2049
+    cov[0, 1, o_s + 300: o_s + 500] = 4097
+    cov[0, :2, o_s + 700] = 35_000
+    cov[0, 2, o_a + 1000: o_a + 21_000] = 2051
+    cfg = truns.RunsConfig(dtype="float16", debug_aux=True)
+    eg, ec = truns.RunsEngine(lay, config=cfg, device=dev), truns.RunsEngine(lay, config=cfg,
+                                                                             device="cpu")
+    sg, sc = eg.init_state(), ec.init_state()
+    for st in (sg, sc):
+        st.coverage.copy_(torch.from_numpy(cov.view(np.int16)).view(torch.uint16))
+    params = eg.make_params(CCL, 5300.0)
+    for step in range(2):
+        b = _random_batch(rng, lay, n_obs=20_000)
+        sg, ag = eg.step(sg, batch_from_numpy(b, dev), params)
+        sc, ac = ec.step(sc, batch_from_numpy(b, "cpu"), params)
+        for k, v in state_to_numpy(sc).items():
+            np.testing.assert_array_equal(state_to_numpy(sg)[k], v, err_msg=f"{k} step {step}")
+        assert torch.equal(ag.vec.cpu(), ac.vec) and float(ag.threshold) == float(ac.threshold)
+        _score_close(ag.scores, ac.scores)
+    assert bool(torch.isinf(ac.vec[3])) and bool(sc.zeroed[0, o_s: o_s + 20_000].all())
+
+
+def test_wire_step_on_card_equals_step(dev):
+    """step_from_numpy (one uint32 upload, fields viewed on the card) ==
+    step on the same batch, and the gated wire == the gated dict."""
+    rng = np.random.default_rng(23)
+    lay = build_layout({"a": rng.integers(0, 4, 150_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 120_000).astype(np.uint8)}, n_barcodes=2)
+    e1 = truns.RunsEngine(lay, config=truns.RunsConfig(debug_aux=True), device=dev)
+    e2 = truns.RunsEngine(lay, config=truns.RunsConfig(debug_aux=True), device=dev)
+    s1, s2 = e1.init_state(), e2.init_state()
+    params = e1.make_params(CCL, 5300.0)
+    for step in range(3):
+        b = _random_batch(rng, lay, n_obs=120_000, nb=2)
+        s1, a1 = e1.step(s1, batch_from_numpy(b, dev), params)
+        s2, a2 = e2.step_from_numpy(s2, b, params)
+        for k, v in state_to_numpy(s1).items():
+            np.testing.assert_array_equal(state_to_numpy(s2)[k], v, err_msg=f"{k} step {step}")
+        assert torch.equal(a1.vec, a2.vec) and torch.equal(a1.scores, a2.scores)
+
+
 @pytest.mark.parametrize("G,offset", [(40_001, 0), (40_000, 1), (4095, 0)])
 def test_score_kernel_ragged_and_unaligned(dev, G, offset):
     """H2's scalar instantiation: G not a multiple of 4 (nor of a block's
@@ -872,14 +948,17 @@ def test_score_kernel_ragged_and_unaligned(dev, G, offset):
 
 # ----------------------------------------------------------- engine options --
 # fhat_alpha != 1 (H3's general point mass), dtype="float64" (the _s64 entry
-# points of H2, H3 and H8's rows) and benefit_dtype="float32" (the _d32
-# entry points of H3, H4 and H8), each against its plain version
+# points of H2, H3 and H8's rows), benefit_dtype="float32" (the _d32
+# entry points of H3, H4 and H8) and dtype="float16" (the _h16 entry points
+# of H2, H3 and H8's rows, and H4's half aux), each against its plain version
 
 OPTIONS = {
     "alpha": dict(fhat_alpha=1.7),
     "s64": dict(dtype="float64"),
     "d32": dict(benefit_dtype="float32"),
     "s64_d32": dict(dtype="float64", benefit_dtype="float32"),
+    "h16": dict(dtype="float16"),
+    "h16_d32": dict(dtype="float16", benefit_dtype="float32"),
 }
 
 
@@ -899,9 +978,22 @@ def option_world(request, dev):
     return request.param, eng, state, batch, params
 
 
+def _f16_ulps(a, b):
+    """|a - b| of two f16 tensors in f16 ulps (sign-magnitude bit order)."""
+    key = lambda t: torch.where(t.view(torch.int16) < 0,  # noqa: E731
+                                -(t.view(torch.int16).long() & 0x7FFF), t.view(torch.int16).long())
+    return (key(a) - key(b)).abs()
+
+
 def _score_close(a, b):
     if a.dtype == torch.float64:
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    elif a.dtype == torch.float16:
+        # the same f32 ops rounded to half at the same points: equal but
+        # where CUDA's expf/logf and another device's round across a half
+        # (card vs CPU); none measured on an H100 (16.4M sites)
+        u = _f16_ulps(a.cpu(), b.cpu())
+        assert float((u == 0).double().mean()) >= 0.9999 and int(u.max()) <= 1, int(u.max())
     else:
         torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5)
 

@@ -167,6 +167,39 @@ def test_two_process_debug_scores_match_in_process(tmp_path):
         np.testing.assert_array_equal(np.load(tmp_path / f"scores{r}.npy"), want, err_msg=str(r))
 
 
+def test_two_process_f16_matches_in_process(tmp_path):
+    """dtype="float16" across two gloo ranks: the gathered state (uint16
+    coverage and f16 read starts, which gloo gathers only as bytes: F14),
+    aux and gathered f16 scores of the process-group mesh equal the
+    in-process mesh's on both ranks."""
+    code = (
+        "import numpy as np\n"
+        "from bossruns_torch.models.runs import RunsConfig\n"
+        "from bossruns_torch.parallel import distributed\n"
+        "from bossruns_torch.parallel.mesh import demo_sharded_step, process_group_mesh\n"
+        "distributed.init_from_env('cpu')\n"
+        f"mesh = process_group_mesh(1, {NPROC}, 'cpu')\n"
+        "cfg = RunsConfig(debug_aux=True, dtype='float16')\n"
+        "eng, state, aux = demo_sharded_step(mesh=mesh, config=cfg)\n"
+        "st = eng.state_numpy(state)\n"
+        "r = distributed.process_index()\n"
+        "np.savez(f'f16_{r}.npz', scores=aux.scores.numpy(), vec=aux.vec.numpy(), **st)\n"
+        "distributed.close()\n"
+    )
+    _run_ranks([sys.executable, "-c", code], cwd=tmp_path)
+    from bossruns_torch.models.runs import RunsConfig
+
+    eng, state, aux = demo_sharded_step(mesh=make_mesh(["cpu"] * NPROC),
+                                        config=RunsConfig(debug_aux=True, dtype="float16"))
+    want = dict(eng.state_numpy(state), scores=aux.scores.numpy(), vec=aux.vec.numpy())
+    assert want["read_starts"].dtype == np.float16 and want["scores"].dtype == np.float16
+    assert (want["scores"] > 0).any() and want["strat"].any()
+    for r in range(NPROC):
+        got = np.load(tmp_path / f"f16_{r}.npz")
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{k} rank {r}")
+
+
 def test_two_process_cli_sim_matches_in_process(tmp_path):
     from bossruns_torch.utils.datagen import write_corpus
 

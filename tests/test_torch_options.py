@@ -19,7 +19,9 @@ the port's f64 oracle (bossruns_torch.oracle).
     and every flipped cell's benefit lies between them, widened by the bar
     within which two f32 summation orders' benefits agree (the count is
     printed);
-(f) ``dtype`` "float16" or "bfloat16" raises ValueError.
+(f) ``dtype`` "bfloat16" or "int32", and ``benefit_dtype`` "float16",
+    "bfloat16" or "int32", raise ValueError; ``dtype="float16"`` runs
+    (test_torch_f16.py holds it against the JAX f16 engine).
 (e), the sharded engine under each option, is test_torch_options_mesh.py.
 """
 import jax.numpy as jnp
@@ -257,9 +259,13 @@ def test_f32_decisions_agree_with_f64_decisions():
 @pytest.mark.parametrize("name", ["float16", "bfloat16", "int32"])
 def test_unsupported_dtypes_raise(field, name):
     lay = _layout(1)
-    with pytest.raises(ValueError, match="float32 and float64" if name != "float16"
-                       else "the JAX engine runs it"):
-        truns.RunsEngine(lay, config=truns.RunsConfig(**{field: name}), device="cpu")
+    cfg = truns.RunsConfig(**{field: name})
+    if (field, name) == ("dtype", "float16"):  # the one of these the port now runs
+        assert truns.RunsEngine(lay, config=cfg, device="cpu").tables.packed.dtype == torch.float16
+        return
+    with pytest.raises(ValueError, match="the port runs float32, float64" if field != "dtype"
+                       else "the port runs float16, float32, float64"):
+        truns.RunsEngine(lay, config=cfg, device="cpu")
 
 
 def test_option_dtypes_reach_state_and_aux():

@@ -15,5 +15,7 @@ or aligning live), ``models.experiment.BossRuns`` (the live experiment),
 ``live.mapper.TorchMapperPlugin`` (the readfish-side mapper),
 ``parallel.mesh.ShardedRunsEngine`` (the genome- and barcode-sharded
 update step over a mesh of devices or processes) and ``python -m
-bossruns_torch --toml ...``. This package never imports JAX.
+bossruns_torch --toml ...``; ``python -m bossruns_torch.bench`` is the
+scoreboard and ``tools`` holds the measuring scripts. This package never
+imports JAX.
 """

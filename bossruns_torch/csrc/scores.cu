@@ -136,11 +136,12 @@ __device__ __forceinline__ float h16(float x) { return __half2float(__float2half
 
 // sum_k w[k * stride] * x[k] in f32, in the order XLA's CPU dot takes for
 // the engine's batched operands (ops/scores._contract_lanes): four lane
-// sums over the whole groups of four, (l0 + l1) + (l2 + l3), then the rest
+// sums over the whole groups of four, (l0 + l1) + (l2 + l3), plus the sum
+// in order of the rest, taken on its own (K = 15: ... + ((t12 + t13) + t14))
 template <int K>
 __device__ __forceinline__ float lanes_dot(const float* w, int stride, const float* x) {
     constexpr int N4 = K / 4 * 4;
-    float out;
+    float out = 0.f;
     if (N4) {
         float l[4];
 #pragma unroll
@@ -148,11 +149,13 @@ __device__ __forceinline__ float lanes_dot(const float* w, int stride, const flo
 #pragma unroll
         for (int k = 4; k < N4; ++k) l[k % 4] += w[k * stride] * x[k];
         out = (l[0] + l[1]) + (l[2] + l[3]);
-    } else {
-        out = w[0] * x[0];
     }
+    if (N4 < K) {
+        float tail = w[N4 * stride] * x[N4];
 #pragma unroll
-    for (int k = (N4 ? N4 : 1); k < K; ++k) out += w[k * stride] * x[k];
+        for (int k = N4 + 1; k < K; ++k) tail += w[k * stride] * x[k];
+        out = N4 ? out + tail : tail;
+    }
     return out;
 }
 

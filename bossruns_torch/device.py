@@ -24,3 +24,8 @@ def as_device(device: str | torch.device) -> torch.device:
     if dev.type == "cuda":
         return require_cuda(dev.index or 0)
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or "cpu"."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -16,13 +16,16 @@ creates. Counts are clipped at 990 like the reference (sequences.py:493).
 With f16 tables (``RunsConfig(dtype="float16")``) the plain version
 follows the JAX engine's f16 program as XLA compiles it on the CPU, which
 rounds to f16 after every op: each contraction (an f16 dot) is an f32 sum
-of exact products, rounded once, in the lane order of ``_contract_lanes``; each elementwise op and
-each exp/log is an f32 op rounded to f16; each reduction over genotypes or
-symbols (jnp.sum of f16) is an f32 sum in index order, rounded once
-(``_scores_h16``). Against the JAX f16 scores (JAX 0.9 on the CPU) it is
-bit for bit equal at every one of 4M sites measured (haploid and diploid,
-0-1200 counts per symbol; tests/test_torch_f16.py holds it); an f32 score
-rounded to f16 once differs at ~97% of them.
+of exact products, rounded once, in the addition tree of XLA's CPU dot
+(``_contract_lanes``; pinned with cancelling pairs of +-2^30 terms, which
+show where each pair of terms first meets, at 4, 5, 10 and 15 terms); each
+elementwise op and each exp/log is an f32 op rounded to f16; each
+reduction over genotypes or symbols (jnp.sum of f16) is an f32 sum in
+index order, rounded once (``_scores_h16``). Against JAX 0.9 on the CPU
+the 15-term dot equals XLA's f32 sum bit for bit at 5M entries of random
+posteriors, and the f16 scores equal JAX's at every site measured
+(tests/test_torch_f16.py); an f32 score rounded to f16 once differs at
+~97% of them.
 """
 from __future__ import annotations
 
@@ -80,19 +83,25 @@ def _contract(w, x):
 
 def _contract_lanes(w, x):
     """``_contract``'s sums in f32 in the order XLA's CPU dot takes for the
-    engine's batched [nb, B, N] operands (measured, module docstring): four
+    engine's batched [nb, B, N] operands (pinned, module docstring): four
     lane sums over k = l, l+4, l+8, ... below the last whole group of four,
-    added as (l0 + l1) + (l2 + l3), then the remaining k in order. Every
-    product of two f16 values is exact in f32, so only this order rounds."""
+    added as (l0 + l1) + (l2 + l3), plus the remaining k summed in order on
+    their own (15 genotypes: main + ((t12 + t13) + t14)). Every product of
+    two f16 values is exact in f32, so only this order rounds."""
     K = w.shape[0]
     n4 = K // 4 * 4
     term = lambda j: w[j][:, None] * x[..., j: j + 1, :]
-    lanes = [term(j) for j in range(min(4, n4))]
-    for j in range(4, n4):
-        lanes[j % 4] = lanes[j % 4] + term(j)
-    out = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3]) if n4 else term(0)
-    for j in range(n4 if n4 else 1, K):
-        out = out + term(j)
+    out = None
+    if n4:
+        lanes = [term(j) for j in range(4)]
+        for j in range(4, n4):
+            lanes[j % 4] = lanes[j % 4] + term(j)
+        out = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    if n4 < K:
+        tail = term(n4)
+        for j in range(n4 + 1, K):
+            tail = tail + term(j)
+        out = tail if out is None else out + tail
     return out
 
 

@@ -103,7 +103,18 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      against the f16 plain path on the card over 4 steps (state exact,
      scores in f16 ulps); the (2, 2) mesh at f16 equal to the single
      engine, H8 _h16 timed on one shard; with phase 14's genome, the f16
-     single engine's step p50 and peak memory and H2 _h16 on its state.
+     single engine's step p50 and peak memory and H2 _h16 on its state;
+     and H2 _h16 against its plain version, bit for bit, on the
+     adversarial model of tests/test_torch_f16.py (b), where the 15-term
+     q dot's addition tree decides the last f16 bit (ROADMAP F15);
+ 20. the scoreboard and the tools: ``python -m bossruns_torch.bench``
+     (every section, each in its own process; exit code 0, every record
+     present, none skipped, failed or timed out, the headline first and
+     last with vs_baseline > 1, zymo agreement >= 0.996; each section's
+     wall seconds), then each ``python -m bossruns_torch.tools.<name>``
+     at its default shape but check_sequencer_connection (which needs a
+     sequencer), all in processes where jax and the JAX package cannot
+     be imported and which report holding no module of either.
 Phase 3 also holds RunsEngine.step_from_numpy (one uint32 wire upload)
 equal to step on the card and times its pack + upload beside the
 per-field upload that pack_batch(device=...) makes; phase 4's classic
@@ -136,6 +147,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bossruns_torch.utils.profiling import device_split, queued_ms, time_ms
+
 N_READS = 4000
 MEAN_LEN = 3500
 GENOME = {"chr1": 4_050_000, "chr2": 2_000_000, "chr3": 2_000_000}
@@ -158,103 +171,15 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 15, warm: int = 2) -> float:
-    """Median device time of fn() in ms (CUDA events, after warm-up)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-           for _ in range(reps)]
-    for s, e in evs:
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in evs)
-
-
-def short_name(name: str) -> str:
-    """A device event's name without namespace, template and argument list
-    ("(anonymous namespace)::row_sums(RowArgs)" -> "row_sums")."""
-    n = name.replace("(anonymous namespace)::", "").replace("void ", "")
-    return n.split("(")[0].split("<")[0].strip() or name
-
-
-def queued_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Device time of one fn() call: the median over ``reps`` calls of CUDA
-    events around each, with all calls queued behind a sleeping kernel, so
-    the card runs them one after another without waiting for the host
-    (launch gaps on the card included, host time not). fn must not
-    synchronise."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-           for _ in range(reps)]
-    torch.cuda._sleep(50_000_000)  # ~30 ms, longer than the host takes to queue the calls
-    for s, e in evs:
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in evs)
-
-
-def device_split(fn, reps: int = 10, warm: int = 2, band: tuple | None = None):
-    """Device time of one fn() call by launch, in ms: torch.profiler (CPU
-    and CUDA activities) over ``reps`` back-to-back calls, each device
-    event's duration summed under its short name and divided by ``reps``.
-    A memset is named after the kernel that follows it ("memset>row_sums"),
-    so the memsets of one entry point stay apart from another's. A trace
-    holds the device work of every thread (a sim's prefetch thread adds
-    its copies), and on the card's machine a trace now and then lacks some
-    of fn's events; so a launch name counts only when it occurs a multiple
-    of ``reps`` times, and the trace only when the split's sum falls in
-    ``band`` (lowest, highest ms; highest None for no ceiling), e.g. around
-    the queued time of the same calls. A split that left launch names out
-    is partial and lists them under "dropped". After three traces that
-    fail, the split is None (not measured)."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warm):
-        fn()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        names = [short_name(e.name) for e in evs]
-        for i, n in enumerate(names):
-            if n.lower().startswith("memset"):
-                nxt = next((m for m in names[i + 1:] if not m.lower().startswith("memset")), "end")
-                names[i] = f"memset>{nxt}"
-        whole = {n for n, c in Counter(names).items() if c % reps == 0}
-        split: dict[str, float] = {}
-        for e, n in zip(evs, names):
-            if n in whole:
-                split[n] = split.get(n, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
-        total = sum(split.values())
-        if split and (band is None or (band[0] <= total and (band[1] is None or total <= band[1]))):
-            dropped = sorted(set(names) - whole)
-            if dropped:
-                split["dropped"] = dropped
-            return split
-    log("# torch.profiler: three traces in a row failed the checks; split not measured")
-    return None
-
-
 def device(fn, reps: int = 10, warm: int = 2) -> dict:
     """``device_ms`` of one fn() call from ``queued_ms`` and its split by
-    launch from ``device_split``, whose sum must lie within 70-110% of the
-    queued time (the queued time also holds the gaps between launches)."""
+    launch from ``device_split``, whose sum must lie within 25-110% of the
+    queued time: the queued time also holds the gaps between launches,
+    which take half to two thirds of a phase of a few short launches (H8's
+    row and benefit phases, ~0.01 ms each on an NVIDIA H100 80GB HBM3 at
+    700 W)."""
     ms = queued_ms(fn, reps, warm)
-    split = device_split(fn, reps, 0, band=(0.7 * ms, 1.1 * ms + 0.002))
+    split = device_split(fn, reps, 0, band=(0.25 * ms, 1.1 * ms + 0.002), log=log)
     return dict(device_ms=ms, split=split or {})
 
 
@@ -287,7 +212,7 @@ def synced_device(fn, kernel: str, reps: int = 10) -> dict:
     torch.cuda.synchronize()
     ms = statistics.median(s.elapsed_time(e) for s, e in pairs)
     # the split also holds the wrapper's own PyTorch kernels: no ceiling
-    split = device_split(fn, reps, 0, band=(0.7 * ms, None))
+    split = device_split(fn, reps, 0, band=(0.7 * ms, None), log=log)
     return dict(device_ms=ms, split=split or {})
 
 
@@ -1712,7 +1637,8 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
         eng, st = r["engine"], r["state"]
         params = eng.make_params(CCL, TIME_COST)
         split = device_split(lambda: eng.pull_aux(eng.step(st, batches[-1], params)[1]),
-                             reps=2, warm=0, band=(0.85 * min(r["times"]), 1.05 * max(r["times"])))
+                             reps=2, warm=0, band=(0.85 * min(r["times"]), 1.05 * max(r["times"])),
+                             log=log)
         out[name].update(device_ms=None if split is None else split_ms(split), split=split)
         if split is not None:
             log(f"chromosome {name}: step device time {out[name]['device_ms']:.3f} ms by launch: "
@@ -2722,6 +2648,48 @@ def check_f16_overflow(dev, card: str) -> None:
         f"for bit; contig s dropped out: {bool(sk.zeroed[0, o_s: o_s + 20_000].all())}) [{card}]")
 
 
+def check_f16_adversarial(dev, card: str) -> None:
+    """Phase 19: H2 _h16 against its plain version on the card, bit for
+    bit, on the adversarial case of tests/test_torch_f16.py (b) (the same
+    draws): a diploid model with random phi and prior, whose posteriors
+    spread over all 15 genotypes, over 2 x 60,000 sites of counts 0-5.
+    There the 15-term q dot's addition tree decides the last f16 bit
+    (ROADMAP F15). The sites where the card's scores differ from the plain
+    version's on the CPU (CUDA's expf/logf against the host's) are
+    counted."""
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.ops import scores as sc
+    from bossruns_torch.ops.model import ObservationModel
+
+    rng = np.random.default_rng(0)
+    n = 60_000
+    model = ObservationModel(2, rng.dirichlet(np.full(5, 0.3), 15).T,
+                             rng.dirichlet(np.ones(15), 4))
+    cnt = rng.integers(0, 6, (2, 5, n)).astype(np.uint16)
+    ref = rng.integers(0, 4, n).astype(np.int8)
+
+    def args(where):
+        return dict(coverage=torch.from_numpy(cnt.view(np.int16)).view(torch.uint16).to(where),
+                    seq=torch.from_numpy(ref).to(where),
+                    site_valid=torch.ones(n, dtype=torch.bool, device=where),
+                    tables=sc.ScoreTables(model, torch.float16, device=where),
+                    freeze_cov=1 << 20, tiny=float(np.finfo(np.float16).tiny))
+
+    h2 = kernels.KERNELS["site_scores_h16"]
+    n0 = h2.launches
+    s_k, cs_k = sc.site_scores(**args(dev))
+    if h2.launches != n0 + 1:
+        raise AssertionError("H2 _h16 was not launched on the adversarial case")
+    s_p, cs_p = sc.site_scores_plain(**args(dev))
+    exact("H2 _h16 adversarial case: covsum", cs_k, cs_p)
+    exact("H2 _h16 adversarial case: f16 scores", s_k, s_p)
+    s_cpu = sc.site_scores_plain(**args("cpu"))[0]
+    off = int(differ(s_k.cpu(), s_cpu).sum())
+    log(f"H2 site_scores_h16 on the adversarial model (random phi and prior, 2 x {n} sites, "
+        f"counts 0-5): kernel == plain on the card, bit for bit; {off} scores differ from the "
+        f"plain version on the CPU [{card}]")
+
+
 def check_f16(dev, card: str) -> dict:
     """Phase 19 at phase 3's 8.05 Mb shape: each f16 engine (the default
     beside them) for 4 counted steps and its half entry points against
@@ -2797,8 +2765,121 @@ def check_f16(dev, card: str) -> dict:
     del ek, ep, sk, sp
     torch.cuda.empty_cache()
     check_f16_overflow(dev, card)
+    check_f16_adversarial(dev, card)
     rows.update(check_option_meshes(dev, card, F16_OPTIONS, F16_ROWS))
     return dict(rows=rows, launches=launches, p50=p50, device_ms=dev_ms)
+
+
+# ------------------------------------------- phase 20: scoreboard, tools --
+
+#: every record the scoreboard prints on a complete run
+BENCH_METRICS = ("strategy_update_p50_latency", "aligner_production_trunc_reads_per_s",
+                 "aligner_trunc_reads_per_s", "aligner_full_reads_per_s",
+                 "sim_batch_p50_latency", "conformance_mask_agreement", "conformance_dataplane",
+                 "aeons_batch_p50_latency", "strategy_update_p50_latency_scaled")
+#: python -m bossruns_torch.tools.<name>, each at its default shape, and a
+#: line its output must hold (check_sequencer_connection needs a sequencer)
+TOOLS = {"bench_aligner": '"aligner_full_reads_per_s"',
+         "bench_scale": '"genome_sites": 134000000',
+         "profile_step": "full step (f32 decisions)",
+         "profile_seed": "H5 seed_topn",
+         "profile_aeons_strategy": "40 Mb (200 contigs)",
+         "check_decision_parity": "TOTAL disagreements over 5 batches: 0 "}
+#: run in every process of phase 20 (it comes first on PYTHONPATH): jax and
+#: the JAX package cannot be imported, and at exit each process writes the
+#: names of any of their modules it holds to its own file
+IMPORT_GUARD = """
+import atexit, os, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+
+def _report(path=os.path.join(os.path.dirname(__file__), f"modules_{os.getpid()}.txt")):
+    with open(path, "w") as fh:
+        fh.write(" ".join(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")))
+
+atexit.register(_report)
+"""
+
+
+def guarded_run(args: list[str], guard: Path, timeout: float) -> tuple[int, str, float]:
+    """Run ``python args`` from the repo root with IMPORT_GUARD first on its
+    path (and so on every process it starts); (exit code, stdout, seconds)."""
+    import os
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(guard), root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def run_scoreboard(card: str, work: Path) -> dict:
+    """Phase 20: ``python -m bossruns_torch.bench`` (every section, in
+    subprocesses) and each tool once at its default shape, in processes
+    where jax and the JAX package cannot be imported (IMPORT_GUARD, whose
+    reports show that none of them held a module of either). The
+    scoreboard exits 0 with every record present, none skipped, failed or
+    timed out, the headline first and last with vs_baseline > 1, and zymo
+    agreement >= 0.996; each tool exits 0 and prints its line."""
+    from bossruns_torch.bench import ORDER
+
+    guard = work / "guard"
+    guard.mkdir()
+    (guard / "sitecustomize.py").write_text(IMPORT_GUARD)
+    rc, out, secs = guarded_run(["-m", "bossruns_torch.bench"], guard, timeout=1100)
+    recs = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    recs = [r for r in recs if "metric" in r]
+    for line in out.splitlines():
+        if line.startswith("# section") or line.startswith("# kernels"):
+            log(line)
+    for r in recs:
+        if r["metric"] != "bench_summary":
+            log(json.dumps(r))
+    if rc != 0:
+        raise AssertionError(f"python -m bossruns_torch.bench exited {rc}")
+    names = [r["metric"] for r in recs]
+    bad = [n for n in names if n.endswith(("_skipped", "_device_skipped", "_error", "_timeout"))]
+    missing = [m for m in BENCH_METRICS if m not in names]
+    if bad or missing:
+        raise AssertionError(f"scoreboard: failed {bad}, missing {missing}")
+    head = recs[0]
+    if not (names[0] == names[-1] == "strategy_update_p50_latency"):
+        raise AssertionError(f"scoreboard: first {names[0]}, last {names[-1]}")
+    if not (recs[-1]["vs_baseline"] > 1 and recs[-1]["detail"]["f32_ms"] is not None):
+        raise AssertionError(f"scoreboard headline: {recs[-1]}")
+    zymo = next(r for r in recs if r["metric"] == "conformance_mask_agreement")
+    if zymo["value"] < 0.996:
+        raise AssertionError(f"scoreboard: zymo agreement {zymo['value']}")
+    log(f"scoreboard: {len(BENCH_METRICS)} records, rc 0 in {secs:.1f} s; headline "
+        f"{head['value']} ms first and {recs[-1]['value']} ms last, vs_baseline "
+        f"{recs[-1]['vs_baseline']} [{card}]")
+    tools = {}
+    for name, want in TOOLS.items():
+        rc, out, secs = guarded_run(["-m", f"bossruns_torch.tools.{name}"], guard, timeout=600)
+        for line in out.splitlines():
+            log(f"  {name}: {line}")
+        if rc != 0 or want not in out:
+            raise AssertionError(f"tools.{name}: exit code {rc}, {want!r} missing")
+        tools[name] = secs
+        log(f"tools.{name}: rc 0 in {secs:.1f} s [{card}]")
+    reports = sorted(guard.glob("modules_*.txt"))
+    held = [p.read_text() for p in reports if p.read_text()]
+    if held or len(reports) < 1 + len(ORDER) + len(TOOLS):
+        raise AssertionError(f"import guard: {len(reports)} processes reported, modules {held}")
+    log(f"no process of phase 20 ({len(reports)}) imported jax or the JAX package")
+    return dict(records=recs, tools=tools)
 
 
 def sm_clock_mhz() -> float:
@@ -2809,7 +2890,7 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-ALL_PHASES = range(3, 20)
+ALL_PHASES = range(3, 21)
 
 
 def parse_phases(argv: list[str]) -> set[int]:
@@ -2818,11 +2899,11 @@ def parse_phases(argv: list[str]) -> set[int]:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-19)")
+    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-20)")
     a = ap.parse_args(argv)
     phases = {int(x) for x in a.phases.split(",") if x} or set(ALL_PHASES)
     if not phases <= set(ALL_PHASES):
-        ap.error(f"phases are 3-19, got {sorted(phases)}")
+        ap.error(f"phases are 3-20, got {sorted(phases)}")
     if 15 in phases and 4 not in phases:
         ap.error("phase 15 compares against the sims of phase 4")
     if 12 in phases and 11 not in phases:
@@ -2912,6 +2993,8 @@ def main(argv: list[str]) -> int:
             opt = check_options(dev, card)
         if 19 in phases:
             f16 = check_f16(dev, card)
+        if 20 in phases:
+            run_scoreboard(card, work)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     if loaded:
         raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")

@@ -139,13 +139,11 @@ def test_small_scale_agreement_exercises_decisions():
     assert out["residual_unexplained"] == 0, out
 
 
-@pytest.mark.slow
 def test_zymo_scale_agreement():
     """9 contigs / 12.6 Mb / ~3.3x coverage per batch, the port's engine on
-    the CPU. Marked slow (not registered in the pytest settings, so pytest
-    warns): about 80 s on one CPU worker, where the port's plain versions
-    run the 12.6 Mb step; chip_smoke.py phase 16 runs the same drive on the
-    card with the same asserts."""
+    the CPU: the twin of tests/test_conformance_zymo.py, with its asserts.
+    About 80 s on one CPU worker, where the port's plain versions run the
+    12.6 Mb step; chip_smoke.py phase 16 runs the same drive on the card."""
     out = tconf.drive_zymo_conformance(n_batches=3, reads_per_batch=12_000, device="cpu")
     assert out["n_contigs"] == 9
     assert out["n_sites"] == sum(tconf.ZYMO_LIKE_LENGTHS.values())

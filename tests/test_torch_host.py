@@ -9,6 +9,8 @@
   with live alignment in such a subprocess (the AEONS simulation's twin is
   in test_torch_aeons_sim.py); a mesh TOML runs the sharded simulation and
   the AEONS modes ignore ``[tpu]``;
+* the scoreboard's headline (``bossruns_torch.bench``) and
+  ``tools.check_decision_parity`` run in such a subprocess;
 * no source file of the port, nor chip_smoke.py, imports jax or
   bossruns_tpu;
 * the kernel build raises a clear error without nvcc instead of falling
@@ -208,6 +210,43 @@ def test_cli_refuses_aeons_and_mesh(corpus, tmp_path, monkeypatch):
                   tpu=dict(mesh_barcode=2))
     assert main(["--toml", str(aeons), "--device", "cpu"]) == 0
     assert (tmp_path / "out_a" / "masks" / "boss.npz").exists()
+
+
+BENCH_JAX_BLOCKED = textwrap.dedent("""
+    import sys
+
+    class _NoJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, _NoJax())
+    sys.path.insert(0, sys.argv[1])
+    import torch
+
+    from bossruns_torch import bench
+    from bossruns_torch.tools import check_decision_parity
+
+    torch.set_num_threads(2)
+    genome = {"chr1": 120_000, "chr2": 100_000}
+    rec = bench.section_headline("cpu", genome=genome, n_reads=200, n_steps=1, n_f32_steps=1,
+                                 n_oracle=1)
+    assert rec["detail"]["f32_ms"] is not None
+    assert check_decision_parity.main(n_batches=1, device="cpu", genome=genome,
+                                      n_reads=200) == [0]
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
+    assert not loaded, loaded
+    print("BENCH_OK")
+""")
+
+
+def test_bench_and_a_tool_run_without_jax(tmp_path):
+    """The scoreboard's headline and tools.check_decision_parity run in a
+    process where jax and bossruns_tpu cannot be imported."""
+    proc = subprocess.run([sys.executable, "-c", BENCH_JAX_BLOCKED, str(REPO)],
+                          capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0 and "BENCH_OK" in proc.stdout, proc.stderr[-3000:]
 
 
 def test_port_source_has_no_jax_import():

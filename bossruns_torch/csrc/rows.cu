@@ -100,7 +100,7 @@ struct RowArgs {
     int32_t freeze_cov, gated;
     int32_t alpha_one, pad0;  // alpha_one: fhat_alpha == 1 (B(1, z) = 1/z)
     // in f64; each is rounded to S or D where the reference compares or divides
-    double dropout_mod, dropout_min_mean, bucket_threshold;
+    double dropout_mod, dropout_min_mean;
     double c_denom0, c_bn0, beta_denom, p0_bit, alpha, on_target, n_real_sites;
     // inputs
     const int32_t* covsum;
@@ -119,6 +119,7 @@ struct RowArgs {
     const uint8_t* fhat_valid;
     const void* fhat_rows;  // D
     const int32_t* fhat_idx;
+    const float* bucket_threshold;  // the step's parameter on the device (StepParams)
     // state, updated in place
     void* scores;  // S
     uint8_t* zeroed;
@@ -304,11 +305,11 @@ __global__ void row_tables(RowArgs a) {
                 float mean = 0.f;
                 if (src >= 0)
                     mean = f_of(h_of(bk_div(count_d<S, D>(a.winsums[b * a.nw_pad + src]), (D)20000)));
-                hit = mean >= (float)a.bucket_threshold;
+                hit = mean >= *a.bucket_threshold;
             } else {
                 S mean = 0;
                 if (src >= 0) mean = (S)bk_div((D)a.winsums[b * a.nw_pad + src], (D)20000);
-                hit = mean >= (S)a.bucket_threshold;
+                hit = mean >= (S)*a.bucket_threshold;
             }
             bool on = a.bucket_on[k] || (hit && a.bucket_valid[j]);
             a.bucket_on[k] = on ? 1 : 0;

@@ -25,7 +25,9 @@
 //      tile order from shared memory;
 //   2. scan_add: each tile's prefix added to its rows (2-D grid, barcodes
 //      on y: no division per element);
-//   3. benefit_windows: a block stages the cumsum under 1024 rows and the
+//   3. benefit_windows: the ten CCL windows from the device's approx_ccl
+//      (clip(approx_ccl // 100, 1, win_clamp), models/runs.py:674 of the
+//      JAX package), then a block stages the cumsum under 1024 rows and the
 //      widest window on either side in shared memory (coalesced), then one
 //      thread per row reads the 22 clamped windows from there, runs the
 //      weighted chain unrolled in the reference order
@@ -46,6 +48,11 @@
 //      divisions in parallel, the running sums and the first-maximum pick
 //      in bin order (bk_exponent_threshold);
 //   5. strat_write: the gated strategy write.
+// The step's parameters (approx_ccl, time_cost) are read through pointers
+// from the device, as the JAX engine traces its StepParams, so one captured
+// graph serves every batch; only win_cap, the shared memory's bound on the
+// windows, is a launch argument. The threshold scan's tc = time_cost // 100
+// is Python's float floor division, in f64 on the device.
 // f64 arithmetic on the decision path uses the _rn intrinsics so nvcc
 // cannot contract it into FMAs the reference does not do.
 //
@@ -88,10 +95,15 @@
 struct StratArgs {
     int64_t nb, Gd, nbk;
     int32_t mu_ds, quirks;
-    int32_t win[10];
+    // the CCL windows are clamp(approx_ccl // 100, 1, win_clamp) rows, read
+    // on the device; benefit_windows' shared memory holds windows of up to
+    // win_cap rows (>= mu_ds and every window: the host's bound)
+    int32_t win_clamp, win_cap;
     double weight[10];
-    double tc;  // (time_cost // 100) in f64
     int32_t aux_kind, pad0;  // aux's score type: 0 float, 1 double, 2 half
+    // the step's parameters on the device (StepParams)
+    const int32_t* approx_ccl;  // [10] full-resolution CCL pieces
+    const float* time_cost;     // lambda - mu - rho
     // inputs (T: the decision type)
     const void* scores_ds;  // T
     const int32_t* seg_start;
@@ -150,6 +162,30 @@ static inline dim3 grid_rows(int64_t Gd, int64_t nb, int64_t max_blocks) {
     int64_t x = (Gd + THREADS - 1) / THREADS;
     int64_t cap = max_blocks / nb > 1 ? max_blocks / nb : 1;
     return dim3((unsigned)(x < 1 ? 1 : (x < cap ? x : cap)), (unsigned)nb);
+}
+
+// Python's floor division of an integer by 100 (the ds rows of a CCL piece)
+__device__ __forceinline__ int64_t floordiv_ds(int64_t c) {
+    int64_t q = c / 100;
+    return (c % 100 != 0 && c < 0) ? q - 1 : q;
+}
+
+// CCL window k in ds rows: clamp(approx_ccl[k] // 100, 1, win_clamp)
+__device__ __forceinline__ int ccl_window(const StratArgs& a, int k) {
+    int64_t w = floordiv_ds(a.approx_ccl[k]);
+    w = w < 1 ? 1 : w;
+    return (int)(w > a.win_clamp ? a.win_clamp : w);
+}
+
+// Python's float floor division v // w (CPython's float_floor_div, as
+// torch's div_floor_floating): tc = time_cost // 100 in f64
+__device__ __forceinline__ double py_floordiv(double v, double w) {
+    double mod = fmod(v, w);
+    double div = __ddiv_rn(__dsub_rn(v, mod), w);
+    if (mod != 0.0 && ((w < 0.0) != (mod < 0.0))) div = __dsub_rn(div, 1.0);
+    if (div == 0.0) return copysign(0.0, __ddiv_rn(v, w));
+    double fl = floor(div);
+    return __dsub_rn(div, fl) > 0.5 ? __dadd_rn(fl, 1.0) : fl;
 }
 
 // aux[i] != 0, in aux's score type
@@ -303,11 +339,24 @@ __global__ void __launch_bounds__(THREADS) scan_add(StratArgs a, const T* tiles,
 // read (the 22 reads of a row land within W rows of it, and a segment
 // bound clamps them inward).
 template <class T>
-__global__ void __launch_bounds__(THREADS) benefit_windows(StratArgs a, int W) {
+__global__ void __launch_bounds__(THREADS) benefit_windows(StratArgs a) {
     using T2 = typename BkVec2<T>::type;
     extern __shared__ __align__(16) unsigned char s_raw[];
     T* s_c = reinterpret_cast<T*>(s_raw);
     __shared__ double s_red[32];
+    __shared__ int s_win[10];
+    // the host's win_cap holds every window; the min only keeps a wrong
+    // bound inside the staged rows
+    if (threadIdx.x < 10) s_win[threadIdx.x] = min(ccl_window(a, threadIdx.x), a.win_cap);
+    __syncthreads();
+    // each thread keeps the windows in registers (the row loop below reads
+    // them 20 times a row); W, the widest, sets the rows staged either side
+    int win[10], W = a.mu_ds;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+        win[k] = s_win[k];
+        W = win[k] > W ? win[k] : W;
+    }
     const int64_t b = blockIdx.y;
     // c[k]: the cumsum at global row k, defined for k in [row0 - halo, row0 + Gd + halo]
     const T* c = static_cast<const T*>(a.ext) + b * a.cs_stride + a.halo - a.row0;
@@ -338,12 +387,12 @@ __global__ void __launch_bounds__(THREADS) benefit_windows(StratArgs a, int W) {
                 return bk_sub(cr1, sc[lo]);
             };
             T sf = fwd(a.mu_ds), sr = rev(a.mu_ds);
-            T ef = bk_mul((T)a.weight[0], fwd(a.win[0]));
-            T er = bk_mul((T)a.weight[0], rev(a.win[0]));
+            T ef = bk_mul((T)a.weight[0], fwd(win[0]));
+            T er = bk_mul((T)a.weight[0], rev(win[0]));
 #pragma unroll
             for (int k = 1; k < 10; ++k) {
-                ef = bk_add(ef, bk_mul((T)a.weight[k], fwd(a.win[k])));
-                er = bk_add(er, bk_mul((T)a.weight[k], rev(a.win[k])));
+                ef = bk_add(ef, bk_mul((T)a.weight[k], fwd(win[k])));
+                er = bk_add(er, bk_mul((T)a.weight[k], rev(win[k])));
             }
             T bf = bk_sub(ef, sf), br = bk_sub(er, sr);
             bf = bf > (T)0 ? bf : (T)0;
@@ -382,7 +431,8 @@ __device__ void threshold_from_bins(const StratArgs& a, const int* cnt, const do
     if (used) {
         const T c = (T)cnt[t], f_mean = bk_div((T)fs[t], c);
         tu = bk_mul(bk_mul(bk_mul((T)bk_pow2_neg(t), norm_safe), f_mean), c);
-        tt = bk_mul(bk_mul((T)a.tc, c), f_mean);
+        const double tc = py_floordiv((double)*a.time_cost, 100.0);
+        tt = bk_mul(bk_mul((T)tc, c), f_mean);
     }
     // tbar0: alpha + rho + mu in 100-site rows, 3 + 3 + 4
     int k = bk_exponent_threshold<NBINS, T>(used, tu, tt, (T)__ldcg(a.ubar0), (T)10, sh);
@@ -556,19 +606,33 @@ __global__ void __launch_bounds__(THREADS) strat_write(StratArgs a) {
     }
 }
 
-// benefit_windows over the rows: grid, the widest window W and the staged
-// cumsum's shared memory (above 48 KB only after opting in)
+// benefit_windows over the rows: the grid, and shared memory for the
+// staged cumsum of windows up to win_cap rows (a bound the host knows, so
+// the launch does not depend on the device's window values). The opt-in
+// above 48 KB is made once per device for the largest window, outside any
+// graph capture: the first launch of a step runs eagerly.
+template <class T>
+int opt_in_windows_smem() {
+    static bool done[64] = {};
+    int dev = 0;
+    BK_CHECK(cudaGetDevice(&dev));
+    if (dev < 0 || dev >= 64) return -1;
+    if (!done[dev]) {
+        BK_CHECK(cudaFuncSetAttribute(benefit_windows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)(sizeof(T) * (WIN_ROWS + 2 * (size_t)MAX_WINDOW + 1))));
+        done[dev] = true;
+    }
+    return 0;
+}
+
 template <class T>
 int launch_windows(const StratArgs& a, cudaStream_t st) {
-    int W = a.mu_ds;
-    for (int k = 0; k < 10; ++k) W = a.win[k] > W ? a.win[k] : W;
-    if (W < 1 || W > MAX_WINDOW) return -1;
-    size_t smem = sizeof(T) * (WIN_ROWS + 2 * (size_t)W + 1);
-    if (smem > 48 * 1024)
-        BK_CHECK(cudaFuncSetAttribute(benefit_windows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem));
+    if (a.win_cap < 1 || a.win_cap > MAX_WINDOW || a.mu_ds > a.win_cap || a.win_clamp < 1)
+        return -1;
+    if (int err = opt_in_windows_smem<T>()) return err;
+    size_t smem = sizeof(T) * (WIN_ROWS + 2 * (size_t)a.win_cap + 1);
     int64_t x = (a.Gd + WIN_ROWS - 1) / WIN_ROWS, cap = 132 * 8 / a.nb > 1 ? 132 * 8 / a.nb : 1;
-    benefit_windows<T><<<dim3((unsigned)(x < cap ? x : cap), (unsigned)a.nb), THREADS, smem, st>>>(a, W);
+    benefit_windows<T><<<dim3((unsigned)(x < cap ? x : cap), (unsigned)a.nb), THREADS, smem, st>>>(a);
     BK_LAUNCHED();
     return 0;
 }

@@ -18,11 +18,19 @@ The state is updated IN PLACE, where the JAX engine donated it
 (``donate_argnums=(0,)``): ``step`` returns the same tensors it was given.
 A host batch ships as the JAX package's uint32 wire buffer
 (``pack_wire``/``pack_gated``, byte for byte the same buffer and spec),
-in one host-to-device copy, and is viewed field by field on the device
-(``unpack_wire``): ``step_from_numpy``. Left out, because they existed for
-the TPU: genome constants passed as jit arguments (an HLO literal-size
-workaround) and the ``score_block`` scan (an HBM cap that a per-site
-kernel does not need).
+packed into a pinned staging buffer and landed in the tier's static device
+wire by one async host-to-device copy, and is viewed field by field on the
+device (``unpack_wire``): ``step_from_numpy``.
+
+On the card each path (``step``, ``step_from_numpy``, ``step_gated``) runs
+as the JAX engine's jitted step does: the parameters are device tensors
+(StepParams), and each batch-shape tier has one captured CUDA graph
+(models/graphs.py), replayed from its second occurrence on; the first
+runs eagerly, as the warm-up. ``engine.graphs`` counts replays and eager
+steps per path. CPU tensors run the plain versions eagerly. Left out,
+because they existed for the TPU: genome constants passed as jit
+arguments (an HLO literal-size workaround) and the ``score_block`` scan
+(an HBM cap that a per-site kernel does not need).
 
 The engine options of the JAX package run here too: ``RunsConfig.dtype``
 (the per-site scores, read starts and aux: "float32", "float64" or
@@ -76,9 +84,25 @@ class ReadBatch(NamedTuple):
 
 
 class StepParams(NamedTuple):
-    approx_ccl: tuple        # 10 full-res CCL pieces (ints)
-    time_cost: float         # lambda - mu - rho, rounded to f32 like the reference
-    bucket_threshold: float  # rounded to f32
+    """The step's parameters on the engine's device, as the JAX engine
+    traces its StepParams (bossruns_tpu/models/runs.py:104-107): the three
+    are views of one int32[12] ``block``, so a captured step takes a new
+    batch's parameters with one copy. ``win_bucket`` (host) is the power of
+    two at or above the widest CCL window before the engine's clamp (ds
+    rows): the bound H4's shared memory is sized for, part of a graph's key."""
+
+    approx_ccl: torch.Tensor        # [10] int32 full-res CCL pieces
+    time_cost: torch.Tensor         # 0-d f32: lambda - mu - rho
+    bucket_threshold: torch.Tensor  # 0-d f32
+    block: torch.Tensor             # [12] int32: the three above
+    win_bucket: int
+
+
+def params_view(block: torch.Tensor, win_bucket: int) -> StepParams:
+    """StepParams whose tensors are views of ``block`` (int32 [12])."""
+    f32 = block[10:].view(torch.float32)
+    return StepParams(approx_ccl=block[:10], time_cost=f32[0], bucket_threshold=f32[1],
+                      block=block, win_bucket=win_bucket)
 
 
 class StepAux(NamedTuple):
@@ -184,6 +208,11 @@ class RunsEngine(nn.Module):
         self.tables = ScoreTables(self.model, self.dtype, device=dev)
         for name, (a, dtype) in consts.items():
             self.register_buffer(name, torch.as_tensor(np.asarray(a), dtype=dtype).to(dev))
+        self.graphs, self._staging = None, None
+        if dev.type == "cuda":
+            from .graphs import GraphCache, PinnedStaging
+
+            self.graphs, self._staging = GraphCache(dev), PinnedStaging()
 
     def _setup(self, layout: GenomeLayout, model: ObservationModel | None,
                config: RunsConfig) -> dict:
@@ -266,34 +295,44 @@ class RunsEngine(nn.Module):
         ("rs_row", np.int32), ("rs_strand", np.int32), ("rs_read", np.int32),
     )
 
-    @classmethod
-    def _pack_fields(cls, get, fields):
-        parts = []
-        spec = []
-        for name, dt in fields:
-            a = np.ascontiguousarray(get(name), dtype=dt)
-            spec.append((name, int(a.shape[0])))
+    @staticmethod
+    def _pack_fields(get, fields, out=None):
+        """Each field's bytes written straight into one uint32 buffer:
+        ``out(n_words)`` (a staging buffer), or a new array."""
+        arrs = [np.ascontiguousarray(get(name), dtype=dt) for name, dt in fields]
+        words = [(a.nbytes + 3) // 4 for a in arrs]
+        wire = np.empty(sum(words), np.uint32) if out is None else out(sum(words))
+        raw = wire.view(np.uint8)
+        off = 0
+        for a, w in zip(arrs, words):
             nb = a.nbytes
-            pad = (-nb) % 4
-            if pad:
-                buf = np.zeros(nb + pad, np.uint8)
-                buf[:nb] = a.view(np.uint8)
-                parts.append(buf.view(np.uint32))
-            else:
-                parts.append(a.view(np.uint32))
-        return np.concatenate(parts), tuple(spec)
+            raw[off: off + nb] = a.reshape(-1).view(np.uint8)
+            raw[off + nb: off + 4 * w] = 0
+            off += 4 * w
+        return wire, tuple((name, int(a.shape[0])) for (name, _), a in zip(fields, arrs))
 
     @classmethod
-    def pack_wire(cls, batch: dict | ReadBatch):
+    def pack_wire(cls, batch: dict | ReadBatch, out=None):
         """dict/ReadBatch of numpy arrays -> (wire uint32[W], spec), spec a
-        tuple of (name, n_elems) per field."""
+        tuple of (name, n_elems) per field. ``out``: a function of the word
+        count that gives the buffer to write (``stage``), else a new array."""
         get = batch.__getitem__ if isinstance(batch, dict) else lambda f: getattr(batch, f)
-        return cls._pack_fields(get, cls._WIRE_FIELDS)
+        return cls._pack_fields(get, cls._WIRE_FIELDS, out)
 
     @classmethod
-    def pack_gated(cls, d: dict):
-        """dict of the _GATED_FIELDS arrays -> (wire uint32[W], spec)."""
-        return cls._pack_fields(d.__getitem__, cls._GATED_FIELDS)
+    def pack_gated(cls, d: dict, out=None):
+        """dict of the _GATED_FIELDS arrays -> (wire uint32[W], spec);
+        ``out`` as pack_wire's."""
+        return cls._pack_fields(d.__getitem__, cls._GATED_FIELDS, out)
+
+    def stage(self, n_words: int) -> np.ndarray:
+        """A uint32 [n_words] host buffer to pack a wire into: on the card one
+        of two pinned staging buffers, taken in turns and reused across
+        batches (``upload_wire`` copies it asynchronously); on the CPU a new
+        array."""
+        if self._staging is None:
+            return np.empty(n_words, np.uint32)
+        return self._staging.take(n_words)
 
     @staticmethod
     def _unpack_fields(wire: torch.Tensor, spec, fields) -> dict[str, torch.Tensor]:
@@ -321,18 +360,30 @@ class RunsEngine(nn.Module):
         ``step_gated`` takes)."""
         return cls._unpack_fields(wire, spec, cls._GATED_FIELDS)
 
-    def upload_wire(self, wire: np.ndarray) -> torch.Tensor:
-        """A packed buffer on this engine's device: one host-to-device copy
-        on the current stream (the stream the step runs on)."""
-        return torch.from_numpy(wire).to(self.device)
+    def upload_wire(self, wire: np.ndarray, spec=None) -> torch.Tensor:
+        """A packed buffer on this engine's device. On the card ``wire``
+        must have been packed into a ``stage`` buffer and ``spec`` given: one
+        async copy on the current stream (the stream the step runs on) lands
+        it in the tier's static device wire, the buffer the tier's captured
+        step reads (valid until the next upload of the same spec). On the
+        CPU, the buffer itself."""
+        if self.graphs is None:
+            return torch.from_numpy(wire).to(self.device)
+        if spec is None or self._staging is None:
+            raise ValueError("upload_wire on the card takes a stage buffer and its spec")
+        dst = self.graphs.wire(spec, wire.shape[0])
+        if not self._staging.upload(wire, dst):
+            raise ValueError("upload_wire: the wire was not packed into a stage buffer")
+        return dst
 
     def step_from_numpy(self, state: GenomeState, batch_np: dict | ReadBatch,
                         params: StepParams):
-        """One step from a host batch (numpy): packed, uploaded in one copy
-        and viewed as a ReadBatch; the same result as ``step`` on the same
-        batch, bit for bit."""
-        wire, spec = self.pack_wire(batch_np)
-        return self.step(state, self.unpack_wire(self.upload_wire(wire), spec), params)
+        """One step from a host batch (numpy): packed into a staging buffer,
+        uploaded in one copy and viewed as a ReadBatch; the same result as
+        ``step`` on the same batch, bit for bit."""
+        wire, spec = self.pack_wire(batch_np, out=self.stage)
+        views = self.unpack_wire(self.upload_wire(wire, spec), spec)
+        return self._through_graphs("step_from_numpy", state, views._asdict(), params, self._classic)
 
     # ------------------------------------------------------------- state ----
 
@@ -361,11 +412,23 @@ class RunsEngine(nn.Module):
         return state_to_numpy(state)
 
     def make_params(self, approx_ccl, time_cost: float) -> StepParams:
-        return StepParams(
-            approx_ccl=tuple(int(x) for x in np.asarray(approx_ccl)),
-            time_cost=float(np.float32(time_cost)),
-            bucket_threshold=float(np.float32(self.config.bucket_threshold)),
-        )
+        """StepParams on this engine's device (one host-to-device copy):
+        approx_ccl as int32, time_cost and the config's bucket threshold
+        rounded to f32, as the JAX engine's make_params."""
+        ccl = np.asarray(approx_ccl).astype(np.int32)
+        if ccl.shape != (10,):
+            raise ValueError(f"approx_ccl: 10 CCL pieces, got shape {ccl.shape}")
+        host = np.empty(12, np.int32)
+        host[:10] = ccl
+        host[10:] = np.array([time_cost, self.config.bucket_threshold], np.float32).view(np.int32)
+        widest = max(max(int(c) // DS, 1) for c in ccl)
+        return params_view(torch.from_numpy(host).to(self.device), 1 << (widest - 1).bit_length())
+
+    def win_cap(self, params: StepParams, win_clamp: int) -> int:
+        """The widest window (ds rows) H4's shared memory holds for these
+        params under ``win_clamp``: mu_ds, or the params' power-of-two
+        bucket clamped. Every window the device computes is within it."""
+        return max(self.config.mu // DS, min(params.win_bucket, win_clamp))
 
     # ------------------------------------------------ stage arguments -------
     # Each returns the keyword arguments of one stage's wrapper, so a caller
@@ -399,12 +462,12 @@ class RunsEngine(nn.Module):
     def benefit_args(self, state: GenomeState, scores_ds, fhat_exp, aux,
                      params: StepParams) -> dict:
         cfg = self.config
-        windows = [min(max(int(c) // DS, 1), cfg.ccl_clamp_ds) for c in params.approx_ccl]
         return dict(
             scores_ds=scores_ds, seg_start=self.seg_start, seg_end=self.seg_end,
             fhat_exp=fhat_exp, bucket_on=state.bucket_on, bucket_idx=self.bucket_idx,
             strat_valid=self.strat_valid, strat=state.strat, aux=aux, mu_ds=cfg.mu // DS,
-            windows=windows, time_cost=params.time_cost,
+            approx_ccl=params.approx_ccl, time_cost=params.time_cost,
+            win_clamp=cfg.ccl_clamp_ds, win_cap=self.win_cap(params, cfg.ccl_clamp_ds),
             reference_quirks=cfg.reference_quirks, tile_scan=self.tile_scan,
         )
 
@@ -416,6 +479,43 @@ class RunsEngine(nn.Module):
         return not default_dtypes(self.dtype, self.benefit_dtype)
 
     # -------------------------------------------------------------- step ----
+
+    def _through_graphs(self, path: str, state, inputs: dict, params: StepParams, body):
+        """``body(state, inputs, params)``: through the graph cache on the
+        card, eagerly on the CPU."""
+        if self.graphs is None:
+            return body(state, inputs, params)
+        return self.graphs.run(path, state, inputs, params, body,
+                               self.win_cap(params, self.config.ccl_clamp_ds))
+
+    def eager(self, path: str, state, *args):
+        """The body of ``path`` ("step", "step_from_numpy" or "step_gated",
+        with that method's arguments) run eagerly, outside the graph cache:
+        the reference a replay is held against and timed beside."""
+        if path == "step_from_numpy":
+            batch_np, params = args
+            wire, spec = self.pack_wire(batch_np)
+            batch = self.unpack_wire(torch.from_numpy(wire).to(self.device), spec)
+            return self._classic(state, batch._asdict(), params)
+        if path == "step":
+            batch, params = args
+            return self._classic(state, batch._asdict(), params)
+        gated, bits, params = args
+        return self._gated(state, dict(gated, bits=bits), params)
+
+    def _classic(self, state: GenomeState, inputs: dict, params: StepParams):
+        b = ReadBatch(**inputs)
+        full = CovRows(b.mr_bc, b.mr_g, b.mr_len, b.ex_bcsym, b.ex_g)
+        return self._step(state, full, None, None, params, b.rs_row, b.rs_strand, rs_w=b.rs_w)
+
+    def _gated(self, state: GenomeState, inputs: dict, params: StepParams):
+        g = inputs
+        full = CovRows(g["f_mr_bc"], g["f_mr_g"], g["f_mr_len"], g["f_ex_bcsym"], g["f_ex_g"],
+                       g["f_mr_read"], g["f_ex_read"])
+        trunc = CovRows(g["t_mr_bc"], g["t_mr_g"], g["t_mr_len"], g["t_ex_bcsym"], g["t_ex_g"],
+                        g["t_mr_read"], g["t_ex_read"])
+        return self._step(state, full, trunc, g["bits"], params,
+                          g["rs_row"], g["rs_strand"], rs_read=g["rs_read"])
 
     @torch.no_grad()
     def _step(self, state: GenomeState, full: CovRows, trunc, bits, params: StepParams,
@@ -432,10 +532,10 @@ class RunsEngine(nn.Module):
 
     def step(self, state: GenomeState, batch: ReadBatch, params: StepParams):
         """One update from a ReadBatch on this engine's device. Updates
-        ``state`` in place and returns it with the step's StepAux."""
-        full = CovRows(batch.mr_bc, batch.mr_g, batch.mr_len, batch.ex_bcsym, batch.ex_g)
-        return self._step(state, full, None, None, params,
-                          batch.rs_row, batch.rs_strand, rs_w=batch.rs_w)
+        ``state`` in place and returns it with the step's StepAux (on the
+        card, a replayed step's StepAux lives in the graph's output buffers
+        until the next replay of its tier)."""
+        return self._through_graphs("step", state, batch._asdict(), params, self._classic)
 
     def step_gated(self, state: GenomeState, gated: dict, bits: torch.Tensor,
                    params: StepParams):
@@ -449,13 +549,7 @@ class RunsEngine(nn.Module):
         is accepted, a truncated-record row iff it is rejected, so the
         result is bit-identical to packing only the selected rows (the
         classic flow). Updates ``state`` in place."""
-        g = gated
-        full = CovRows(g["f_mr_bc"], g["f_mr_g"], g["f_mr_len"], g["f_ex_bcsym"], g["f_ex_g"],
-                       g["f_mr_read"], g["f_ex_read"])
-        trunc = CovRows(g["t_mr_bc"], g["t_mr_g"], g["t_mr_len"], g["t_ex_bcsym"], g["t_ex_g"],
-                        g["t_mr_read"], g["t_ex_read"])
-        return self._step(state, full, trunc, bits, params,
-                          g["rs_row"], g["rs_strand"], rs_read=g["rs_read"])
+        return self._through_graphs("step_gated", state, dict(gated, bits=bits), params, self._gated)
 
     # ----------------------------------------------------------- host side --
 

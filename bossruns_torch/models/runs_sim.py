@@ -328,9 +328,11 @@ class BossRunsSim:
 
         All of it is strategy-independent, so it runs on the prefetch worker
         while the previous batch's step runs. The sets ship as one gated
-        wire buffer (RunsEngine.pack_gated), uploaded in one plain
-        synchronous copy on the worker's current (default) stream, the
-        stream the step also runs on."""
+        wire buffer (RunsEngine.pack_gated), packed into a pinned staging
+        buffer and uploaded by one async copy into the tier's static device
+        wire, on the worker's current (default) stream, the stream the step
+        also runs on: queued after the step before it, which reads the
+        same buffer when the tier repeats."""
         seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
         full = parse_paf(paf_f)
         trunc = parse_paf(paf_t)
@@ -413,11 +415,11 @@ class BossRunsSim:
             "rs_read": pad_arr(np.array(rs_read, np.int32), "rs", fill=-1),
         }
         self._gated_floors = floors
-        wire, spec = self.engine.pack_gated(d)
+        wire, spec = self.engine.pack_gated(d, out=self.engine.stage)
         return dict(
             seqs=seqs, quals=quals, bc_names=bc_names, full=full, trunc=trunc,
             best_full=best_full, best_trunc=best_trunc, rid_list=rid_list,
-            rid_idx=rid_idx, read_bc=read_bc, wire=self.engine.upload_wire(wire), spec=spec,
+            rid_idx=rid_idx, read_bc=read_bc, wire=self.engine.upload_wire(wire, spec), spec=spec,
         )
 
     def _submit_prefetch(self, fn) -> None:

@@ -131,9 +131,17 @@ def windowed_sums_rev(cs, w, seg_start, rows):
     return cs[..., 1 : n + 1] - cs[..., lo]
 
 
+def ccl_windows(approx_ccl: torch.Tensor, win_clamp: int) -> torch.Tensor:
+    """The 10 CCL windows in ds rows, on approx_ccl's device:
+    clip(approx_ccl // DS, 1, win_clamp) (models/runs.py:674 of the JAX
+    package), as H4 reads them from the device."""
+    return torch.clamp(torch.div(approx_ccl.long(), DS, rounding_mode="floor"), 1, win_clamp)
+
+
 def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 4,
                      tiled: bool = False):
-    """(smu, benefit), both [..., N, 2], from downsampled scores [..., N].
+    """(smu, benefit), both [..., N, 2], from downsampled scores [..., N]
+    and the 10 CCL windows in ds rows (a tensor or a sequence of ints).
 
     benefit = sum_i weight_i * window_sum(ccl_i) - smu, clipped >= 0, with
     the 10 CCL piece weights 0.95..0.05, accumulated as an unrolled
@@ -144,7 +152,7 @@ def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 
     n = scores_ds.shape[-1]
     rows = torch.arange(n, device=scores_ds.device)
     cs = tile_csum(scores_ds) if tiled else _csum(scores_ds)
-    wins = [max(int(w), 1) for w in approx_ccl_ds]
+    wins = torch.clamp_min(torch.as_tensor(approx_ccl_ds, device=scores_ds.device), 1)
 
     def fwd(w):
         return windowed_sums_fwd(cs, w, seg_end, rows)
@@ -286,12 +294,14 @@ def ubar0_partial(fhat, smu, dtype):
     return (fhat.to(dtype) * smu.to(dtype)).float().double().sum()
 
 
-def threshold_from_bins(counts, fsum, norm, ubar0, time_cost: float, nbins: int,
-                        window: int = 100):
-    """Threshold scan over exponent bins (sequences.py:565-649)."""
+def threshold_from_bins(counts, fsum, norm, ubar0, time_cost, nbins: int, window: int = 100):
+    """Threshold scan over exponent bins (sequences.py:565-649). time_cost:
+    a float or a 0-d tensor (StepParams); tc = time_cost // window is
+    Python's float floor division in f64, on the bins' device."""
     dtype, dev = counts.dtype, counts.device
     alpha_t, rho_t, mu_t = 300 // window, 300 // window, 400 // window
-    tc = float(time_cost) // window
+    tc = torch.div(torch.as_tensor(time_cost, dtype=torch.float64, device=dev),
+                   scalar(window, torch.float64, dev), rounding_mode="floor").to(dtype)
     norm_safe = torch.where(norm > 0, norm, 1.0)
     used = counts > 0
     f_mean = torch.where(used, fsum / torch.clamp_min(counts, 1.0), 0.0)
@@ -311,7 +321,7 @@ def threshold_from_bins(counts, fsum, norm, ubar0, time_cost: float, nbins: int,
     return benefit_bin[torch.clamp_min(thr_idx, 0)]
 
 
-def find_strategy(benefit, smu, fhat, time_cost: float, nbins: int = NBINS,
+def find_strategy(benefit, smu, fhat, time_cost, nbins: int = NBINS,
                   window: int = 100) -> ThresholdResult:
     """Global accept/reject threshold via binary-exponent binning, in the
     dtype of ``benefit``."""
@@ -569,17 +579,18 @@ def dropout_table(per_contig, contig_denom, S, dropout_mod: int, dropout_min_mea
             mean > scalar(dropout_min_mean, S, dev))
 
 
-def switch_buckets(winsums, D, S, bucket_src, bucket_valid, bucket_on,
-                   bucket_threshold: float) -> None:
+def switch_buckets(winsums, D, S, bucket_src, bucket_valid, bucket_on, bucket_threshold) -> None:
     """Sticky bucket switches in place (models/runs.py:630-635): a bucket's
     window mean (the window sum over BUCKET in D, rounded to S) against the
-    f32 threshold, compared exactly (as XLA promotes the two)."""
+    f32 threshold (a 0-d tensor, StepParams, or a float), compared exactly
+    (as XLA promotes the two)."""
     nb = bucket_on.shape[0]
     w = decode_sums(winsums, D).reshape(nb, -1)
     src = bucket_src.long()
     wsum = w[:, torch.clamp_min(src, 0)]
     mean = round_to(torch.where((src >= 0)[None, :], wsum / scalar(BUCKET, D, w.device), 0.0), S)
-    bucket_on |= (mean.double() >= bucket_threshold) & bucket_valid[None, :]
+    thr = torch.as_tensor(bucket_threshold, dtype=torch.float64, device=w.device)
+    bucket_on |= (mean.double() >= thr) & bucket_valid[None, :]
 
 
 def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, aux,
@@ -587,9 +598,10 @@ def row_stage_plain(*, scores, covsum, changed, zeroed, bucket_on, read_starts, 
                     site_valid, contig_id_ds, contig_denom, win_id_ds, n_win_pad: int,
                     bucket_src, bucket_valid, fhat_idx, fhat_valid, fhat_rows, n_fhat: int,
                     n_real_sites: float, freeze_cov: int, dropout_mod: int,
-                    dropout_min_mean: float, bucket_threshold: float, fhat_alpha: float,
+                    dropout_min_mean: float, bucket_threshold, fhat_alpha: float,
                     fhat_p0: float, on_target: float):
-    """Plain version of H3 (models/runs.py:592-663).
+    """Plain version of H3 (models/runs.py:592-663). bucket_threshold: the
+    f32 0-d tensor of StepParams, on the scores' device.
 
     Scores, read_starts and aux are in the score dtype S; contig_denom and
     fhat_rows in the decision dtype D. Coverage sums are exact int64 sums of
@@ -664,6 +676,7 @@ def _check_rows(kw) -> str:
     c(kw["fhat_rows"], "fhat_rows", D, (wf,), dev)
     c(kw["fhat_idx"], "fhat_idx", torch.int32, (Gd,), dev)
     c(kw["aux"], "aux", S, (4,), dev)
+    c(kw["bucket_threshold"], "bucket_threshold", torch.float32, (), dev)
     n_rs = kw["rs_row"].shape[0]
     c(kw["rs_row"], "rs_row", torch.int32, (n_rs,), dev)
     c(kw["rs_strand"], "rs_strand", torch.int32, (n_rs,), dev)
@@ -735,15 +748,14 @@ def _row_struct(kw, ws) -> K.RowArgs:
         freeze_cov=kw["freeze_cov"], gated=int(kw.get("rs_read") is not None),
         alpha_one=int(alpha == 1.0), pad0=0,
         dropout_mod=float(kw["dropout_mod"]), dropout_min_mean=float(kw["dropout_min_mean"]),
-        bucket_threshold=float(kw["bucket_threshold"]),
         c_denom0=2.0 * n * alpha, c_bn0=(2.0 * n - 1.0) * alpha, beta_denom=beta_denom,
         p0_bit=p0 / (p0 + (1.0 - p0)), alpha=alpha, on_target=kw["on_target"],
         n_real_sites=kw["n_real_sites"],
         **{k: K.ptr(kw.get(k)) for k in (
             "covsum", "changed", "site_valid", "contig_id_ds", "contig_denom",
             "win_id_ds", "bucket_src", "bucket_valid", "rs_row", "rs_strand", "rs_w",
-            "rs_read", "bits", "fhat_valid", "fhat_rows", "fhat_idx", "scores",
-            "zeroed", "bucket_on", "read_starts", "aux")},
+            "rs_read", "bits", "fhat_valid", "fhat_rows", "fhat_idx", "bucket_threshold",
+            "scores", "zeroed", "bucket_on", "read_starts", "aux")},
         **{k: K.ptr(v) for k, v in ws.items()},
         n_slots=ws["slots"].numel(),
     )
@@ -765,20 +777,22 @@ def row_stage(**kw):
 # ===================================================== H4: benefit_strategy ==
 
 def benefit_strategy_plain(*, scores_ds, seg_start, seg_end, fhat_exp, bucket_on,
-                           bucket_idx, strat_valid, strat, aux, mu_ds: int, windows,
-                           time_cost: float, reference_quirks: bool = False,
-                           tile_scan: bool = False):
+                           bucket_idx, strat_valid, strat, aux, mu_ds: int, approx_ccl,
+                           time_cost, win_clamp: int, win_cap: int | None = None,
+                           reference_quirks: bool = False, tile_scan: bool = False):
     """Plain version of H4 (models/runs.py:666-687), in the decision dtype
     D of scores_ds and fhat_exp.
 
-    windows: the 10 CCL windows in ds rows (>= 1). In place: strat (where
+    approx_ccl (int32 [10]) and time_cost (f32 0-d) are StepParams on the
+    device; the windows are ``ccl_windows(approx_ccl, win_clamp)`` (win_cap
+    bounds the kernel's shared memory only). In place: strat (where
     the bucket gate is open and the step updates), aux[1] (updated) and
     aux[2] (threshold, in aux's dtype); aux[0] (any bucket on) is read.
     Returns (smu, benefit) [nb, Gd, 2] and the threshold (0-d), in D.
     ``tile_scan``: the cumsum of ``tile_csum`` (sharded == single where the
     sums are not exact), else one sequential scan (the oracle's order)."""
-    smu, benefit = expected_benefit(scores_ds, windows, seg_start, seg_end, mu_ds=mu_ds,
-                                    tiled=tile_scan)
+    smu, benefit = expected_benefit(scores_ds, ccl_windows(approx_ccl, win_clamp), seg_start,
+                                    seg_end, mu_ds=mu_ds, tiled=tile_scan)
     fhat_b = fhat_exp[None].expand_as(benefit)
     res = find_strategy(benefit, benefit if reference_quirks else smu, fhat_b, time_cost)
     bidx = bucket_idx.long()
@@ -799,10 +813,10 @@ AUX_KIND = {torch.float32: 0, torch.float64: 1, torch.float16: 2}
 MAX_WINDOW_ROWS = 12000
 
 
-def _check_benefit(kw) -> tuple[int, list[int], str]:
+def _check_benefit(kw) -> tuple[int, str]:
     """Raise unless the arguments of an H4 launch are the tensors it takes;
-    returns the bucket count, the 10 CCL windows (>= 1) and the entry
-    point's suffix for the decision dtype of ``scores_ds``."""
+    returns the bucket count and the entry point's suffix for the decision
+    dtype of ``scores_ds``."""
     scores_ds = kw["scores_ds"]
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
@@ -822,12 +836,14 @@ def _check_benefit(kw) -> tuple[int, list[int], str]:
     if aux.dtype not in AUX_KIND:
         raise ValueError(f"aux: dtype {aux.dtype}, expected float16, float32 or float64")
     c(aux, "aux", aux.dtype, (4,), dev)
-    windows = [max(int(w), 1) for w in kw["windows"]]
-    if len(windows) != 10:
-        raise ValueError("expected 10 CCL windows")
-    if max(windows + [int(kw["mu_ds"])]) > MAX_WINDOW_ROWS:
-        raise ValueError(f"H4 stages windows of at most {MAX_WINDOW_ROWS} rows in shared memory")
-    return nbk, windows, "_d32" if D == torch.float32 else ""
+    c(kw["approx_ccl"], "approx_ccl", torch.int32, (10,), dev)
+    c(kw["time_cost"], "time_cost", torch.float32, (), dev)
+    cap, mu_ds = int(kw["win_cap"]), int(kw["mu_ds"])
+    if not mu_ds <= cap <= MAX_WINDOW_ROWS or int(kw["win_clamp"]) < 1:
+        raise ValueError(f"H4 stages windows of at most {MAX_WINDOW_ROWS} rows in shared memory: "
+                         f"win_cap {cap} must lie in [mu_ds {mu_ds}, {MAX_WINDOW_ROWS}], "
+                         f"win_clamp {kw['win_clamp']} >= 1")
+    return nbk, "_d32" if D == torch.float32 else ""
 
 
 def benefit_strategy(**kw):
@@ -841,7 +857,7 @@ def benefit_strategy(**kw):
         return benefit_strategy_plain(**kw)
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
-    nbk, windows, variant = _check_benefit(kw)
+    nbk, variant = _check_benefit(kw)
 
     D, f64 = scores_ds.dtype, torch.float64
     smu = torch.empty((nb, Gd, 2), dtype=D, device=dev)
@@ -861,13 +877,13 @@ def benefit_strategy(**kw):
     a = K.StratArgs(
         nb=nb, Gd=Gd, nbk=nbk, mu_ds=int(kw["mu_ds"]),
         quirks=int(kw.get("reference_quirks", False)),
-        win=(ctypes.c_int32 * 10)(*windows),
+        win_clamp=int(kw["win_clamp"]), win_cap=int(kw["win_cap"]),
         weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
-        tc=float(kw["time_cost"]) // 100, aux_kind=AUX_KIND[kw["aux"].dtype], pad0=0,
+        aux_kind=AUX_KIND[kw["aux"].dtype], pad0=0,
         smu=smu.data_ptr(), benefit=benefit.data_ptr(), threshold=threshold.data_ptr(),
         **{k: kw[k].data_ptr() for k in (
-            "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
-            "strat_valid", "strat", "aux")},
+            "approx_ccl", "time_cost", "scores_ds", "seg_start", "seg_end", "fhat_exp",
+            "bucket_on", "bucket_idx", "strat_valid", "strat", "aux")},
         **{k: v.data_ptr() for k, v in scratch.items()},
         row0=0, halo=0, cs_stride=Gd + 1, n_tiles_g=n_tiles, tile0=0,
         ext=scratch["cs"].data_ptr(), tiles_g=scratch["tile_sums"].data_ptr(),
@@ -1082,13 +1098,15 @@ def benefit_workspace(scores_ds) -> dict:
 
 
 def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, fhat_exp,
-                        bucket_on, bucket_idx, strat_valid, strat, aux, mu_ds: int, windows,
-                        time_cost: float, row0: int, halo: int,
-                        reference_quirks: bool = False, tile_scan: bool = False) -> None:
+                        bucket_on, bucket_idx, strat_valid, strat, aux, mu_ds: int, approx_ccl,
+                        time_cost, win_clamp: int, row0: int, halo: int,
+                        win_cap: int | None = None, reference_quirks: bool = False,
+                        tile_scan: bool = False) -> None:
     """Plain version of H8's benefit entry: one phase of
     ``benefit_strategy_plain`` on one shard, its outputs in ``ws``
     (``benefit_workspace``), in the decision dtype D of scores_ds. seg_start/seg_end hold
-    global ds rows; windows are at most ``halo`` rows. scan: the cumsum of
+    global ds rows; the windows (``ccl_windows(approx_ccl, win_clamp)``, as
+    benefit_strategy_plain's) are at most ``halo`` rows. scan: the cumsum of
     each SCAN_TILE-row tile from zero, and the tile totals; prefix: add
     each tile's exclusive prefix over the gathered totals (global tile
     order, summed sequentially); windows: smu, benefit, norm, any-nonzero
@@ -1131,13 +1149,15 @@ def shard_benefit_plain(phase: str, ws: dict, *, scores_ds, seg_start, seg_end, 
         cs_start = ext[:, torch.clamp(seg_s + off, 0, last)]
         base = ext[:, halo: halo + Gd]
         base1 = ext[:, halo + 1: halo + 1 + Gd]
+        cols = halo + torch.arange(Gd, device=dev)
+        windows = ccl_windows(approx_ccl, win_clamp)
 
         def fwd(w):
-            shifted = ext[:, halo + w: halo + w + Gd]
+            shifted = ext[:, cols + w]
             return torch.where(rows_g + w <= seg_e, shifted, cs_end) - base
 
         def rev(w):
-            shifted = ext[:, halo + 1 - w: halo + 1 - w + Gd]
+            shifted = ext[:, cols + 1 - w]
             return base1 - torch.where(rows_g + 1 - w >= seg_s, shifted, cs_start)
 
         smu = torch.stack([fwd(mu_ds), rev(mu_ds)], dim=-1)
@@ -1187,10 +1207,11 @@ def shard_benefit(phase: str, ws: dict, **kw) -> None:
         raise ValueError(f"unknown benefit phase {phase!r}")
     dev = scores_ds.device
     nb, Gd = scores_ds.shape
-    nbk, windows, variant = _check_benefit(kw)
+    nbk, variant = _check_benefit(kw)
     D = scores_ds.dtype
     halo = int(kw["halo"])
-    if max(windows + [int(kw["mu_ds"])]) > max(halo, 1):
+    reach = max(int(kw["mu_ds"]), min(int(kw["win_cap"]), int(kw["win_clamp"])))
+    if reach > max(halo, 1):
         raise ValueError("the CCL windows must be at most halo rows")
     ext, tiles = ws["ext"], ws["tiles_g"]
     if phase == "prefix":
@@ -1200,12 +1221,12 @@ def shard_benefit(phase: str, ws: dict, **kw) -> None:
     a = K.StratArgs(
         nb=nb, Gd=Gd, nbk=nbk, mu_ds=int(kw["mu_ds"]),
         quirks=int(kw.get("reference_quirks", False)),
-        win=(ctypes.c_int32 * 10)(*windows),
+        win_clamp=int(kw["win_clamp"]), win_cap=int(kw["win_cap"]),
         weight=(ctypes.c_double * 10)(*CCL_WEIGHTS),
-        tc=float(kw["time_cost"]) // 100, aux_kind=AUX_KIND[kw["aux"].dtype], pad0=0,
+        aux_kind=AUX_KIND[kw["aux"].dtype], pad0=0,
         **{k: kw[k].data_ptr() for k in (
-            "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on", "bucket_idx",
-            "strat_valid", "strat", "aux")},
+            "approx_ccl", "time_cost", "scores_ds", "seg_start", "seg_end", "fhat_exp",
+            "bucket_on", "bucket_idx", "strat_valid", "strat", "aux")},
         **{k: ws[k].data_ptr() for k in (
             "smu", "benefit", "threshold", "cs", "tile_sums", "any_nz", "counts", "fsum",
             "ubar0")},

@@ -19,12 +19,14 @@ failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -46,13 +48,13 @@ class RowArgs(ctypes.Structure):
         ("freeze_cov", ctypes.c_int32), ("gated", ctypes.c_int32),
         ("alpha_one", ctypes.c_int32), ("pad0", ctypes.c_int32),
         *[(n, ctypes.c_double) for n in (
-            "dropout_mod", "dropout_min_mean", "bucket_threshold",
+            "dropout_mod", "dropout_min_mean",
             "c_denom0", "c_bn0", "beta_denom", "p0_bit", "alpha", "on_target", "n_real_sites")],
         *[(n, _P) for n in (
             "covsum", "changed", "site_valid", "contig_id_ds", "contig_denom",
             "win_id_ds", "bucket_src", "bucket_valid", "rs_row", "rs_strand",
             "rs_w", "rs_read", "bits", "fhat_valid", "fhat_rows", "fhat_idx",
-            "scores", "zeroed", "bucket_on", "read_starts",
+            "bucket_threshold", "scores", "zeroed", "bucket_on", "read_starts",
             "scores_ds", "fhat_exp", "aux",
             "per_contig", "winsums", "total", "thr_c", "active_c", "fhat_w", "scale", "low",
             "tab", "slots",
@@ -67,12 +69,11 @@ class StratArgs(ctypes.Structure):
     _fields_ = [
         ("nb", _I64), ("Gd", _I64), ("nbk", _I64),
         ("mu_ds", ctypes.c_int32), ("quirks", ctypes.c_int32),
-        ("win", ctypes.c_int32 * 10),
+        ("win_clamp", ctypes.c_int32), ("win_cap", ctypes.c_int32),
         ("weight", ctypes.c_double * 10),
-        ("tc", ctypes.c_double),
         ("aux_kind", ctypes.c_int32), ("pad0", ctypes.c_int32),
         *[(n, _P) for n in (
-            "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on",
+            "approx_ccl", "time_cost", "scores_ds", "seg_start", "seg_end", "fhat_exp", "bucket_on",
             "bucket_idx", "strat_valid", "strat", "aux", "smu", "benefit",
             "threshold", "cs", "tile_sums", "norm_bits", "any_nz", "counts",
             "fsum", "ubar0",
@@ -116,7 +117,11 @@ class Kernel:
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"kernel {self.name} failed: {error_string(err)}")
-        self.launches += 1
+        rec = getattr(_recording, "counts", None)
+        if rec is None:
+            self.launches += 1
+        else:
+            rec[self.name] += 1
 
 
 def _score_args(tiny_type) -> list:
@@ -193,6 +198,30 @@ def launches() -> dict[str, int]:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` to the counts: a replayed CUDA graph's launches (what
+    ``recording`` counted while it was captured)."""
+    for k, n in delta.items():
+        KERNELS[k].launches += n
+
+
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's kernel calls into a Counter of their own, not
+    into the launch counts: a CUDA graph's capture records launches without
+    making them. Each replay of the graph adds the Counter (``add_launches``);
+    other threads' launches meanwhile count as usual."""
+    rec = Counter()
+    _recording.counts = rec
+    try:
+        yield rec
+    finally:
+        _recording.counts = None
 
 
 _lock = threading.Lock()

@@ -26,6 +26,13 @@ shard tensors. The kernels are H1, H2, H3 and H4 through their shard entry
 points (``ops.genome_ops.shard_coverage``, ``shard_rows``,
 ``shard_benefit``: kernel H8) and H2 per shard.
 
+On one card, the in-process mesh's step is captured as the single engine's
+is (models/graphs.py): one CUDA graph per batch-shape tier over every local
+shard and its collectives (``torch.stack`` and copies on one device),
+replayed from the tier's second step on. The process-group mesh stays
+eager: its collectives are host calls into ``torch.distributed``. So does
+an in-process mesh over several devices, and any step under ``probe``.
+
 Exactness (the JAX contract, mesh.py:26-31): every sum across shards is of
 integers (coverage, buckets, contig means, bin counts; reduced as int64) or
 of f32-rounded values in f64 (scores, fhat weights, ubar0 products), and
@@ -310,6 +317,12 @@ class ShardedRunsEngine(RunsEngine):
         self.halo = int(min(self.Gdl, config.ccl_clamp_ds))
         self.device = mesh.devices[0]
         self.probe = None
+        self.graphs, self._staging = None, None
+        if (isinstance(mesh.comm, InProcessComm) and self.device.type == "cuda"
+                and all(d == self.device for d in mesh.devices)):
+            from ..models.graphs import GraphCache
+
+            self.graphs = GraphCache(self.device)
         site_axis = ("seq", "site_valid")
         row_axis = ("contig_id_ds", "seg_start", "seg_end", "strat_valid", "fhat_idx",
                     "bucket_idx", "win_id_ds")
@@ -407,9 +420,42 @@ class ShardedRunsEngine(RunsEngine):
     def step_gated(self, *args, **kw):
         raise NotImplementedError("the sharded step runs the classic flow only")
 
+    def step_from_numpy(self, state: GenomeState, batch_np, params: StepParams):
+        """One step from a host batch (numpy): packed, uploaded in one copy
+        to the mesh's first device and stepped as ``step`` (the sims keep the
+        mesh off the wire: ``wire_capable`` is False)."""
+        wire, spec = self.pack_wire(batch_np)
+        return self.step(state, self.unpack_wire(torch.from_numpy(wire).to(self.device), spec),
+                         params)
+
     def step(self, state: GenomeState, batch, params: StepParams):
         """One update of every local shard from a ReadBatch (any device) or
-        from ``put_batch``'s list. Updates ``state`` in place."""
+        from ``put_batch``'s list. Updates ``state`` in place. On one card
+        (in-process mesh, no ``probe``) through the graph cache."""
+        batches = batch if isinstance(batch, list) else self.put_batch(batch)
+        if self.graphs is None or self.probe is not None:
+            return self._step_local(state, batches, params)
+        uniq, order = [], []
+        for b in batches:
+            i = next((k for k, u in enumerate(uniq) if u is b), len(uniq))
+            if i == len(uniq):
+                uniq.append(b)
+            order.append(i)
+        inputs = {f"{i}.{k}": v for i, b in enumerate(uniq) for k, v in b._asdict().items()}
+
+        def body(state, inputs, params):
+            shared = [ReadBatch(**{k: inputs[f"{i}.{k}"] for k in ReadBatch._fields})
+                      for i in range(len(uniq))]
+            return self._step_local(state, [shared[i] for i in order], params)
+
+        return self.graphs.run("step", state, inputs, params, body,
+                               self.win_cap(params, self.halo), tag=tuple(order))
+
+    def eager(self, path: str, state, batch, params: StepParams):
+        """The step body run eagerly, outside the graph cache (``path``:
+        "step"): the reference a replay is held against and timed beside."""
+        if path != "step":
+            raise NotImplementedError("the sharded step runs the classic flow only")
         batches = batch if isinstance(batch, list) else self.put_batch(batch)
         return self._step_local(state, batches, params)
 
@@ -526,21 +572,24 @@ class ShardedRunsEngine(RunsEngine):
             fhat_valid=c["fhat_valid"], fhat_rows=c["fhat_rows"], n_fhat=self.layout.n_fhat,
             n_real_sites=self.n_real_sites, freeze_cov=cfg.freeze_cov,
             dropout_mod=cfg.dropout_mod, dropout_min_mean=cfg.dropout_min_mean,
-            bucket_threshold=params.bucket_threshold, fhat_alpha=cfg.fhat_alpha,
+            bucket_threshold=params.bucket_threshold.to(c["seq"].device),
+            fhat_alpha=cfg.fhat_alpha,
             fhat_p0=cfg.fhat_p0, on_target=cfg.on_target,
         )
 
     def _benefit_kw(self, state, i, rws, aux, params) -> dict:
         """Arguments of shard i's benefit phases (RunsEngine.benefit_args on
-        the shard's blocks; windows clipped to the halo, mesh.py:358-361)."""
+        the shard's blocks; windows clipped to the halo on the device,
+        mesh.py:358-361)."""
         sh, cfg = self.shards[i], self.config
-        windows = [min(max(int(c) // DS, 1), self.halo) for c in params.approx_ccl]
         return dict(
             scores_ds=rws["scores_ds"], seg_start=sh.c["seg_start"], seg_end=sh.c["seg_end"],
             fhat_exp=rws["fhat_exp"], bucket_on=state.bucket_on[i],
             bucket_idx=sh.c["bucket_idx"], strat_valid=sh.c["strat_valid"],
-            strat=state.strat[i], aux=aux, mu_ds=cfg.mu // DS, windows=windows,
-            time_cost=params.time_cost, row0=sh.row0, halo=self.halo,
+            strat=state.strat[i], aux=aux, mu_ds=cfg.mu // DS,
+            approx_ccl=params.approx_ccl.to(sh.device), time_cost=params.time_cost.to(sh.device),
+            win_clamp=self.halo,
+            win_cap=self.win_cap(params, self.halo), row0=sh.row0, halo=self.halo,
             reference_quirks=cfg.reference_quirks,
         )
 

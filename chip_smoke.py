@@ -114,12 +114,26 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      wall seconds), then each ``python -m bossruns_torch.tools.<name>``
      at its default shape but check_sequencer_connection (which needs a
      sequencer), all in processes where jax and the JAX package cannot
-     be imported and which report holding no module of either.
+     be imported and which report holding no module of either; the
+     headline's engines must have replayed their captured step;
+ 21. the captured step (models/graphs.py: one CUDA graph per path and
+     batch-shape tier, StepParams on the card) against the eager step
+     body, in turns: at phase 3's shape each path (step, step_from_numpy,
+     step_gated) and each engine option through step, and, with phase
+     14's genome, the chr1 single engine and the (1, 4) in-process mesh;
+     every step's state, strategy, aux and threshold bit for bit (16
+     steps each), host-clock p50 of both (the first two of each left
+     out), the device time of one step each way, the replay, eager and
+     capture counts and capture ms, and at chr1 the peak memory of each
+     mode over 3 steps from a fresh state.
 Phase 3 also holds RunsEngine.step_from_numpy (one uint32 wire upload)
 equal to step on the card and times its pack + upload beside the
 per-field upload that pack_batch(device=...) makes; phase 4's classic
 sim steps through step_from_numpy and its gated sim ships pack_gated's
 buffer, each counted.
+Every engine step on the card goes through the graph cache (the sims
+print their replayed and eager counts); the eager body runs only where
+phase 21 holds a replay against it, and under the sharded engine's probe.
 Each driven path (4, 7, 8, 11, 12, the sharded run of 14, 15, each run
 of 16 and 17, and each option's engine and mesh run of 18 and 19) runs
 with the launch counts set to 0 just before it and read just after. H2's bound is
@@ -776,15 +790,21 @@ def check_wire(eng, state, batch, batch_np, params, card: str) -> dict:
     wire, spec = eng.pack_wire(batch_np)
 
     def wire_up():
-        w, sp = eng.pack_wire(batch_np)
-        return eng.unpack_wire(eng.upload_wire(w), sp)
+        w, sp = eng.pack_wire(batch_np, out=eng.stage)
+        return eng.unpack_wire(eng.upload_wire(w, sp), sp)
 
-    out = dict(wire_ms=host_ms(wire_up), fields_ms=host_ms(lambda: batch_from_numpy(batch_np,
-                                                                                  eng.device)),
+    def wire_pageable():
+        w, sp = eng.pack_wire(batch_np)
+        return eng.unpack_wire(torch.from_numpy(w).to(eng.device), sp)
+
+    out = dict(wire_ms=host_ms(wire_up), pageable_ms=host_ms(wire_pageable),
+               fields_ms=host_ms(lambda: batch_from_numpy(batch_np, eng.device)),
                wire_bytes=int(wire.nbytes))
-    log(f"step_from_numpy == step on the card (state, aux, threshold bit for bit); pack + one "
-        f"upload of the {out['wire_bytes']} B wire {out['wire_ms']:.3f} ms vs the per-field upload "
-        f"of pack_batch(device=...) {out['fields_ms']:.3f} ms (8 copies), host clock [{card}]")
+    log(f"step_from_numpy == step on the card (state, aux, threshold bit for bit); pack into "
+        f"pinned staging + one async upload into the tier's device wire of the "
+        f"{out['wire_bytes']} B wire {out['wire_ms']:.3f} ms, the same pack into a new array + a "
+        f"pageable upload {out['pageable_ms']:.3f} ms, vs the per-field upload of "
+        f"pack_batch(device=...) {out['fields_ms']:.3f} ms (8 copies), host clock [{card}]")
     return out
 
 
@@ -819,6 +839,10 @@ def check_sim(sim, what: str) -> float:
             raise AssertionError(f"{what}: mask {name} shape {masks[name].shape}")
     log(f"{what} checks: buckets on, accepted share {acc:.4f}, time_boss {tb} < "
         f"time_control {tc}, masks (len//100, 2, 1)")
+    g = sim.engine.graphs
+    log(f"{what} steps: " + ("eager (no graph cache on this engine)" if g is None else
+                             f"replayed {dict(g.replays)}, eager {dict(g.eager)}, "
+                             f"{len(g.captures)} captures"))
     return acc
 
 
@@ -1529,6 +1553,10 @@ def dense_scores(kw: dict, card: str) -> dict:
     return res
 
 
+#: what a step p50 over a run's third step on leaves out
+REPLAYED = "steps 1-2 are the shape tier's eager warm-up and its graph capture"
+
+
 def _run_engine(make, batches, dev) -> dict:
     """Build an engine with ``make()`` and step it over device batches:
     per-step host-clock times (step + aux pull), per-step aux and
@@ -1618,10 +1646,10 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
         raise AssertionError("chromosome: the strategy never updated")
     out = {}
     for name, r in (("single", s_res), ("sharded (1, 4)", m_res)):
-        out[name] = dict(p50=statistics.median(r["times"]), peak=r["peak"])
-        log(f"chromosome {name}: step p50 {out[name]['p50']:.2f} ms (steps "
-            f"{', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux pull), peak "
-            f"memory {r['peak'] / 2**30:.2f} GiB above resident [{card}]")
+        out[name] = dict(p50=statistics.median(r["times"][2:]), peak=r["peak"])
+        log(f"chromosome {name}: step p50 {out[name]['p50']:.2f} ms over the replayed steps "
+            f"(steps {', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux pull; "
+            f"{REPLAYED}), peak memory {r['peak'] / 2**30:.2f} GiB above resident [{card}]")
     log(f"chromosome: sharded == single bit for bit over {N_CHR_STEPS} steps (coverage "
         f"checksum {ck1}, zeroed, bucket_on, read_starts, strat, aux, threshold "
         f"{last.threshold!r}); updated={last.updated}")
@@ -1707,7 +1735,7 @@ def chrom_benefit(eng, st, b, card: str, launches: int) -> dict:
         f"{res['device_ms']:.4f} ms ({fmt_split(res['split'])}), bound {res['bound_ms']:.4f} ms "
         f"by bytes ({res['bytes']} B; {ds.shape[1]} rows) [{card}]")
     del smu
-    kw = dict(bargs, row0=0, halo=max(bargs["windows"] + [bargs["mu_ds"]]))
+    kw = dict(bargs, row0=0, halo=bargs["win_cap"])
     fe_b = fe[None].expand_as(ben)
     k = torch.arange(ben.numel(), device=ben.device).remainder(SPREAD_BINS).reshape(ben.shape)
     pow2 = torch.from_numpy(np.ldexp(1.0, -np.arange(SPREAD_BINS))).to(ben.device)
@@ -1784,8 +1812,8 @@ def run_mesh_paths(dev, card: str, work: Path, paths: dict, sl: dict) -> None:
     ah = m_res["auxes"][-1][2]
     log(f"(2, 2) mesh, 2 barcodes, 8.05 Mb: == single engine bit for bit over 3 steps "
         f"(threshold {ah.threshold!r}, updated={ah.updated}); step p50 "
-        f"{statistics.median(m_res['times']):.2f} ms vs single "
-        f"{statistics.median(s_res['times']):.2f} ms [{card}]")
+        f"{statistics.median(m_res['times'][2:]):.2f} ms vs single "
+        f"{statistics.median(s_res['times'][2:]):.2f} ms ({REPLAYED}) [{card}]")
     del s_res, m_res
 
     sim = BossRunsSim(ref=paths["ref"], fq=paths["fq"], paf_full=paths["paf_full"],
@@ -2533,11 +2561,11 @@ def run_options_chromosome(dev, card: str, genome: dict, options=CHR_OPTIONS) ->
         launches = kernels.launches()
         st = r["state"]
         strat[name] = st.strat[:, r["engine"].strat_valid, :].clone()
-        out[name] = dict(p50=statistics.median(r["times"]), peak=r["peak"],
+        out[name] = dict(p50=statistics.median(r["times"][2:]), peak=r["peak"],
                          updated=r["auxes"][-1][2].updated)
-        log(f"chromosome single ({name}): step p50 {out[name]['p50']:.2f} ms (steps "
-            f"{', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux pull), peak "
-            f"memory {r['peak'] / 2**30:.2f} GiB above resident; updated="
+        log(f"chromosome single ({name}): step p50 {out[name]['p50']:.2f} ms over the replayed "
+            f"steps (steps {', '.join(f'{t:.1f}' for t in r['times'])} ms, host clock incl. aux "
+            f"pull; {REPLAYED}), peak memory {r['peak'] / 2**30:.2f} GiB above resident; updated="
             f"{out[name]['updated']} [{card}]")
         if r["engine"].dtype == torch.float16:
             args = r["engine"].score_args(st)
@@ -2825,6 +2853,205 @@ def guarded_run(args: list[str], guard: Path, timeout: float) -> tuple[int, str,
     return proc.returncode, proc.stdout, time.perf_counter() - t0
 
 
+# ------------------------------------------------ phase 21: captured steps --
+
+#: steps of each path held graph against eager, and more taken in turns for
+#: the host-clock p50s (each side's first two left out: the graph's warm-up
+#: and capture)
+GRAPH_CHECK, GRAPH_TIME = 4, 12
+#: engine options of phase 21 (phase 18's and phase 19's, and the default)
+GRAPH_OPTIONS = {"default": {}, **OPTIONS, "dtype=float16": dict(dtype="float16"),
+                 "dtype=float16, benefit_dtype=float32": dict(dtype="float16",
+                                                              benefit_dtype="float32")}
+
+
+def same_state(a, b) -> bool:
+    """Every field of two states (tensors, or per-shard lists) equal, bit
+    for bit, compared on the card."""
+    for x, y in zip(a, b):
+        xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
+        if not all(torch.equal(p, q) for p, q in zip(xs, ys)):
+            return False
+    return True
+
+
+def graph_turns(what: str, eng, state, step_graph, step_eager, card: str,
+                n_check: int = GRAPH_CHECK, n_time: int = GRAPH_TIME) -> dict:
+    """``n_check + n_time`` steps of one path in turns (each pair's order
+    alternating): ``step_graph(state, i)`` through the engine's graph cache
+    on ``state``, ``step_eager(state, i)`` through the eager body on a copy.
+    State (the strategy included), aux.vec and threshold equal bit for bit
+    after every step; the host-clock ms of each step incl. the aux pull;
+    then the device time of one step each way (queued events)."""
+    sg, se = state, deep_clone(state)
+    times = {"graph": [], "eager": []}
+    updated = 0
+    for i in range(n_check + n_time):
+        outs = {}
+        for side in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if side == "graph":
+                sg, a = step_graph(sg, i)
+            else:
+                se, a = step_eager(se, i)
+            ah = eng.pull_aux(a)
+            times[side].append((time.perf_counter() - t0) * 1000.0)
+            outs[side] = (a.vec.clone(), a.threshold.clone(), ah)
+        (vg, tg, ah), (ve, te, _) = outs["graph"], outs["eager"]
+        if not (same_state(sg, se) and torch.equal(vg, ve) and torch.equal(tg, te)):
+            raise AssertionError(f"{what}: the captured step differs from the eager one at "
+                                 f"step {i}: aux {vg.tolist()} vs {ve.tolist()}")
+        updated += ah.updated
+    stats = eng.graphs.stats()
+    if not sum(stats["replays"].values()):
+        raise AssertionError(f"{what}: no step replayed ({stats})")
+    out = dict(graph_ms=statistics.median(times["graph"][2:]),
+               eager_ms=statistics.median(times["eager"][2:]),
+               graph_device_ms=queued_ms(lambda: step_graph(sg, 0)),
+               eager_device_ms=queued_ms(lambda: step_eager(se, 0)), stats=stats, updated=updated)
+    log(f"{what}: graph == eager bit for bit over {n_check + n_time} steps in turns (state, "
+        f"strategy, aux, threshold; {updated} updated); host p50 graph {out['graph_ms']:.3f} ms vs "
+        f"eager {out['eager_ms']:.3f} ms (steps 3-{n_check + n_time} of each); device "
+        f"{out['graph_device_ms']:.4f} vs {out['eager_device_ms']:.4f} ms; replays "
+        f"{stats['replays']}, eager {stats['eager']}, {stats['captures']} captures "
+        f"({', '.join(f'{ms:.1f}' for ms in stats['capture_ms'])} ms) [{card}]")
+    return out
+
+
+def check_graphs(dev, card: str) -> dict:
+    """Phase 21 at phase 3's shape (8.05 Mb, 4000 reads): each path of the
+    single engine (step, step_from_numpy, step_gated) and each engine option
+    through ``step``, graph against eager (``graph_turns``)."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.runs import RunsConfig, RunsEngine
+
+    layout, batch_np, gated_np, bits_np = build_inputs(np.random.default_rng(11))
+    batch = batch_from_numpy(batch_np, dev)
+    bits = torch.from_numpy(bits_np).to(dev)
+    out = {}
+
+    def gated_graph(eng, params):
+        def step(s, i):
+            wire, spec = eng.pack_gated(gated_np, out=eng.stage)
+            g = eng.unpack_gated(eng.upload_wire(wire, spec), spec)
+            return eng.step_gated(s, g, bits, params)
+        return step
+
+    def gated_eager(eng, params):
+        def step(s, i):
+            wire, spec = eng.pack_gated(gated_np)
+            g = eng.unpack_gated(torch.from_numpy(wire).to(dev), spec)
+            return eng.eager("step_gated", s, g, bits, params)
+        return step
+
+    for path in ("step", "step_from_numpy", "step_gated"):
+        eng = RunsEngine(layout, device=dev)
+        params = eng.make_params(CCL, TIME_COST)
+        if path == "step_gated":
+            fg, fe = gated_graph(eng, params), gated_eager(eng, params)
+        else:
+            x = batch if path == "step" else batch_np
+            fg = lambda s, i, eng=eng, x=x, params=params, path=path: (  # noqa: E731
+                getattr(eng, path)(s, x, params))
+            fe = lambda s, i, eng=eng, x=x, params=params, path=path: (  # noqa: E731
+                eng.eager(path, s, x, params))
+        out[path] = graph_turns(f"8.05 Mb {path}", eng, eng.init_state(), fg, fe, card)
+        if not out[path]["stats"]["replays"].get(path):
+            raise AssertionError(f"{path}: no replay ({out[path]['stats']})")
+    for name, opt in GRAPH_OPTIONS.items():
+        eng = RunsEngine(layout, config=RunsConfig(**opt), device=dev)
+        params = eng.make_params(CCL, TIME_COST)
+        out[name] = graph_turns(
+            f"8.05 Mb option {name}", eng, eng.init_state(),
+            lambda s, i, eng=eng, params=params: eng.step(s, batch, params),
+            lambda s, i, eng=eng, params=params: eng.eager("step", s, batch, params), card)
+    return out
+
+
+def graph_peak(eng, batches, params, mode: str, n: int = 3) -> dict:
+    """Peak allocated and reserved memory (bytes above what was there) of
+    ``n`` steps from a fresh state, ``mode`` "graph" (the state is new to
+    the cache: the first step captures into a new pool) or "eager". Every
+    graph is dropped and the allocator's cache emptied first, so neither
+    mode finds memory the other left reserved."""
+    import gc
+
+    d = eng.device
+    eng.graphs.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_r = torch.cuda.memory_allocated(d), torch.cuda.memory_reserved(d)
+    torch.cuda.reset_peak_memory_stats(d)
+    st = eng.init_state()
+    for i in range(n):
+        b = batches[i % len(batches)]
+        st, a = eng.step(st, b, params) if mode == "graph" else eng.eager("step", st, b, params)
+        eng.pull_aux(a)
+    torch.cuda.synchronize()
+    out = dict(peak=torch.cuda.max_memory_allocated(d) - base,
+               reserved=torch.cuda.max_memory_reserved(d) - base_r)
+    del st, a
+    return out
+
+
+def one_tier(batches: list[dict]) -> list[dict]:
+    """The batches with every field padded to the longest (mr_len 0, ex_g
+    EX_PAD, read-start weight 0): one shape tier."""
+    from bossruns_torch.io.coo_native import EX_PAD
+
+    fills = {"ex_g": EX_PAD}
+    for k in batches[0]:
+        m = max(b[k].shape[0] for b in batches)
+        for b in batches:
+            a = np.full(m, fills.get(k, 0), b[k].dtype)
+            a[: b[k].shape[0]] = b[k]
+            b[k] = a
+    return batches
+
+
+def graphs_chromosome(dev, card: str, genome: dict) -> dict:
+    """Phase 21 at human-chr1 scale (phase 14's genome, ploidy 2, one
+    barcode): the single engine and the (1, 4) in-process mesh, graph
+    against eager in turns over 4 batches of one tier (``graph_turns``),
+    then each mode's peak memory over 3 steps from a fresh state."""
+    from bossruns_torch.models.convert import batch_from_numpy
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.models.runs import RunsEngine
+    from bossruns_torch.ops.model import make_model
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+
+    layout = build_layout(genome, n_barcodes=1, align_chunks=4)
+    Gl = layout.G_pad // 4
+    rng = np.random.default_rng(21)
+    batches = [batch_from_numpy(b, dev) for b in one_tier(
+        chrom_batches(rng, layout, 4, (Gl - 3_000_000, Gl + 3_000_000), 0.75, 1))]
+    out = {}
+    for name, make in (("single", lambda: RunsEngine(layout, make_model(ploidy=2), device=dev)),
+                       ("sharded (1, 4)", lambda: ShardedRunsEngine(
+                           layout, make_mesh([dev] * 4), make_model(ploidy=2)))):
+        eng = make()
+        params = eng.make_params(CCL, TIME_COST)
+        r = graph_turns(
+            f"chromosome {name}", eng, eng.init_state(),
+            lambda s, i, eng=eng, params=params: eng.step(s, batches[i % 4], params),
+            lambda s, i, eng=eng, params=params: eng.eager("step", s, batches[i % 4], params),
+            card)
+        if not r["updated"]:
+            raise AssertionError(f"chromosome {name}: the strategy never updated")
+        r.update({f"{m}_mem": graph_peak(eng, batches, params, m) for m in ("eager", "graph")})
+        log(f"chromosome {name}: peak memory over 3 steps from a fresh state, eager "
+            f"{r['eager_mem']['peak'] / 2**30:.3f} GiB allocated ({r['eager_mem']['reserved'] / 2**30:.3f} "
+            f"reserved) vs graph {r['graph_mem']['peak'] / 2**30:.3f} GiB "
+            f"({r['graph_mem']['reserved'] / 2**30:.3f} reserved, capture included), above the "
+            f"engine's constants [{card}]")
+        out[name] = r
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_scoreboard(card: str, work: Path) -> dict:
     """Phase 20: ``python -m bossruns_torch.bench`` (every section, in
     subprocesses) and each tool once at its default shape, in processes
@@ -2865,6 +3092,12 @@ def run_scoreboard(card: str, work: Path) -> dict:
     log(f"scoreboard: {len(BENCH_METRICS)} records, rc 0 in {secs:.1f} s; headline "
         f"{head['value']} ms first and {recs[-1]['value']} ms last, vs_baseline "
         f"{recs[-1]['vs_baseline']} [{card}]")
+    g = recs[-1]["detail"].get("graphs") or {}
+    if not all(g.get(k, {}).get("replays", {}).get("step") for k in ("f64", "f32")):
+        raise AssertionError(f"scoreboard headline: the step did not replay a graph: {g}")
+    log(f"scoreboard headline on the graph path: f64 engine replays {g['f64']['replays']}, eager "
+        f"{g['f64']['eager']}, {g['f64']['captures']} captures; f32 engine replays "
+        f"{g['f32']['replays']}, eager {g['f32']['eager']}")
     tools = {}
     for name, want in TOOLS.items():
         rc, out, secs = guarded_run(["-m", f"bossruns_torch.tools.{name}"], guard, timeout=600)
@@ -2890,7 +3123,7 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-ALL_PHASES = range(3, 21)
+ALL_PHASES = range(3, 22)
 
 
 def parse_phases(argv: list[str]) -> set[int]:
@@ -2899,11 +3132,11 @@ def parse_phases(argv: list[str]) -> set[int]:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-20)")
+    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-21)")
     a = ap.parse_args(argv)
     phases = {int(x) for x in a.phases.split(",") if x} or set(ALL_PHASES)
     if not phases <= set(ALL_PHASES):
-        ap.error(f"phases are 3-20, got {sorted(phases)}")
+        ap.error(f"phases are 3-21, got {sorted(phases)}")
     if 15 in phases and 4 not in phases:
         ap.error("phase 15 compares against the sims of phase 4")
     if 12 in phases and 11 not in phases:
@@ -2968,7 +3201,7 @@ def main(argv: list[str]) -> int:
             aeons = run_aeons_sim(dev, card, work)
         if 12 in phases:
             run_aeons_live(dev, card, work, aeons["paths"])
-        if phases & {13, 14, 18, 19}:
+        if phases & {13, 14, 18, 19, 21}:
             t0 = time.perf_counter()
             genome = chrom_genome(np.random.default_rng(12))
             log(f"chromosome genome: {CHR1_SITES} sites made in {time.perf_counter() - t0:.1f} s")
@@ -2980,6 +3213,8 @@ def main(argv: list[str]) -> int:
                 run_options_chromosome(dev, card, genome)
             if 19 in phases:  # and phase 19's
                 run_options_chromosome(dev, card, genome, F16_CHR)
+            if 21 in phases:  # and phase 21's
+                graphs_chrom = graphs_chromosome(dev, card, genome)
             del genome
         if 15 in phases:
             run_mesh_paths(dev, card, work, paths, sl)
@@ -2995,6 +3230,8 @@ def main(argv: list[str]) -> int:
             f16 = check_f16(dev, card)
         if 20 in phases:
             run_scoreboard(card, work)
+        if 21 in phases:
+            graphs = check_graphs(dev, card)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     if loaded:
         raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")

@@ -475,7 +475,10 @@ def _benefit_kw(dev, rng, nb: int, Gd: int, halo: int) -> dict:
         bucket_on=up(rng.random((nb, Gd // 100 + 1)) < 0.9), bucket_idx=up(bidx),
         strat_valid=up(rng.random(Gd) < 0.95), strat=up(rng.random((nb, Gd, 2)) < 0.5),
         aux=torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32, device=dev), mu_ds=4,
-        windows=[halo, 200, 140, 100, 70, 50, 35, 22, 12, 4], time_cost=5300.0,
+        approx_ccl=up(np.array([100 * halo, 20000, 14000, 10000, 7000, 5000, 3500, 2200, 1200,
+                                400], np.int32)),
+        time_cost=torch.tensor(5300.0, dtype=torch.float32, device=dev), win_clamp=halo,
+        win_cap=halo,
     )
 
 
@@ -1102,3 +1105,92 @@ def test_option_shard_kernels_and_mesh_on_card(dev, option):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert bool(a1.updated)
+
+
+# ---------------------------------------- captured steps (models/graphs.py) --
+
+def _graph_batches(lay, nb: int, seed: int, n: int = 5) -> list:
+    """n batches of one shape tier (every field padded to the largest)."""
+    rng = np.random.default_rng(seed)
+    bs = [_random_batch(rng, lay, n_obs=300_000, nb=nb) for _ in range(n)]
+    for k, fill in (("mr_bc", 0), ("mr_g", 0), ("mr_len", 0), ("ex_bcsym", 0),
+                    ("ex_g", tg.EX_PAD), ("rs_row", 0), ("rs_strand", 0), ("rs_w", 0)):
+        m = max(b[k].shape[0] for b in bs)
+        for b in bs:
+            a = np.full(m, fill, b[k].dtype)
+            a[: b[k].shape[0]] = b[k]
+            b[k] = a
+    return bs
+
+
+@pytest.mark.parametrize("path", ["step", "step_from_numpy", "step_gated", "mesh"])
+def test_replay_equals_eager_on_card(dev, path):
+    """Each path's captured step (a tier's second step captures it, later
+    ones replay) equals the eager step body on a second state, bit for bit
+    over 5 steps: state, aux.vec, threshold and the strategy; the path
+    counts replays above 0, and the kernels' launch counts grow with each
+    replay."""
+    from bossruns_torch.ops import kernels
+    from bossruns_torch.parallel.mesh import ShardedRunsEngine, make_mesh
+    from test_torch_wire import _gated_from_batch
+
+    rng = np.random.default_rng(61)
+    lay = build_layout({"a": rng.integers(0, 4, 900_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 700_000).astype(np.uint8)}, n_barcodes=2,
+                       align_chunks=4)
+    cfg = truns.RunsConfig(debug_aux=True)
+    if path == "mesh":
+        eng = ShardedRunsEngine(lay, make_mesh([dev] * 4, barcode_shards=2), config=cfg)
+    else:
+        eng = truns.RunsEngine(lay, config=cfg, device=dev)
+    sg, se = eng.init_state(), eng.init_state()
+    params = eng.make_params(CCL, 5300.0)
+    for step, b in enumerate(_graph_batches(lay, 2, 62)):
+        before = kernels.launches()
+        if path == "step_gated":
+            d = _gated_from_batch(rng, b, 300)
+            bits = torch.from_numpy((rng.random(300) < 0.6).astype(np.uint8)).to(dev)
+            wire, spec = eng.pack_gated(d, out=eng.stage)
+            gated = eng.unpack_gated(eng.upload_wire(wire, spec), spec)
+            sg, ag = eng.step_gated(sg, gated, bits, params)
+            se, ae = eng.eager("step_gated", se, eng.unpack_gated(
+                torch.from_numpy(eng.pack_gated(d)[0]).to(dev), spec), bits, params)
+        elif path == "step_from_numpy":
+            sg, ag = eng.step_from_numpy(sg, b, params)
+            se, ae = eng.eager("step_from_numpy", se, b, params)
+        else:
+            bd = batch_from_numpy(b, dev)
+            sg, ag = eng.step(sg, bd, params)
+            se, ae = eng.eager("step", se, bd, params)
+        torch.cuda.synchronize()
+        grew = {k: v - before[k] for k, v in kernels.launches().items() if v != before[k]}
+        assert grew, f"no kernel launched at step {step}"
+        got, want = eng.state_numpy(sg), eng.state_numpy(se)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{path} {k} step {step}")
+        assert torch.equal(ag.vec, ae.vec) and torch.equal(ag.threshold, ae.threshold), step
+        assert torch.equal(ag.scores, ae.scores), step
+    key = "step" if path == "mesh" else path
+    assert eng.graphs.replays[key] >= 3 and eng.graphs.eager[key] == 1, eng.graphs.stats()
+    assert bool(ae.updated)
+
+
+def test_capture_error_raises(dev):
+    """A step body that cannot be captured (a device-to-host copy inside
+    it) runs eagerly on its first occurrence and raises on the second,
+    when the cache captures it: there is no fallback to eager."""
+    rng = np.random.default_rng(63)
+    lay = build_layout({"a": rng.integers(0, 4, 150_000).astype(np.uint8)})
+    eng = truns.RunsEngine(lay, device=dev)
+    state, params = eng.init_state(), eng.make_params(CCL, 5300.0)
+    inputs = batch_from_numpy(_random_batch(rng, lay, n_obs=20_000), dev)._asdict()
+
+    def body(s, i, p):
+        s, aux = eng._classic(s, i, p)
+        aux.vec.cpu()
+        return s, aux
+
+    eng.graphs.run("step", state, inputs, params, body, eng.win_cap(params, 4096))
+    with pytest.raises(RuntimeError):
+        eng.graphs.run("step", state, inputs, params, body, eng.win_cap(params, 4096))
+    torch.cuda.synchronize()

@@ -183,7 +183,8 @@ def _benefit(eng, scores):
     one scan tile's non-negative terms, in another order)."""
     ds = tg.ds_row_sums(scores, eng.benefit_dtype)
     kw = eng.benefit_args(eng.init_state(), ds, None, None, eng.make_params(CCL, 5300.0))
-    _, ben = tg.expected_benefit(ds, kw["windows"], eng.seg_start, eng.seg_end,
+    _, ben = tg.expected_benefit(ds, tg.ccl_windows(kw["approx_ccl"], kw["win_clamp"]),
+                                 eng.seg_start, eng.seg_end,
                                  mu_ds=kw["mu_ds"], tiled=eng.tile_scan)
     total = float(ds.double().sum(dim=1).max())
     return ben, 1e-6 * ben.abs() + 4096 * float(np.finfo(np.float32).eps) * total

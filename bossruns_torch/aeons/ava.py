@@ -4,10 +4,10 @@ The port of ``bossruns_tpu.aeons.ava``, the replacement for the reference's
 minimap2 subprocess calls (``minimap2 -x ava-ont`` and ``-x map-ont -w5
 -e0 -m100 -r2k``): a minimizer index is built over the target pool, query
 sequences are seeded against it (kernel H6 on a CUDA device, through
-``aligner.seed.seed_candidates``), and the top diagonal clusters per strand
-become chain-extent overlap records — the approximate-coordinate PAF that
-minimap2 emits for ava (no base-level extension), which is all
-miniasm-class classification needs.
+``aligner.seed.seed_candidates_from_numpy``, the reads 4-bit packed), and
+the top diagonal clusters per strand become chain-extent overlap records —
+the approximate-coordinate PAF that minimap2 emits for ava (no base-level
+extension), which is all miniasm-class classification needs.
 
 Left out of the JAX module: the host/device size dispatch
 (``HOST_MAX_MINIMIZERS``, ``HOST_MAX_QUERY_BASES``; the choice is the
@@ -20,12 +20,11 @@ from __future__ import annotations
 import logging
 
 import numpy as np
-import torch
 
 from ..aligner import encode
 from ..aligner.host_seed import host_seed_candidates
 from ..aligner.index import _digest, _memo_get, build_index_cached
-from ..aligner.seed import CAND_FIELDS, DeviceIndex, anchor_budget, seed_candidates
+from ..aligner.seed import DeviceIndex, anchor_budget, seed_candidates_from_numpy
 from ..device import as_device
 from ..io.paf import PafRecords
 
@@ -112,10 +111,10 @@ def find_overlaps(
     tstart/tend/nmatch/blocklen/s1) with approximate chain-extent coords.
 
     backend: 'auto' or 'device' seeds buckets up to AVA_DEVICE_MAX with
-    ``seed_candidates`` on the pool index's device (H6 on CUDA, the plain
-    version on the CPU); 'host' seeds every bucket with
-    ``host_seed_candidates``. The ultralong bucket is always host-seeded.
-    Both give identical rows.
+    ``seed_candidates_from_numpy`` on the pool index's device (the reads
+    packed through its staging; H6 on CUDA, the plain version on the CPU);
+    'host' seeds every bucket with ``host_seed_candidates``. The ultralong
+    bucket is always host-seeded. Both give identical rows.
     """
     if backend not in ("auto", "device", "host"):
         raise ValueError(f"unknown seeding backend {backend!r}")
@@ -150,9 +149,7 @@ def find_overlaps(
             mat = np.full((len(group), L), 4, np.int8)
             for r, g in enumerate(group):
                 mat[r, : min(enc[g].shape[0], L)] = enc[g][:L]
-            reads = torch.from_numpy(mat).to(pool_index.device)
-            packed = seed_candidates(reads, pool_index.dev, ncand=ncand).cpu().numpy()
-            cands = {f: packed[:, i] for i, f in enumerate(CAND_FIELDS)}
+            cands = seed_candidates_from_numpy(mat, pool_index.dev, ncand=ncand)
         nc = cands["votes"].shape[1]
         # columnar candidate -> record conversion (no per-candidate Python)
         g_idx = np.repeat(np.asarray(group, np.int64), nc)

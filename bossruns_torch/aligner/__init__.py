@@ -39,7 +39,9 @@ LENGTH_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
 #: most read rows per seeding call, per length bucket: about 2M read
 #: positions a call, so a batch of thousands of reads is a handful of
 #: calls that queue on the device while the host extends earlier buckets.
-#: A call's rows are its group's size (no padding to fixed row tiers).
+#: A call's rows are its group's size (no padding to fixed row tiers: the
+#: JAX package's ``tier_rows`` keeps XLA's compile cache warm, and H5
+#: compiles once for every shape).
 BUCKET_ROWS = {512: 4096, 1024: 2048, 2048: 1024, 4096: 512,
                8192: 256, 16384: 128, 32768: 64}
 
@@ -60,6 +62,21 @@ def encode(seq: str) -> np.ndarray:
 def bucket_of(n: int) -> int:
     """The length bucket of an n-base read (longer reads are cut to the last)."""
     return next((b for b in LENGTH_BUCKETS if n <= b), LENGTH_BUCKETS[-1])
+
+
+def length_groups(lens: np.ndarray) -> list[np.ndarray]:
+    """The seeding calls of a batch of reads of lengths ``lens``: their
+    indices in length order, in runs of one length bucket cut at
+    ``BUCKET_ROWS``."""
+    order = np.argsort(lens, kind="stable")
+    bucket = np.minimum(np.searchsorted(LENGTH_BUCKETS, np.asarray(lens)[order]),
+                        len(LENGTH_BUCKETS) - 1)
+    groups = []
+    for k in np.unique(bucket):
+        lo, hi = np.searchsorted(bucket, [k, k + 1])
+        step = BUCKET_ROWS[LENGTH_BUCKETS[k]]
+        groups += [order[a: min(a + step, hi)] for a in range(lo, hi, step)]
+    return groups
 
 
 def make_aligner(layout, *, device, backend: str = "auto", **kw):
@@ -159,35 +176,40 @@ class TorchAligner:
 
     # ----------------------------------------------------------- seeding ----
 
-    def _seed_bucket_dispatch(self, enc_reads: list[np.ndarray]):
-        """Launch the seeding of one bucket WITHOUT waiting for it: on CUDA
-        the launches queue on the stream, so several buckets' seeding runs
-        while the host extends earlier buckets (map_sequences pulls and
-        extends bucket by bucket)."""
-        import torch
+    def _encode(self, text: bytes, offs: np.ndarray, groups: list[np.ndarray]) -> tuple:
+        """One pass over the batch's bases (read i at ``text[offs[i]:offs[i
+        + 1]]``): (codes, staged), the int8 codes the host DP reads and each
+        seeding call's rows (a group, cut or padded to its bucket's length)
+        packed 4 bits a base into one staging buffer, each call at its own
+        offset (``seed.encode_rows``: on the card the kernel library's host
+        loop, straight into pinned staging)."""
+        from .seed import encode_rows
 
-        from .seed import NCAND, anchor_budget, seed_topn
+        lens = np.diff(offs)
+        return encode_rows(text, [(offs[g], lens[g], bucket_of(int(lens[g].max())))
+                                  for g in groups], self.dev_index)
 
-        L = bucket_of(max((e.shape[0] for e in enc_reads), default=0))
-        mat = np.full((len(enc_reads), L), 4, np.int8)
-        for r, e in enumerate(enc_reads):
-            mat[r, : min(e.shape[0], L)] = e[:L]
+    def _seed_bucket_dispatch(self, codes: np.ndarray, offs: np.ndarray,
+                              groups: list[np.ndarray], staged) -> list:
+        """Queue the seeding of every call WITHOUT waiting for any, and
+        return one handle a call: the staged payload lands with one copy
+        (on the card non-blocking) and each call's H5 launch follows, so
+        the whole batch's seeding queues on the stream while the host
+        extends earlier buckets (map_sequences pulls and extends call by
+        call)."""
+        from .seed import NCAND, anchor_budget, land, seed_topn
+
         di = self.dev_index
-        reads = torch.from_numpy(mat).to(self.device)
-        return seed_topn(reads, di, di.k, di.w, anchor_budget(L, di.w), L, NCAND)
+        return [seed_topn(x, di, di.k, di.w, anchor_budget(8 * x.shape[1], di.w),
+                          8 * x.shape[1], NCAND) for x in land(staged, di)]
 
     @staticmethod
     def _pull_seeds(out_dev, n: int):
         """Wait for one bucket's seeding and unpack its
         [len(SEED_FIELDS) * NCAND, n] result to field -> [n, NCAND]."""
-        from .seed import NCAND, SEED_FIELDS
+        from .seed import NCAND, seed_fields
 
-        packed = out_dev.cpu().numpy()
-        nf = len(SEED_FIELDS)
-        return {
-            f: np.stack([packed[c * nf + i][:n] for c in range(NCAND)], axis=1)
-            for i, f in enumerate(SEED_FIELDS)
-        }
+        return seed_fields(out_dev.cpu().numpy()[:, :n], NCAND)
 
     # ----------------------------------------------------------- mapping ----
 
@@ -206,30 +228,16 @@ class TorchAligner:
         rids = list(sequences)
         if not rids:
             return _empty_records()
-        # one encode pass over the concatenated batch; enc entries are views
+        # one encode pass over the concatenated batch (which also stages the
+        # seeding payload); enc entries are views
         parts = [sequences[r][: self.mu] if trunc else sequences[r] for r in rids]
-        codes_cat = _ENC[np.frombuffer("".join(parts).encode(), np.uint8)]
         offs = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+        groups = length_groups(np.diff(offs))
+        codes_cat, staged = self._encode("".join(parts).encode(), offs, groups)
         enc = [codes_cat[offs[i]: offs[i + 1]] for i in range(len(parts))]
-        # bucket by length; launch every bucket's seeding up front, then
-        # pull and extend bucket by bucket
-        order = np.argsort([e.shape[0] for e in enc], kind="stable")
-        pend = []
-        i = 0
-        while i < len(order):
-            j = i
-            Lmax = None
-            group = []
-            while j < len(order):
-                b = bucket_of(enc[order[j]].shape[0])
-                if Lmax is None:
-                    Lmax = b
-                if b != Lmax or len(group) >= BUCKET_ROWS[Lmax]:
-                    break
-                group.append(order[j])
-                j += 1
-            pend.append((group, self._seed_bucket_dispatch([enc[g] for g in group])))
-            i = j
+        # queue every bucket's seeding up front, then pull and extend bucket
+        # by bucket
+        pend = zip(groups, self._seed_bucket_dispatch(codes_cat, offs, groups, staged))
 
         rows = {k: [] for k in (
             "qname qlen qstart qend rev tname tlen tstart tend nmatch blocklen mapq "

@@ -20,7 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import TorchAligner, bucket_of
+from . import _ENC, TorchAligner, bucket_of
 from .host_seed import host_seed_topn
 from .seed import NCAND
 
@@ -31,10 +31,10 @@ class CpuAligner(TorchAligner):
     """TorchAligner with the seeding stage replaced by the host mirror.
 
     Reuses map_sequences' bucket pipeline and _extend_bucket's candidate
-    planning + native DP verbatim; only _seed_bucket_dispatch / _pull_seeds
-    change (thread-pool futures instead of device launches — the same
-    overlap: bucket i extends on the main thread while bucket i+1 seeds on
-    the pool).
+    planning + native DP verbatim; only _encode / _seed_bucket_dispatch /
+    _pull_seeds change (NumPy's encode and thread-pool futures instead of
+    the staged payload and device launches — the same overlap: bucket i
+    extends on the main thread while bucket i+1 seeds on the pool).
     """
 
     def __init__(
@@ -59,7 +59,18 @@ class CpuAligner(TorchAligner):
         self._pool.shutdown(wait=True)
         return {}
 
-    def _seed_bucket_dispatch(self, enc_reads: list[np.ndarray]):
+    def _encode(self, text: bytes, offs: np.ndarray, groups: list[np.ndarray]) -> tuple:
+        """The batch's int8 codes; nothing is staged (the seeding is host)."""
+        return _ENC[np.frombuffer(text, np.uint8)], None
+
+    def _seed_bucket_dispatch(self, codes: np.ndarray, offs: np.ndarray,
+                              groups: list[np.ndarray], staged) -> list:
+        """Submit every bucket to the worker pool, one handle a bucket (read
+        i is ``codes[offs[i]:offs[i + 1]]``)."""
+        return [self._submit_bucket([codes[offs[i]: offs[i + 1]] for i in group])
+                for group in groups]
+
+    def _submit_bucket(self, enc_reads: list[np.ndarray]):
         """Split the bucket over the worker pool (the reference splits its
         read batch over its mappy workers the same way)."""
         L = bucket_of(max((e.shape[0] for e in enc_reads), default=0))

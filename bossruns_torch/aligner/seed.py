@@ -1,10 +1,13 @@
 """Seed lookup + diagonal voting on PyTorch: the device half of the aligner.
 
 The port of ``bossruns_tpu.aligner.seed`` (its ``_seed_topn_jit``, K8, and
-``_seed_candidates_jit``, K9).
+``_seed_candidates_jit``, K9, and the host entry points around them).
 It replaces minimap2's seed-and-chain stage (the reference calls mappy's C
 implementation per read in a thread pool). A length bucket of reads is one
-padded [R, L] int8 code matrix (0..3, 4 = N or padding), and per read:
+padded [R, L] int8 code matrix (0..3, 4 = N or padding), shipped to the
+device 4 bits a base (``pack_reads``: [R, L//8] words, base j of word i at
+bits 4*(j % 8), byte for byte the JAX package's payload) and decoded where
+the kernels load it. Per read:
 
   1. 2-bit forward and reverse-complement k-mer codes, validity (no N in
      the window, not palindromic), canonical code, strand;
@@ -23,11 +26,11 @@ padded [R, L] int8 code matrix (0..3, 4 = N or padding), and per read:
 The result is one int32 [len(SEED_FIELDS) * ncand, R] block: row c*6 + i
 holds field i of candidate c, exactly as ``_seed_topn_jit`` lays it out.
 
-``seed_topn`` is the entry point: a CPU tensor takes ``seed_topn_plain``
-(PyTorch, any device), a CUDA tensor launches kernel H5
-(``csrc/seed.cu``) or raises. The plain version sorts with
-``stable=True``, the kernel by the (diagonal, slot) pair, so both keep the
-same anchors when a read has more than ``cw`` real ones.
+``seed_topn`` takes the packed payload: a CPU tensor takes
+``seed_topn_plain`` (``unpack_reads``, then PyTorch, any device), a CUDA
+tensor launches kernel H5 (``csrc/seed.cu``) or raises. The plain version
+sorts with ``stable=True``, the kernel by the (diagonal, slot) pair, so
+both keep the same anchors when a read has more than ``cw`` real ones.
 
 ``seed_candidates`` is the all-vs-all seeding of the AEONS overlap search
 (K9): stages 1-4 as above, then each strand space on its own is sorted by
@@ -38,10 +41,24 @@ s * ncand + c holding round c of space s, as ``_seed_candidates_jit`` lays
 it out. A CPU tensor takes ``seed_candidates_plain``, a CUDA tensor
 launches kernel H6 (``csrc/seed.cu``) or raises.
 
-Left out of the JAX module: ``pack_reads``/``unpack_reads`` (4-bit read
-packing for a slow host link; the port uploads the int8 codes) and
-``_pad_hysteresis`` (power-of-two index padding against recompiles; the
-port's index keeps its own size).
+The link: a call's buckets (rows of a flat code array, each cut or padded
+to its bucket's L) are packed into one host buffer, each at its own
+offset, which then ``land``s on the index's device with one copy, each
+bucket's payload a view of it. On the card that buffer is pinned staging
+(``utils.staging.PinnedStaging``), the kernel library's host loop packs
+straight into it, and the copy is non-blocking on the current stream, so a
+caller queues it and every bucket's launch without waiting for the card;
+an upload that is not from staging raises. On the CPU the rows are padded
+and packed in NumPy, and the packed words themselves are the tensors.
+``upload_reads`` does all of it for padded matrices; ``encode_rows``
+encodes a batch's text and stages its rows in one pass, for the aligner,
+whose dispatch then only lands the buffer and launches. ``seed_and_vote`` and
+``seed_candidates_from_numpy`` are the JAX package's host entry points
+(``seed_and_vote``, ``seed_candidates``): a host matrix in, one pull out.
+
+Left out of the JAX module: ``_pad_hysteresis`` and the row tiers of its
+callers (power-of-two padding against XLA recompiles; H5 and H6 compile
+once for every shape, and the port's index keeps its own size).
 """
 from __future__ import annotations
 
@@ -81,6 +98,162 @@ def anchor_budget(L: int, w: int, cap: int = ANCHOR_BUDGET) -> int:
     return min(_pow2(need, floor=64), cap)
 
 
+# ------------------------------------------------------------ the payload --
+
+
+def pack_reads(mat: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """[R, L] base codes (0..4) -> [R, L//8] uint32, 4 bits a base: base j
+    of word i at bits 4*(j % 8), byte for byte the JAX package's
+    ``pack_reads``. ``out``: a C-contiguous 4-byte [R, L//8] array to write
+    into (a slice of a staging buffer), returned.
+
+    The kernels read the words as int32 (torch has no uint32 arithmetic,
+    ROADMAP F2): a code is at most 4, so the top nibble never sets the sign
+    bit, and a code outside 0..4 raises. L must be a multiple of 8 (every
+    length bucket is)."""
+    mat = np.asarray(mat)
+    r, L = mat.shape
+    if L % 8:
+        raise ValueError(f"pack_reads: L={L} is not a multiple of 8")
+    if mat.dtype == np.int8 or mat.dtype == np.uint8:
+        m = mat.view(np.uint8)               # a negative int8 code reads as >= 128
+        bad = m.size and int(m.max()) > 4
+    else:
+        bad = mat.size and (int(mat.min()) < 0 or int(mat.max()) > 4)
+        m = mat.astype(np.uint8)
+    if bad:
+        raise ValueError("pack_reads: base codes must lie in 0..4")
+    if out is None:
+        out = np.empty((r, L // 8), np.uint32)
+    if out.shape != (r, L // 8) or out.itemsize != 4 or not out.flags.c_contiguous:
+        raise ValueError(f"pack_reads: out must be a contiguous 4-byte [{r}, {L // 8}] array")
+    # two codes a byte, low nibble first: read as little-endian uint16, a
+    # pair of codes (lo, hi) is lo + 256 * hi, and (x | x >> 4) holds
+    # lo | hi << 4 in its low byte. The bytes of a word are then its bases
+    # 0-1, 2-3, 4-5, 6-7: the JAX layout (on a little-endian host)
+    pairs = np.ascontiguousarray(m).view("<u2")
+    low = pairs >> 4
+    low |= pairs
+    np.copyto(out.view(np.uint8).reshape(r, L // 2), low, casting="unsafe")
+    return out
+
+
+def unpack_reads(packed: torch.Tensor, L: int) -> torch.Tensor:
+    """The plain decode of ``pack_reads``: int32 [R, L//8] words on any
+    device -> [R, L] int8 codes."""
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=packed.device)
+    x = (packed[:, :, None] >> shifts) & 0xF
+    return x.reshape(packed.shape[0], L).to(torch.int8)
+
+
+def pack_rows(codes: np.ndarray, start: np.ndarray, length: np.ndarray, L: int,
+              out: np.ndarray, *, compiled: bool = False) -> np.ndarray:
+    """Rows of the flat code array ``codes`` (0..4) packed as ``pack_reads``
+    packs their [R, L] matrix: row r is the ``length[r]`` codes at
+    ``codes[start[r]:]``, cut or padded (code 4) to L. Written into the
+    4-byte [R, L//8] ``out``, returned. ``compiled``: the kernel library's
+    host loop (csrc/seed.cu ``bk_pack_rows``, one pass from the codes into
+    ``out``; built with the kernels, so only where they are), else the
+    padded matrix in NumPy and ``pack_reads``."""
+    R = len(start)
+    if compiled:
+        return _host_pack(np.ascontiguousarray(codes, np.int8), None, start, length, L, out)
+    mat = np.full((R, L), 4, np.int8)
+    for r, (s0, n) in enumerate(zip(start, length)):
+        n = min(int(n), L)
+        mat[r, :n] = codes[s0: s0 + n]
+    return pack_reads(mat, out=out)
+
+
+def _host_pack(src: np.ndarray, codes_out: np.ndarray | None, start, length, L: int,
+               out: np.ndarray) -> np.ndarray:
+    """The library's host loop (csrc/seed.cu ``bk_pack_rows``) on rows of
+    ``src``: codes, or with ``codes_out`` text that it also encodes there."""
+    start = np.ascontiguousarray(start, np.int64)
+    length = np.ascontiguousarray(length, np.int64)
+    R = start.shape[0]
+    if out.shape != (R, L // 8) or out.itemsize != 4 or not out.flags.c_contiguous:
+        raise ValueError(f"pack_rows: out must be a contiguous 4-byte [{R}, {L // 8}] array")
+    K.HOST["pack_rows"](src.ctypes.data, int(codes_out is not None),
+                        None if codes_out is None else codes_out.ctypes.data,
+                        start.ctypes.data, length.ctypes.data, R, L, out.ctypes.data)
+    return out
+
+
+def _stage(shapes: list[tuple], dev_index: "DeviceIndex") -> tuple:
+    """A host buffer for payloads of the given [R, W] shapes, each at its
+    own offset: on the card one of the index's two pinned staging buffers,
+    taken in turns; on the CPU a new array. (buffer, the payloads' views.)"""
+    bounds = np.cumsum([0, *(r * w for r, w in shapes)])
+    st = dev_index.staging
+    host = np.empty(bounds[-1], np.uint32) if st is None else st.take(int(bounds[-1]))
+    return host, [host[a: z].reshape(shape)
+                  for a, z, shape in zip(bounds[:-1], bounds[1:], shapes)]
+
+
+def land(staged: tuple, dev_index: "DeviceIndex") -> list[torch.Tensor]:
+    """A ``_stage`` buffer on the index's device with one copy, each payload
+    a view of it (on the card non-blocking on the current stream, so every
+    launch on a payload queues behind the copy, and nothing waits)."""
+    host, outs = staged
+    dev = put_packed(host, dev_index)
+    views, a = [], 0
+    for o in outs:
+        views.append(dev[a: a + o.size].view(o.shape))
+        a += o.size
+    return views
+
+
+def encode_rows(text: bytes, buckets: list[tuple], dev_index: "DeviceIndex") -> tuple:
+    """One pass over a batch's bases ``text`` for the aligner: (codes,
+    staged). ``codes`` int8 [len(text)] are the aligner's encode of the text
+    (``_ENC``: A/a 0, C/c 1, G/g 2, T/t 3, any other byte 4), which its
+    host DP reads; ``staged`` is a ``_stage`` buffer holding each bucket's
+    packed payload, for ``land``. A bucket is the (start, length, L) of its
+    rows in the text, every base of the text in exactly one row. On the
+    card the library's host loop encodes and packs row by row, straight
+    into pinned staging; on the CPU NumPy encodes, then ``pack_rows``."""
+    staged = _stage([(len(b[0]), b[2] // 8) for b in buckets], dev_index)
+    raw = np.frombuffer(text, np.uint8)
+    if dev_index.device.type != "cuda":
+        from . import _ENC
+
+        codes = _ENC[raw]
+        for (start, length, L), out in zip(buckets, staged[1]):
+            pack_rows(codes, start, length, L, out)
+        return codes, staged
+    codes = np.empty(raw.shape[0], np.int8)
+    for (start, length, L), out in zip(buckets, staged[1]):
+        _host_pack(raw, codes, start, length, L, out)
+    return codes, staged
+
+
+def upload_reads(mats: list[np.ndarray], dev_index: "DeviceIndex") -> list[torch.Tensor]:
+    """Each padded [R, L] code matrix's packed payload, int32 [R, L//8], on
+    the index's device: packed into one ``_stage`` buffer (``pack_rows``,
+    on the card by the library's host loop) and ``land``ed with one copy."""
+    staged = _stage([(m.shape[0], m.shape[1] // 8) for m in mats], dev_index)
+    compiled = dev_index.device.type == "cuda"
+    for m, out in zip(mats, staged[1]):
+        R, L = m.shape
+        pack_rows(m.reshape(-1), np.arange(R) * L, np.full(R, L), L, out, compiled=compiled)
+    return land(staged, dev_index)
+
+
+def put_packed(packed: np.ndarray, dev_index: "DeviceIndex") -> torch.Tensor:
+    """``packed`` on the index's device as int32. With staging (always on
+    the card) it must lie in one of the staging buffers, and lands with one
+    non-blocking copy on the current stream; anything else raises (no
+    pageable copy). Without, the host words themselves."""
+    st = dev_index.staging
+    if st is None:
+        return torch.from_numpy(packed.view(np.int32))
+    dst = torch.empty(packed.shape, dtype=torch.int32, device=dev_index.device)
+    if not st.upload(packed, dst):
+        raise ValueError("upload of reads that were not packed into the index's staging")
+    return dst
+
+
 class DeviceIndex:
     """The minimizer index on ``device``.
 
@@ -97,10 +270,19 @@ class DeviceIndex:
     the kernels find a key in a bucket of about one key instead of a search
     of the whole table.
     ``max_pos`` is the largest indexed position.
+
+    ``staging`` (on a CUDA device; None on the CPU) holds the two pinned
+    buffers the reads seeded against this index are packed into
+    (``upload_reads``).
     """
 
     def __init__(self, idx: MinimizerIndex, device: str | torch.device):
+        from ..device import as_device
+        from ..utils.staging import PinnedStaging
+
         assert idx.positions.max(initial=0) < 2**31
+        self.device = as_device(device)
+        self.staging = PinnedStaging() if self.device.type == "cuda" else None
         self.k, self.w = idx.k, idx.w
         nk = int(idx.keys.shape[0])
         self.n_keys = nk
@@ -115,8 +297,8 @@ class DeviceIndex:
             rows = np.flatnonzero(cnt > c)
             src = off[rows] + c
             packed[rows, c] = (pos_u[src] << np.uint32(1)) | str_u[src]
-        self.keys = torch.from_numpy(keys).to(device)
-        self.pos_packed = torch.from_numpy(packed.view(np.int32)).to(device)
+        self.keys = torch.from_numpy(keys).to(self.device)
+        self.pos_packed = torch.from_numpy(packed.view(np.int32)).to(self.device)
         self.max_pos = int(idx.positions.max(initial=0))
         bits = 2 * self.k
         t = min(bits, max(8, nk.bit_length()))
@@ -235,11 +417,13 @@ def vote(keys_sorted: torch.Tensor, tol: int = DIAG_TOL) -> torch.Tensor:
     return torch.where(keys_sorted < SENTINEL, votes, -1)
 
 
-def seed_topn_plain(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
+def seed_topn_plain(reads_packed: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
                     budget: int, L: int, ncand: int = NCAND) -> torch.Tensor:
-    """Plain PyTorch version of H5 on any device: [R, L] int8 codes ->
-    int32 [len(SEED_FIELDS) * ncand, R], row for row ``_seed_topn_jit``."""
-    assert reads.shape[1] == L
+    """Plain PyTorch version of H5 on any device: the packed payload
+    int32 [R, L//8] -> int32 [len(SEED_FIELDS) * ncand, R], row for row
+    ``_seed_topn_jit``."""
+    assert reads_packed.shape[1] * 8 == L
+    reads = unpack_reads(reads_packed, L)
     canonical, strand, is_min = read_minimizers(reads, k, w)
     ck, cs, cpos, cvalid = compact_minimizers(canonical, strand, is_min, budget)
     r, a = ck.shape
@@ -290,17 +474,18 @@ def seed_topn_plain(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
 # ------------------------------------------------------------ kernel H5 --
 
 
-def seed_topn(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
+def seed_topn(reads_packed: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
               budget: int, L: int, ncand: int = NCAND) -> torch.Tensor:
-    """H5: top-``ncand`` diagonal clusters per read, int32
-    [len(SEED_FIELDS) * ncand, R]. A CPU tensor takes the plain version; a
-    CUDA tensor launches csrc/seed.cu (one launch) or raises."""
-    if reads.device.type == "cpu":
-        return seed_topn_plain(reads, dev_index, k, w, budget, L, ncand)
-    r = reads.shape[0]
-    dev = reads.device
+    """H5: top-``ncand`` diagonal clusters per read of the packed payload
+    int32 [R, L//8], int32 [len(SEED_FIELDS) * ncand, R]. A CPU tensor takes
+    the plain version; a CUDA tensor launches csrc/seed.cu (one launch) or
+    raises."""
+    if reads_packed.device.type == "cpu":
+        return seed_topn_plain(reads_packed, dev_index, k, w, budget, L, ncand)
+    r = reads_packed.shape[0]
+    dev = reads_packed.device
     n = L - k + 1
-    K.check(reads, "reads", torch.int8, (r, L))
+    K.check(reads_packed, "reads_packed", torch.int32, (r, L // 8))
     _check_index(dev_index, L, dev)
     if not (1 <= k <= 15 and k == dev_index.k and 1 <= w <= 16 and w <= n and budget <= n
             and budget >= 64 and budget & (budget - 1) == 0 and budget <= ANCHOR_BUDGET
@@ -311,11 +496,31 @@ def seed_topn(reads: torch.Tensor, dev_index: DeviceIndex, k: int, w: int,
     if r == 0:
         return out
     K.KERNELS["seed_topn"](
-        K.ptr(reads), r, L, k, w, budget, ncand, K.ptr(dev_index.keys),
+        K.ptr(reads_packed), r, L, k, w, budget, ncand, K.ptr(dev_index.keys),
         K.ptr(dev_index.bucket_off), dev_index.shift, dev_index.bucket_off.shape[0] - 1,
-        K.ptr(dev_index.pos_packed), K.ptr(out), K.stream_ptr(reads),
+        K.ptr(dev_index.pos_packed), K.ptr(out), K.stream_ptr(reads_packed),
     )
     return out
+
+
+def seed_fields(packed: np.ndarray, ncand: int = NCAND) -> dict[str, np.ndarray]:
+    """H5's [len(SEED_FIELDS) * ncand, R] block -> field -> [R, ncand]."""
+    nf = len(SEED_FIELDS)
+    return {f: np.stack([packed[c * nf + i] for c in range(ncand)], axis=1)
+            for i, f in enumerate(SEED_FIELDS)}
+
+
+def seed_and_vote(reads: np.ndarray, dev_idx: DeviceIndex, ncand: int = NCAND):
+    """[R, L] padded HOST read matrix (int8 codes) -> per-read top-ncand
+    candidate dict of [R, ncand] arrays (fields: SEED_FIELDS), as the JAX
+    package's ``seed_and_vote``: candidate 0 is the best-voted cluster, and
+    a read is unmapped when votes[:, 0] <= 0. The reads go packed through
+    the index's staging (``upload_reads``), H5 runs on them, and the result
+    comes back in one device-to-host copy."""
+    L = int(reads.shape[1])
+    (x,) = upload_reads([np.asarray(reads)], dev_idx)
+    out = seed_topn(x, dev_idx, dev_idx.k, dev_idx.w, anchor_budget(L, dev_idx.w), L, ncand)
+    return seed_fields(out.cpu().numpy(), ncand)
 
 
 # ------------------------------------------------------------ kernel H6 --
@@ -327,16 +532,16 @@ def candidate_tol(L: int) -> int:
     return max(DIAG_TOL, L // 32)
 
 
-def seed_candidates_plain(reads: torch.Tensor, dev_index: DeviceIndex,
+def seed_candidates_plain(reads_packed: torch.Tensor, dev_index: DeviceIndex,
                           ncand: int = NCAND, tol: int = DIAG_TOL) -> torch.Tensor:
-    """Plain PyTorch version of H6 on any device: [R, L] int8 codes ->
-    int32 [R, len(CAND_FIELDS), 2 * ncand], entry for entry
+    """Plain PyTorch version of H6 on any device: the packed payload int32
+    [R, L//8] -> int32 [R, len(CAND_FIELDS), 2 * ncand], entry for entry
     ``_seed_candidates_jit`` (placeholders included: a round with no vote
     left reports votes -1 and the spans of the cluster around the space's
     first kept diagonal, +-2^30 when that is SENTINEL; nothing is clamped)."""
     k, w = dev_index.k, dev_index.w
-    L = reads.shape[1]
-    canonical, strand, is_min = read_minimizers(reads, k, w)
+    L = 8 * reads_packed.shape[1]
+    canonical, strand, is_min = read_minimizers(unpack_reads(reads_packed, L), k, w)
     ck, cs, cpos, cvalid = compact_minimizers(canonical, strand, is_min, anchor_budget(L, w))
     r, a = ck.shape
     hit, rank = lookup(dev_index.keys, ck.reshape(-1), cvalid.reshape(-1))
@@ -373,21 +578,21 @@ def seed_candidates_plain(reads: torch.Tensor, dev_index: DeviceIndex,
     return torch.stack([torch.stack(c, dim=1) for c in cols], dim=1).to(torch.int32)
 
 
-def seed_candidates(reads: torch.Tensor, dev_index: DeviceIndex, ncand: int = NCAND,
+def seed_candidates(reads_packed: torch.Tensor, dev_index: DeviceIndex, ncand: int = NCAND,
                     tol: int | None = None) -> torch.Tensor:
-    """H6: top-``ncand`` diagonal clusters per strand space, int32
-    [R, len(CAND_FIELDS), 2 * ncand]; tol defaults to candidate_tol(L). A
-    CPU tensor takes the plain version; a CUDA tensor launches
-    csrc/seed.cu (one launch) or raises."""
-    r, L = reads.shape
+    """H6: top-``ncand`` diagonal clusters per strand space of the packed
+    payload int32 [R, L//8], int32 [R, len(CAND_FIELDS), 2 * ncand]; tol
+    defaults to candidate_tol(L). A CPU tensor takes the plain version; a
+    CUDA tensor launches csrc/seed.cu (one launch) or raises."""
+    r, L = reads_packed.shape[0], 8 * reads_packed.shape[1]
     tol = candidate_tol(L) if tol is None else int(tol)
-    if reads.device.type == "cpu":
-        return seed_candidates_plain(reads, dev_index, ncand, tol)
-    dev = reads.device
+    if reads_packed.device.type == "cpu":
+        return seed_candidates_plain(reads_packed, dev_index, ncand, tol)
+    dev = reads_packed.device
     k, w = dev_index.k, dev_index.w
     n = L - k + 1
     budget = anchor_budget(L, w)
-    K.check(reads, "reads", torch.int8, (r, L))
+    K.check(reads_packed, "reads_packed", torch.int32, (r, L // 8))
     _check_index(dev_index, L, dev)
     if not (1 <= k <= 15 and 1 <= w <= 16 and w <= n and budget <= n
             and budget >= 64 and budget & (budget - 1) == 0 and budget <= ANCHOR_BUDGET
@@ -398,8 +603,21 @@ def seed_candidates(reads: torch.Tensor, dev_index: DeviceIndex, ncand: int = NC
     if r == 0:
         return out
     K.KERNELS["seed_candidates"](
-        K.ptr(reads), r, L, k, w, budget, ncand, tol, K.ptr(dev_index.keys),
+        K.ptr(reads_packed), r, L, k, w, budget, ncand, tol, K.ptr(dev_index.keys),
         K.ptr(dev_index.bucket_off), dev_index.shift, dev_index.bucket_off.shape[0] - 1,
-        K.ptr(dev_index.pos_packed), K.ptr(out), K.stream_ptr(reads),
+        K.ptr(dev_index.pos_packed), K.ptr(out), K.stream_ptr(reads_packed),
     )
     return out
+
+
+def seed_candidates_from_numpy(reads: np.ndarray, dev_idx: DeviceIndex, ncand: int = 4,
+                               tol: int | None = None) -> dict[str, np.ndarray]:
+    """[R, L] padded HOST read matrix -> top diagonal clusters per strand
+    space, field (CAND_FIELDS) -> [R, 2 * ncand]: the JAX package's host
+    ``seed_candidates`` (the device-level ``seed_candidates`` above takes
+    the packed payload). The reads go packed through the index's staging,
+    H6 runs on them, and the result comes back in one device-to-host copy.
+    tol: diagonal clustering tolerance, candidate_tol(L) by default."""
+    (x,) = upload_reads([np.asarray(reads)], dev_idx)
+    packed = seed_candidates(x, dev_idx, ncand=ncand, tol=tol).cpu().numpy()
+    return {f: packed[:, i] for i, f in enumerate(CAND_FIELDS)}

@@ -15,8 +15,14 @@
 // tmax; column s * ncand + c is round c of space s), placeholders
 // included and unclamped.
 //
-// Bound on the H100: the reads (R x L bytes) and the output are a few MB,
-// so bytes bind nothing; block barriers and shared-memory traffic do. A
+// The reads arrive 4 bits a base, int32 [R, L / 8] words (pack_reads; the
+// JAX kernels take the same uint32 payload and decode it with
+// unpack_reads, seed.py:128, fused by XLA into the k-mer scan): each block
+// decodes its read's nibbles where it loads the code tile, so no int8
+// matrix exists on the card and the upload is half the bytes of one.
+//
+// Bound on the H100: the reads (R x L / 2 bytes) and the output are a few
+// MB, so bytes bind nothing; block barriers and shared-memory traffic do. A
 // read of the L=512 decision pass has ~130 minimizers and on the order of
 // a hundred real anchors per strand space out of the 1024 anchor slots of
 // its budget, so the design spends its barriers on real anchors only.
@@ -51,6 +57,11 @@
 // argmax ties go to the first index and strand ties to the forward space,
 // as in the JAX functions.
 #include "common.cuh"
+
+#include <string.h>
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 namespace {
 
@@ -117,10 +128,12 @@ __device__ __forceinline__ long long pack_arg(int32_t v, int i) {
     return (long long)v * 4294967296LL + (long long)(0xffffffffu - (uint32_t)i);
 }
 
-// 1. the first a minimizers of the read (codes row[0, L)) in position order
-// into s_cs (canonical << 1 | strand) and s_cpos; returns their count.
+// 1. the first a minimizers of the read in position order into s_cs
+// (canonical << 1 | strand) and s_cpos; returns their count. The read is
+// its L / 8 packed words row[0, L / 8): base p is the nibble at bits
+// 4 * (p % 8) of word p / 8, decoded where the code tile is loaded.
 // Positions are hashed VOTE_THREADS at a time with their window halo.
-__device__ int scan_minimizers(const int8_t* __restrict__ row, int L, int k, int w, int a,
+__device__ int scan_minimizers(const int32_t* __restrict__ row, int L, int k, int w, int a,
                                int32_t* s_cs, int32_t* s_cpos) {
     __shared__ int8_t s_code[VOTE_THREADS + 2 * HALO + MAX_K];
     __shared__ int32_t s_h[VOTE_THREADS + 2 * HALO];
@@ -135,7 +148,8 @@ __device__ int scan_minimizers(const int8_t* __restrict__ row, int L, int k, int
         const int lo = base - h;               // first position whose hash is needed
         for (int i = t; i < ncode; i += VOTE_THREADS) {
             int p = lo + i;
-            s_code[i] = (p >= 0 && p < L) ? row[p] : (int8_t)4;
+            s_code[i] = (p >= 0 && p < L) ? (int8_t)((row[p >> 3] >> (4 * (p & 7))) & 0xF)
+                                          : (int8_t)4;
         }
         __syncthreads();
         for (int i = t; i < npos; i += VOTE_THREADS) {
@@ -271,7 +285,7 @@ __device__ __forceinline__ int32_t bucket_votes(const int32_t* row, int kept, in
 }
 
 __global__ void __launch_bounds__(VOTE_THREADS)
-seed_vote(const int8_t* __restrict__ reads, int L, int k, int w, int a, int ncand,
+seed_vote(const int32_t* __restrict__ reads_packed, int L, int k, int w, int a, int ncand,
           const int32_t* __restrict__ keys, const int32_t* __restrict__ boff, int shift, int nbk,
           const uint32_t* __restrict__ packed, int32_t* __restrict__ out, int64_t R) {
     extern __shared__ unsigned long long s_dyn[];
@@ -289,7 +303,7 @@ seed_vote(const int8_t* __restrict__ reads, int L, int k, int w, int a, int ncan
 
     const int64_t r = blockIdx.x;
     const int t = threadIdx.x;
-    const int nmin = scan_minimizers(reads + r * L, L, k, w, a, s_cs, s_cpos);
+    const int nmin = scan_minimizers(reads_packed + r * (L / 8), L, k, w, a, s_cs, s_cpos);
     lookup_ranks(nmin, keys, boff, shift, nbk, s_cs, s_rank);
 
     // 3. per strand space: the real anchors' diagonals, sorted by (diagonal, slot)
@@ -368,7 +382,7 @@ seed_vote(const int8_t* __restrict__ reads, int L, int k, int w, int a, int ncan
 // H6: per strand space on its own, sort, vote with tolerance tol and peel
 // ncand rounds; out[r, f, s * ncand + c]
 __global__ void __launch_bounds__(VOTE_THREADS)
-cand_vote(const int8_t* __restrict__ reads, int L, int k, int w, int a, int ncand, int tol,
+cand_vote(const int32_t* __restrict__ reads_packed, int L, int k, int w, int a, int ncand, int tol,
           const int32_t* __restrict__ keys, const int32_t* __restrict__ boff, int shift, int nbk,
           const uint32_t* __restrict__ packed, int32_t* __restrict__ out) {
     extern __shared__ unsigned long long s_dyn[];
@@ -388,7 +402,7 @@ cand_vote(const int8_t* __restrict__ reads, int L, int k, int w, int a, int ncan
     const int64_t r = blockIdx.x;
     const int t = threadIdx.x;
     const int64_t tl = tol;
-    const int nmin = scan_minimizers(reads + r * L, L, k, w, a, s_cs, s_cpos);
+    const int nmin = scan_minimizers(reads_packed + r * (L / 8), L, k, w, a, s_cs, s_cpos);
     lookup_ranks(nmin, keys, boff, shift, nbk, s_cs, s_rank);
     int32_t* orow = out + r * 6 * (2 * ncand);
 
@@ -448,14 +462,15 @@ cand_vote(const int8_t* __restrict__ reads, int L, int k, int w, int a, int ncan
 
 bool seed_shape_ok(int64_t R, int L, int k, int w, int budget, int ncand, int shift, int nbk) {
     int n = L - k + 1;
-    return R > 0 && R <= 0x7fffffffLL && k >= 1 && k <= MAX_K && w >= 1 && w <= MAX_W &&
+    return R > 0 && R <= 0x7fffffffLL && L % 8 == 0 && k >= 1 && k <= MAX_K && w >= 1 &&
+           w <= MAX_W &&
            n >= w && budget >= 64 && budget <= n && (budget & (budget - 1)) == 0 &&
            budget <= 1024 && ncand >= 1 && shift >= 0 && shift <= 30 && nbk >= 1;
 }
 
 }  // namespace
 
-BK_API int bk_seed_topn(const int8_t* reads, int64_t R, int L, int k, int w, int budget,
+BK_API int bk_seed_topn(const int32_t* reads_packed, int64_t R, int L, int k, int w, int budget,
                         int ncand, const int32_t* keys, const int32_t* boff, int shift, int nbk,
                         const uint32_t* packed, int32_t* out, cudaStream_t stream) {
     if (!seed_shape_ok(R, L, k, w, budget, ncand, shift, nbk)) return -1;
@@ -463,16 +478,16 @@ BK_API int bk_seed_topn(const int8_t* reads, int64_t R, int L, int k, int w, int
     size_t smem = (size_t)na * 8 + (size_t)budget * 12 + (size_t)na * 12;
     BK_CHECK(cudaFuncSetAttribute(seed_vote, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem));
-    seed_vote<<<(unsigned)R, VOTE_THREADS, smem, stream>>>(reads, L, k, w, budget, ncand, keys,
-                                                          boff, shift, nbk, packed, out, R);
+    seed_vote<<<(unsigned)R, VOTE_THREADS, smem, stream>>>(reads_packed, L, k, w, budget, ncand,
+                                                          keys, boff, shift, nbk, packed, out, R);
     BK_LAUNCHED();
     return 0;
 }
 
-BK_API int bk_seed_candidates(const int8_t* reads, int64_t R, int L, int k, int w, int budget,
-                              int ncand, int tol, const int32_t* keys, const int32_t* boff,
-                              int shift, int nbk, const uint32_t* packed, int32_t* out,
-                              cudaStream_t stream) {
+BK_API int bk_seed_candidates(const int32_t* reads_packed, int64_t R, int L, int k, int w,
+                              int budget, int ncand, int tol, const int32_t* keys,
+                              const int32_t* boff, int shift, int nbk, const uint32_t* packed,
+                              int32_t* out, cudaStream_t stream) {
     if (!seed_shape_ok(R, L, k, w, budget, ncand, shift, nbk) || ncand > 8 || tol < 1 ||
         tol > (1 << 24))
         return -1;
@@ -480,8 +495,130 @@ BK_API int bk_seed_candidates(const int8_t* reads, int64_t R, int L, int k, int 
     size_t smem = (size_t)na * 8 + (size_t)budget * 12 + (size_t)(na / 2) * 16;
     BK_CHECK(cudaFuncSetAttribute(cand_vote, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem));
-    cand_vote<<<(unsigned)R, VOTE_THREADS, smem, stream>>>(reads, L, k, w, budget, ncand, tol,
-                                                          keys, boff, shift, nbk, packed, out);
+    cand_vote<<<(unsigned)R, VOTE_THREADS, smem, stream>>>(reads_packed, L, k, w, budget, ncand,
+                                                          tol, keys, boff, shift, nbk, packed, out);
     BK_LAUNCHED();
     return 0;
+}
+
+
+// The seeding link's host side (no launch; the library's one host function,
+// called by aligner/seed.py pack_rows and encode_rows). Row r of a bucket
+// is the len[r] bases at src + start[r], cut or padded with code 4 to L; it
+// is packed 4 bits a base into out[r * L / 8, (r + 1) * L / 8), base j of
+// word i at bits 4 * (j % 8): pack_reads' payload, written straight into
+// the pinned staging buffer. With is_text the bases are text, and the row
+// is first encoded into codes_out + start[r] (all len[r] of it, the
+// aligner's host DP reads it: A/a 0, C/c 1, G/g 2, T/t 3, any other byte 4,
+// the aligner's _ENC), so one pass over a batch gives both; else src holds
+// codes. Two codes (lo, hi) read as a little-endian 16-bit lane x give
+// lo | hi << 4 in the low byte of x | x >> 4 (codes below 16 never carry
+// into a neighbour): 32 codes a step in SSE2 (the low bytes of two vectors
+// of lanes, saturating-packed to 16 bytes), the rest eight at a time in a
+// 64-bit word folded to 32 bits, then the row's last partial word and its
+// padding. Returns -2 when a code lies outside 0..4 (as pack_reads raises).
+namespace {
+
+inline unsigned char base_code(unsigned char c) {
+    switch (c & 0xDF) {  // clears only the lower-case bit of a letter
+        case 'A': return 0;
+        case 'C': return 1;
+        case 'G': return 2;
+        case 'T': return 3;
+        default: return 4;
+    }
+}
+
+struct BaseTable {
+    unsigned char code[256];
+    BaseTable() {
+        for (int c = 0; c < 256; ++c) code[c] = base_code((unsigned char)c);
+    }
+};
+
+void encode_bases(const unsigned char* src, int64_t n, unsigned char* dst) {
+    static const BaseTable table;
+    int64_t i = 0;
+#if defined(__SSE2__)
+    const __m128i up = _mm_set1_epi8((char)0xDF), one = _mm_set1_epi8(1),
+                  two = _mm_set1_epi8(2), three = _mm_set1_epi8(3), four = _mm_set1_epi8(4);
+    const __m128i a = _mm_set1_epi8('A'), c = _mm_set1_epi8('C'), g = _mm_set1_epi8('G'),
+                  t = _mm_set1_epi8('T');
+    for (; i + 16 <= n; i += 16) {
+        const __m128i x = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + i));
+        const __m128i u = _mm_and_si128(x, up);
+        const __m128i ea = _mm_cmpeq_epi8(u, a), ec = _mm_cmpeq_epi8(u, c),
+                      eg = _mm_cmpeq_epi8(u, g), et = _mm_cmpeq_epi8(u, t);
+        const __m128i any = _mm_or_si128(_mm_or_si128(ea, ec), _mm_or_si128(eg, et));
+        const __m128i cg = _mm_or_si128(_mm_and_si128(ec, one), _mm_and_si128(eg, two));
+        const __m128i tn = _mm_or_si128(_mm_and_si128(et, three), _mm_andnot_si128(any, four));
+        _mm_storeu_si128(reinterpret_cast<__m128i*>(dst + i), _mm_or_si128(cg, tn));
+    }
+#endif
+    for (; i < n; ++i) dst[i] = table.code[src[i]];
+}
+
+}  // namespace
+
+BK_API int bk_pack_rows(const uint8_t* text, int is_text, int8_t* codes_out,
+                        const int64_t* start, const int64_t* len, int64_t R, int L,
+                        uint32_t* out) {
+    if (R < 0 || L <= 0 || L % 8) return -1;
+    const int64_t W = L / 8;
+    uint32_t top = 0;                          // the largest code seen, bytewise
+#if defined(__SSE2__)
+    const __m128i low = _mm_set1_epi16(0x00FF);
+    __m128i vtop = _mm_setzero_si128();
+#endif
+    for (int64_t r = 0; r < R; ++r) {
+        const int64_t m = len[r] < 0 ? 0 : len[r];
+        const unsigned char* src = text + start[r];
+        if (is_text) {
+            unsigned char* dst = reinterpret_cast<unsigned char*>(codes_out) + start[r];
+            encode_bases(src, m, dst);
+            src = dst;
+        }
+        const int64_t n = m < L ? m : L;
+        uint32_t* dst = out + r * W;
+        int64_t w = 0;                         // words written
+#if defined(__SSE2__)
+        for (; 8 * w + 32 <= n; w += 4) {
+            __m128i a = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + 8 * w));
+            __m128i b = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + 8 * w + 16));
+            vtop = _mm_max_epu8(vtop, _mm_max_epu8(a, b));
+            a = _mm_and_si128(_mm_or_si128(a, _mm_srli_epi16(a, 4)), low);
+            b = _mm_and_si128(_mm_or_si128(b, _mm_srli_epi16(b, 4)), low);
+            _mm_storeu_si128(reinterpret_cast<__m128i*>(dst + w), _mm_packus_epi16(a, b));
+        }
+#endif
+        for (; 8 * w + 8 <= n; ++w) {
+            uint64_t x;
+            memcpy(&x, src + 8 * w, 8);
+            // a byte's high bit is set here when it is above 4
+            if ((((x & 0x7F7F7F7F7F7F7F7Full) + 0x7B7B7B7B7B7B7B7Bull) | x) & 0x8080808080808080ull)
+                top = 0xFF;
+            x |= x >> 4;                       // byte 2k: code 2k | code 2k + 1 << 4
+            x &= 0x00FF00FF00FF00FFull;
+            x |= x >> 8;
+            x &= 0x0000FFFF0000FFFFull;
+            x |= x >> 16;
+            dst[w] = (uint32_t)x;
+        }
+        if (w < W) {
+            uint32_t word = 0;
+            for (int j = 0; j < 8; ++j) {
+                const int64_t p = 8 * w + j;
+                const uint32_t c = p < n ? src[p] : 4u;
+                top |= c > 4 ? 0xFFu : 0u;
+                word |= c << (4 * j);
+            }
+            dst[w] = word;
+            for (++w; w < W; ++w) dst[w] = 0x44444444u;
+        }
+    }
+#if defined(__SSE2__)
+    const __m128i four = _mm_set1_epi8(4);
+    if (_mm_movemask_epi8(_mm_cmpeq_epi8(_mm_max_epu8(vtop, four), four)) != 0xFFFF) top = 0xFF;
+#endif
+    return top ? -2 : 0;
 }

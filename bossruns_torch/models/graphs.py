@@ -43,7 +43,6 @@ import time
 from collections import Counter
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..ops import kernels as K
@@ -203,50 +202,3 @@ class GraphCache:
         self.entries[key] = entry
         return entry
 
-
-class PinnedStaging:
-    """Two pinned host buffers that wires are packed into, in turns. A
-    buffer is refilled only after the event of its last upload has fired,
-    so packing the next batch never races the copy of the one before."""
-
-    def __init__(self):
-        self._bufs: list[torch.Tensor | None] = [None, None]
-        self._events: list = [None, None]
-        self._turn = 0
-        self._lock = threading.Lock()
-
-    def take(self, n_words: int) -> np.ndarray:
-        """A uint32 [n_words] view of the next buffer (grown as needed)."""
-        with self._lock:
-            i = self._turn
-            self._turn ^= 1
-            ev = self._events[i]
-            if ev is not None:
-                ev.synchronize()
-                self._events[i] = None
-            buf = self._bufs[i]
-            if buf is None or buf.numel() < n_words:
-                buf = self._buffer(max(n_words, 2 * (0 if buf is None else buf.numel())))
-                self._bufs[i] = buf
-            return buf.numpy().view(np.uint32)[:n_words]
-
-    def upload(self, wire: np.ndarray, dst: torch.Tensor) -> bool:
-        """One async copy of ``wire`` into ``dst`` on the current stream,
-        if ``wire`` lies at the start of a staging buffer; else False."""
-        with self._lock:
-            for i, buf in enumerate(self._bufs):
-                if buf is not None and wire.ctypes.data == buf.data_ptr():
-                    dst.view(torch.int32).copy_(buf[: wire.shape[0]], non_blocking=True)
-                    self._events[i] = self._recorded_event()
-                    return True
-        return False
-
-    @staticmethod
-    def _buffer(n_words: int) -> torch.Tensor:
-        return torch.empty(n_words, dtype=torch.int32, pin_memory=True)
-
-    @staticmethod
-    def _recorded_event():
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev

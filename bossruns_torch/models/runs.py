@@ -198,6 +198,9 @@ class RunsEngine(nn.Module):
 
     #: step_from_numpy (one-copy wire upload) is valid on this engine
     wire_capable = True
+    #: the strategy's copy to pinned host memory after a step
+    #: (``strat_to_host_async``); None on the CPU and on the sharded engine
+    _strat_pull = None
 
     def __init__(self, layout: GenomeLayout, model: ObservationModel | None = None,
                  config: RunsConfig = RunsConfig(), *, device):
@@ -210,9 +213,11 @@ class RunsEngine(nn.Module):
             self.register_buffer(name, torch.as_tensor(np.asarray(a), dtype=dtype).to(dev))
         self.graphs, self._staging = None, None
         if dev.type == "cuda":
-            from .graphs import GraphCache, PinnedStaging
+            from ..utils.staging import PinnedCopy, PinnedStaging
+            from .graphs import GraphCache
 
             self.graphs, self._staging = GraphCache(dev), PinnedStaging()
+            self._strat_pull = PinnedCopy()
 
     def _setup(self, layout: GenomeLayout, model: ObservationModel | None,
                config: RunsConfig) -> dict:
@@ -483,6 +488,8 @@ class RunsEngine(nn.Module):
     def _through_graphs(self, path: str, state, inputs: dict, params: StepParams, body):
         """``body(state, inputs, params)``: through the graph cache on the
         card, eagerly on the CPU."""
+        if self._strat_pull is not None:
+            self._strat_pull.drop()  # the step rewrites the strategy
         if self.graphs is None:
             return body(state, inputs, params)
         return self.graphs.run(path, state, inputs, params, body,
@@ -492,6 +499,8 @@ class RunsEngine(nn.Module):
         """The body of ``path`` ("step", "step_from_numpy" or "step_gated",
         with that method's arguments) run eagerly, outside the graph cache:
         the reference a replay is held against and timed beside."""
+        if self._strat_pull is not None:
+            self._strat_pull.drop()  # the step rewrites the strategy
         if path == "step_from_numpy":
             batch_np, params = args
             wire, spec = self.pack_wire(batch_np)
@@ -559,11 +568,24 @@ class RunsEngine(nn.Module):
         v = aux.vec.cpu().tolist()
         return AuxHost(bool(v[0]), bool(v[1]), float(v[2]), float(v[3]))
 
+    def strat_to_host_async(self, state: GenomeState) -> None:
+        """Start the strategy's copy into pinned host memory behind the step
+        on the current stream, as the JAX sims call
+        ``state.strat.copy_to_host_async()`` before ``pull_aux``; the next
+        ``strat_dict`` of this state waits on its event instead of pulling.
+        Nothing to do on the CPU."""
+        if self._strat_pull is not None:
+            self._strat_pull.start(state.strat)
+
     def strat_dict(self, state: GenomeState) -> dict[str, np.ndarray]:
         """Per-contig strategy arrays in the reference npz convention:
         shape (length//100, 2, n_barcodes) bool; rejected contigs get a
-        single-False array (reference.py:109-118)."""
-        strat = state.strat.cpu().numpy()  # [NB, Gd, 2]
+        single-False array (reference.py:109-118). Takes the copy
+        ``strat_to_host_async`` started, if one of this state's strategy
+        is pending, else pulls it."""
+        strat = None if self._strat_pull is None else self._strat_pull.take(state.strat)
+        if strat is None:
+            strat = state.strat.cpu().numpy()  # [NB, Gd, 2]
         out = {}
         for c, name in enumerate(self.layout.names):
             r0, n = self.layout.strat_rows(c)

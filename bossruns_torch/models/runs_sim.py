@@ -601,7 +601,10 @@ class BossRunsSim:
     def _finish_batch(self, aux, t: dict, n_mapped: int, n_accepted: int,
                       n_rejected: int) -> None:
         """Wait for the step (one copy of its scalars), publish the strategy,
-        log phases and metrics, checkpoint."""
+        log phases and metrics, checkpoint. The strategy's copy to the host
+        starts before the wait, behind the step on the stream, so
+        ``strat_dict`` finds it landed (the JAX sims' copy_to_host_async)."""
+        self.engine.strat_to_host_async(self.state)
         ah = self.engine.pull_aux(aux)
         t["device"] = time.perf_counter()
         if ah.updated:

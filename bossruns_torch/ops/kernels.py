@@ -99,12 +99,15 @@ class AeonsArgs(ctypes.Structure):
 
 
 class Kernel:
-    """One C entry point of the kernel library, with its launch count."""
+    """One C entry point of the kernel library, with its launch count
+    (``counted=False``: a host function of the library, which launches
+    nothing)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, counted: bool = True):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.counted = counted
         self.launches = 0
         self._fn = None
 
@@ -117,6 +120,8 @@ class Kernel:
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"kernel {self.name} failed: {error_string(err)}")
+        if not self.counted:
+            return
         rec = getattr(_recording, "counts", None)
         if rec is None:
             self.launches += 1
@@ -176,6 +181,14 @@ KERNELS = {
     **{f"shard_benefit{v}": Kernel(f"shard_benefit{v}", f"bk_shard_benefit{v}",
                                    [ctypes.POINTER(StratArgs), ctypes.c_int, _P])
        for v in BENEFIT_VARIANTS},
+}
+
+
+#: host functions of the library: the seeding link's encode and pack of a
+#: batch's rows into the 4-bit payload (csrc/seed.cu ``bk_pack_rows``)
+HOST = {
+    "pack_rows": Kernel("pack_rows", "bk_pack_rows",
+                        [_P, ctypes.c_int, _P, _P, _P, _I64, ctypes.c_int, _P], counted=False),
 }
 
 
@@ -312,12 +325,15 @@ def load():
 def error_string(err: int) -> str:
     if err == -1:
         return "unsupported shape"
+    if err == -2:
+        return "a base code outside 0..4"
     return f"{err} ({load().bk_error_string(err).decode()})"
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """The current CUDA stream of t's device, as the C functions take it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as the C functions take it
+    (the device by its index: resolving a torch.device costs tens of us)."""
+    return torch.cuda.current_stream(t.device.index).cuda_stream
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,

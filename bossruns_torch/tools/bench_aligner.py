@@ -12,7 +12,9 @@ baseline's, where the baseline (``aligner.cpu_baseline.CpuAligner``) is
 the stand-in for mappy: host seeding over the SAME minimizer index and the
 SAME native banded DP, 4 worker threads like the reference's mapper pool.
 Both emit byte-identical records, so the ratio isolates where the seeding
-runs. One JSON line a record.
+runs: the records are held identical on every pass (the device side
+through the packed, staged seeding link), and a difference raises. One
+JSON line a record.
 """
 from __future__ import annotations
 
@@ -25,19 +27,33 @@ import numpy as np
 from ..device import as_device, device_name, require_cuda
 
 
+_FIELDS = ("qname", "qlen", "qstart", "qend", "rev", "tname", "tlen", "tstart", "tend",
+           "nmatch", "blocklen", "mapq", "align_score", "s1", "primary")
+
+
+def _check_same(a, b, what: str) -> None:
+    """Raise unless two PafRecords are identical, field and cigar."""
+    same = len(a) == len(b) and all(np.array_equal(getattr(a, f), getattr(b, f))
+                                    for f in _FIELDS)
+    if not (same and all(np.array_equal(x, y) for x, y in zip(a.cigars, b.cigars))):
+        raise AssertionError(f"{what}: records differ from the host-seeded baseline's")
+
+
 def _time_pair(base, subj, seqs, kw, trials):
     """Median seconds of (baseline, subject), the trials interleaved so that
-    host load falls on both sides of the ratio alike."""
+    host load falls on both sides of the ratio alike; the subject's records,
+    checked against the baseline's."""
     base.map_sequences(seqs, **kw)  # warm
-    rec = subj.map_sequences(seqs, **kw)
+    subj.map_sequences(seqs, **kw)
     tb, ts = [], []
     for _ in range(trials):
         t0 = time.perf_counter()
-        base.map_sequences(seqs, **kw)
+        brec = base.map_sequences(seqs, **kw)
         tb.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         rec = subj.map_sequences(seqs, **kw)
         ts.append(time.perf_counter() - t0)
+    _check_same(rec, brec, f"{type(subj).__name__} {kw}")
     return float(np.median(tb)), float(np.median(ts)), rec
 
 

@@ -15,7 +15,8 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      BossRunsSim (4000-read batches), checked for strategy activation,
      rejections, enrichment, mask shapes, kernel launch counts and a
      checkpoint; the classic flow on the same corpus must agree exactly;
-  5. the seeding kernel H5 against its plain version on that corpus, at
+  5. the seeding kernel H5 against its plain version on that corpus, both
+     on the reads packed 4 bits a base and uploaded from pinned staging, at
      k13/w5 and k15/w10: the 4000 reads' 400-base prefixes (L=512) and
      the largest full-length bucket group, all 24 rows exact, with times;
   6. the aligner on the card against the host-seeded aligner: records
@@ -24,11 +25,12 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
   7. the simulation with live alignment (no PAFs, classic flow): 6
      batches of 4000 reads through H5 and H1-H4, with the same checks as 4;
   8. the live experiment (BossRuns) over two 4000-read fastq files;
-  9. the all-vs-all seeding kernel H6 against its plain version on a
-     metagenome-sized working pool (2000 reads of 5 kb, ~10 Mb): 500-read
-     query batches at L=8192 and L=32768, all 48 entries of every row
-     exact, with times, and find_overlaps on the card against host seeding
-     (identical rows, times of both);
+  9. the all-vs-all seeding kernel H6 against its plain version (the
+     packed payload, as in 5) on a metagenome-sized working pool (2000
+     reads of 5 kb, ~10 Mb): 500-read query batches at L=8192 and
+     L=32768, all 48 entries of every row exact, with times, and
+     find_overlaps on the card against host seeding (identical rows, times
+     of both);
  10. the contig strategy kernel H7 against its plain version on bench.py's
      strat_triple pools (40 and 200 contigs of 200 kb, coverage 0-21 and
      0-29) and on one 5 Mb contig beside 2,000 one-chunk contigs:
@@ -125,7 +127,24 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      steps each), host-clock p50 of both (the first two of each left
      out), the device time of one step each way, the replay, eager and
      capture counts and capture ms, and at chr1 the peak memory of each
-     mode over 3 steps from a fresh state.
+     mode over 3 steps from a fresh state;
+ 22. the seeding link (reads 4 bits a base, packed into pinned staging,
+     one non-blocking copy a bucket): 4000 reads of mean 2,500 (sd 1,200)
+     from phase 4's genome, over at least four length buckets, mapped on
+     the card with a ~50 ms sleep queued on the stream just before the
+     dispatch loop, the loop's host time (the staged payload's upload and
+     every call's H5 launch before the first pull) held below 10% of the
+     sleep, and the time to the first pull beside it; the batch's encode
+     and pack in one pass by the library's host loop (bk_pack_rows) equal
+     to NumPy's, codes and payload, with times of both; one 4096 x 512 bucket's
+     packed, pinned upload against the int8 matrix's pageable copy,
+     host clock, in turns; map_sequences p50 on the batch, its records
+     equal to the plain seeding's on the card; the live-alignment sim's
+     batch p50 (phase 7) and the readfish loop's chunks/s (phase 17)
+     beside the numbers before the packed link. ``link_turn_main`` runs
+     the part every version of the port can (dispatch check, map p50,
+     live-alignment sim, readfish loop) for a comparison in turns with an
+     earlier commit.
 Phase 3 also holds RunsEngine.step_from_numpy (one uint32 wire upload)
 equal to step on the card and times its pack + upload beside the
 per-field upload that pack_batch(device=...) makes; phase 4's classic
@@ -926,7 +945,8 @@ def read_corpus_reads(paths: dict, n: int) -> dict:
 
 
 def check_seed_kernel(dev, card: str, paths: dict, seqs: dict) -> dict:
-    """Phase 5: H5 against its plain version on the corpus reads."""
+    """Phase 5: H5 against its plain version on the corpus reads, both on
+    the 4-bit packed payload uploaded from the index's pinned staging."""
     from bossruns_torch.aligner import BUCKET_ROWS, bucket_of, encode
     from bossruns_torch.aligner import seed as S
     from bossruns_torch.aligner.index import build_index
@@ -952,7 +972,7 @@ def check_seed_kernel(dev, card: str, paths: dict, seqs: dict) -> dict:
             mat = np.full((len(reads), L), 4, np.int8)
             for r, e in enumerate(reads):
                 mat[r, : e.shape[0]] = e[:L]
-            x = torch.from_numpy(mat).to(dev)
+            (x,) = S.upload_reads([mat], di)   # packed, through the index's pinned staging
             b = S.anchor_budget(L, w)
             got = S.seed_topn(x, di, k, w, b, L)
             want = S.seed_topn_plain(x, di, k, w, b, L)
@@ -964,8 +984,10 @@ def check_seed_kernel(dev, card: str, paths: dict, seqs: dict) -> dict:
             plain_ms = time_ms(lambda: S.seed_topn_plain(x, di, k, w, b, L), reps=5)
             dv = device(lambda: S.seed_topn(x, di, k, w, b, L))
             mapped = float((got[2] >= 3).float().mean())
-            # the function's own inputs and outputs (not the kernel's bucket table)
+            # the function's own inputs (the packed reads) and outputs (not
+            # the kernel's bucket table)
             r = res[(k, w, label)] = dict(ms=ms, plain_ms=plain_ms, **dv,
+                                          shape=f"reads_packed int32{list(x.shape)}",
                                           **bound(nbytes(x, di.keys, di.pos_packed, got)))
             log(f"H5 seed_topn k{k} w{w} {label} L={L} R={len(reads)} budget {b}: all 24 rows exact, "
                 f"candidate 0 voted >= 3 for {mapped:.3f} of reads; kernel {ms:.4f} ms (device "
@@ -980,6 +1002,22 @@ def check_seed_kernel(dev, card: str, paths: dict, seqs: dict) -> dict:
     return dict(res[(13, 5, "prefixes")], max_abs_err=worst)
 
 
+RECORD_FIELDS = ("qlen", "qstart", "qend", "rev", "tlen", "tstart", "tend", "nmatch",
+                 "blocklen", "mapq", "align_score", "s1", "primary")
+
+
+def same_records(a, b, what: str) -> None:
+    """Raise unless two PafRecords are byte-identical."""
+    if len(a) != len(b) or list(a.qname) != list(b.qname) or list(a.tname) != list(b.tname):
+        raise AssertionError(f"{what}: record sets differ")
+    for f in RECORD_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: field {f} differs")
+    if any(x.dtype != y.dtype or not np.array_equal(x, y) for x, y in zip(a.cigars, b.cigars)):
+        raise AssertionError(f"{what}: cigars differ")
+
+
 def check_aligner(dev, card: str, paths: dict, seqs: dict) -> None:
     """Phase 6: records seeded on the card == host-seeded records."""
     from bossruns_torch.aligner import make_aligner
@@ -991,8 +1029,6 @@ def check_aligner(dev, card: str, paths: dict, seqs: dict) -> None:
     prof = dict(k=13, w=5, min_votes=3)
     card_al = make_aligner(layout, device=dev, **prof)
     host_al = make_aligner(layout, device="cpu", backend="host", **prof)
-    fields = ("qlen", "qstart", "qend", "rev", "tlen", "tstart", "tend", "nmatch",
-              "blocklen", "mapq", "align_score", "s1", "primary")
     for label, kw in (("truncated", dict(trunc=True)), ("full", {})):
         card_al.map_sequences(seqs, **kw)  # warm-up
         tc, th = [], []
@@ -1003,14 +1039,7 @@ def check_aligner(dev, card: str, paths: dict, seqs: dict) -> None:
             t0 = time.perf_counter()
             b = host_al.map_sequences(seqs, **kw)
             th.append(time.perf_counter() - t0)
-        if len(a) != len(b) or list(a.qname) != list(b.qname) or list(a.tname) != list(b.tname):
-            raise AssertionError(f"aligner {label}: record sets differ")
-        for f in fields:
-            x, y = getattr(a, f), getattr(b, f)
-            if x.dtype != y.dtype or not np.array_equal(x, y):
-                raise AssertionError(f"aligner {label}: field {f} differs")
-        if any(x.dtype != y.dtype or not np.array_equal(x, y) for x, y in zip(a.cigars, b.cigars)):
-            raise AssertionError(f"aligner {label}: cigars differ")
+        same_records(a, b, f"aligner {label}")
         log(f"aligner {label} pass, {len(seqs)} reads: {len(a)} records byte-identical; "
             f"device-seeded {len(seqs) / min(tc):.0f} reads/s ({card_al.threads} DP threads), "
             f"host-seeded {len(seqs) / min(th):.0f} reads/s ({host_al.threads} seeding and DP "
@@ -1065,20 +1094,25 @@ def run_live_align_sim(dev, card: str, work: Path, paths: dict) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
+    batch_ms = []
     for _ in range(N_LIVE_BATCHES):
+        tb = time.perf_counter()
         sim.process_batch()
+        batch_ms.append(1000 * (time.perf_counter() - tb))
     torch.cuda.synchronize()
     sim_s = time.perf_counter() - t0
     launches = kernels.launches()
-    log(f"live-alignment sim: {N_LIVE_BATCHES} batches of {N_READS} reads in {sim_s:.2f} s; "
-        f"launches {launches}")
+    batch_p50 = statistics.median(batch_ms)
+    log(f"live-alignment sim: {N_LIVE_BATCHES} batches of {N_READS} reads in {sim_s:.2f} s, "
+        f"batch p50 {batch_p50:.1f} ms ({', '.join(f'{t:.1f}' for t in batch_ms)}); "
+        f"launches {launches} [{card}]")
     if min(launches[k] for k in (*UPDATE_KERNELS, "seed_topn")) <= 0:
         raise AssertionError(f"a kernel of the live-alignment sim never launched: {launches}")
     check_sim(sim, "live-alignment sim")
     phase = sim.phase_p50_ms()
     log(f"live-alignment sim phase p50 ms: {json.dumps(phase)} [{card}]")
     sim.cleanup()
-    return dict(launches=launches, phase=phase)
+    return dict(launches=launches, phase=phase, batch_p50_ms=batch_p50)
 
 
 def run_live_experiment(dev, work: Path, paths: dict) -> None:
@@ -1157,7 +1191,7 @@ def check_ava(dev, card: str) -> dict:
         for i, r in enumerate(q):
             e = encode(r.seq)
             mat[i, : e.shape[0]] = e
-        x = torch.from_numpy(mat).to(dev)
+        (x,) = S.upload_reads([mat], di)   # packed, through the index's pinned staging
         tol = S.candidate_tol(L)
         got = S.seed_candidates(x, di)
         want = S.seed_candidates_plain(x, di, tol=tol)
@@ -1171,8 +1205,9 @@ def check_ava(dev, card: str) -> dict:
         log(f"H6 seed_candidates L={L} R={len(q)} tol {tol}: all 48 entries of every row exact, "
             f"{hit:.3f} of reads with a cluster of >= 4 votes; kernel {ms:.4f} ms (device "
             f"{dv['device_ms']:.4f} ms: {fmt_split(dv['split'])}), plain {plain_ms:.4f} ms [{card}]")
-        # the function's own inputs and outputs (not the kernel's bucket table)
-        res[L] = dict(ms=ms, plain_ms=plain_ms, **dv,
+        # the function's own inputs (the packed reads) and outputs (not the
+        # kernel's bucket table)
+        res[L] = dict(ms=ms, plain_ms=plain_ms, **dv, shape=f"reads_packed int32{list(x.shape)}",
                       **bound(nbytes(x, di.keys, di.pos_packed, got)))
         queries = {r.rid: r.seq for r in q}
         find_overlaps(queries, pidx)  # warm-up
@@ -3115,6 +3150,219 @@ def run_scoreboard(card: str, work: Path) -> dict:
     return dict(records=recs, tools=tools)
 
 
+# ---------------------------------------------------- phase 22: seed link --
+
+#: the sleep queued before the dispatch check (ms at the card's highest SM
+#: clock; its own length is measured with CUDA events)
+LINK_SLEEP_MS = 50.0
+#: the readfish loop's chunks/s that PERF.md records from before the packed
+#: link (NVIDIA H100 80GB HBM3, 700.00 W)
+READFISH_PARENT = (11285, 12205)
+
+
+def link_reads(paths: dict, n: int = N_READS) -> dict:
+    """The live-alignment sim's full reads on the corpus genome: mean 2,500,
+    sd 1,200 (the aligner's buckets 512 to 16384), {rid: seq}."""
+    from bossruns_torch.models.runs_sim import load_reference_contigs
+    from bossruns_torch.utils.datagen import simulate_reads
+
+    genome = load_reference_contigs(paths["ref"])
+    sim = simulate_reads(np.random.default_rng(22), genome, n, mean_len=2500.0, sd_len=1200.0)
+    return {r.rid: r.seq for r in sim}
+
+
+def link_aligner(dev, paths: dict):
+    """(reads, aligner, buckets): ``link_reads``, the k13/w5 aligner on the
+    card over the corpus genome, and the length buckets the reads fill."""
+    from bossruns_torch.aligner import bucket_of, make_aligner
+    from bossruns_torch.models.layout import build_layout
+    from bossruns_torch.models.runs_sim import load_reference_contigs
+
+    reads = link_reads(paths)
+    layout = build_layout(load_reference_contigs(paths["ref"]))
+    al = make_aligner(layout, device=dev, k=13, w=5, min_votes=3)
+    return reads, al, sorted({bucket_of(len(r)) for r in reads.values()})
+
+
+def dispatch_check(al, seqs: dict, reps: int = 3) -> list[dict]:
+    """map_sequences on the card with a ~LINK_SLEEP_MS sleep queued on the
+    stream just before its dispatch loop (after the batch's encode): the
+    host ms of the loop (every _seed_bucket_dispatch call before the first
+    pull, summed) and of everything before the first pull, beside the
+    sleep's own length (CUDA events). The aligner's methods are wrapped on
+    the instance, so the check runs on any version of the aligner, whatever
+    its dispatch takes."""
+    acc = {}
+    real_dispatch, real_pull = al._seed_bucket_dispatch, al._pull_seeds
+
+    def dispatch(*a, **kw):
+        if not acc["calls"]:
+            acc["e0"].record()
+            torch.cuda._sleep(int(LINK_SLEEP_MS * SM_CLOCK_MHZ * 1000))
+            acc["e1"].record()
+        t0 = time.perf_counter()
+        try:
+            return real_dispatch(*a, **kw)
+        finally:
+            acc["ms"] += 1000 * (time.perf_counter() - t0)
+            acc["calls"] += 1
+
+    def pull(*a, **kw):
+        acc.setdefault("first_pull", time.perf_counter())
+        return real_pull(*a, **kw)
+
+    al._seed_bucket_dispatch, al._pull_seeds = dispatch, pull
+    rows = []
+    try:
+        for i in range(reps + 2):  # two warm-ups: each takes one staging buffer first
+            acc.clear()
+            acc.update(ms=0.0, calls=0, e0=torch.cuda.Event(enable_timing=True),
+                       e1=torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            al.map_sequences(seqs)
+            torch.cuda.synchronize()
+            if i > 1:
+                rows.append(dict(dispatch_ms=acc["ms"], calls=acc["calls"],
+                                 to_first_pull_ms=1000 * (acc["first_pull"] - t0),
+                                 sleep_ms=acc["e0"].elapsed_time(acc["e1"])))
+    finally:
+        del al._seed_bucket_dispatch, al._pull_seeds
+    return rows
+
+
+def fmt_dispatch(rows: list[dict]) -> str:
+    return "; ".join(f"dispatch {r['dispatch_ms']:.2f} ms in {r['calls']} calls, first pull at "
+                     f"{r['to_first_pull_ms']:.2f} ms, sleep {r['sleep_ms']:.2f} ms" for r in rows)
+
+
+def link_turn(dev, card: str, work: Path, paths: dict) -> dict:
+    """What the seed link moves, through entry points every version of the
+    port has (one turn of a parent/change comparison): the dispatch check,
+    map_sequences p50 on the multi-bucket batch, the live-alignment sim's
+    batch p50 (phase 7) and the readfish loop's chunks/s (phase 17's
+    loop)."""
+    reads, al, buckets = link_aligner(dev, paths)
+    rows = dispatch_check(al, reads)
+    map_ms = [host_ms(lambda: al.map_sequences(reads), reps=1, warm=0) for _ in range(5)]
+    log(f"seed link: {len(reads)} reads over buckets {buckets}, ~{LINK_SLEEP_MS:.0f} ms sleep "
+        f"queued before the loop: {fmt_dispatch(rows)}; map_sequences p50 "
+        f"{statistics.median(map_ms):.1f} ms ({', '.join(f'{t:.1f}' for t in map_ms)}) [{card}]")
+    live = run_live_align_sim(dev, card, work, paths)
+    rf = run_readfish(dev, card, work, paths, read_corpus_reads(paths, N_READS))
+    return dict(dispatch=rows, map_ms=map_ms, live_batch_p50_ms=live["batch_p50_ms"],
+                chunks_per_s=rf["chunks_per_s"])
+
+
+def link_turn_main() -> None:
+    """One turn of the seed link's comparison with an earlier commit, from
+    the root of either tree: ``python3 -c 'import chip_smoke;
+    chip_smoke.link_turn_main()'`` (this file copied into the older tree)."""
+    global SM_CLOCK_MHZ
+    from bossruns_torch.device import require_cuda
+    from bossruns_torch.ops import kernels
+
+    dev = require_cuda()
+    card = card_line()
+    SM_CLOCK_MHZ = sm_clock_mhz()
+    kernels.build()
+    kernels.load()
+    with tempfile.TemporaryDirectory(prefix="bossruns_link_") as tmp:
+        paths = write_smoke_corpus(Path(tmp))
+        out = link_turn(dev, card, Path(tmp), paths)
+    log(f"seed link turn: {json.dumps(out)} [{card}]")
+
+
+def check_seed_link(dev, card: str, paths: dict, live: dict | None, rf: dict | None) -> None:
+    """Phase 22: the seeding link on the card. The library's host encode
+    and pack (bk_pack_rows) equal NumPy's on a multi-bucket batch;
+    every bucket of a map_sequences call is queued before the first pull (the
+    dispatch loop behind a queued sleep takes under 10% of it in host
+    time); one 4096 x 512 bucket's upload packed into pinned staging
+    against the int8 matrix's pageable copy, in turns; map_sequences p50
+    on that batch, its records equal to the plain seeding's on the card;
+    and the live-alignment sim's batch p50 and the readfish loop's chunks/s
+    of phases 7 and 17, where they ran, beside the numbers before."""
+    from bossruns_torch.aligner import bucket_of, length_groups
+    from bossruns_torch.aligner import seed as S
+
+    reads, al, buckets = link_aligner(dev, paths)
+    if len(buckets) < 4:
+        raise AssertionError(f"seed link: the batch fills only buckets {buckets}")
+    # the batch's encode and pack in one pass: the library's host loop (the
+    # card's index, into pinned staging) against NumPy (a CPU index), byte
+    # for byte, codes and payload, host clock in turns
+    text = "".join(reads.values()).encode()
+    lens = np.array([len(r) for r in reads.values()], np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    calls = [(offs[g], lens[g], bucket_of(int(lens[g].max()))) for g in length_groups(lens)]
+    sides = {True: al.dev_index, False: S.DeviceIndex(al.index, "cpu")}
+    enc_ms, got = {True: [], False: []}, {}
+    for card_side in (True, False, True, False, True):
+        t0 = time.perf_counter()
+        got[card_side] = S.encode_rows(text, calls, sides[card_side])
+        enc_ms[card_side].append(1000 * (time.perf_counter() - t0))
+    (c1, (_, p1)), (c0, (_, p0)) = got[True], got[False]
+    if not np.array_equal(c1, c0) or any(a.tobytes() != b.tobytes() for a, b in zip(p1, p0)):
+        raise AssertionError("seed link: the host encode and pack (bk_pack_rows) differ from "
+                             "NumPy's")
+    log(f"seed link encode + pack of {len(reads)} reads ({len(text)} bases, {len(calls)} seeding "
+        f"calls), codes and payload equal to NumPy's, host clock in turns: bk_pack_rows "
+        f"{', '.join(f'{t:.2f}' for t in enc_ms[True])} ms; NumPy (_ENC, padded matrix, "
+        f"pack_reads) {', '.join(f'{t:.2f}' for t in enc_ms[False])} ms [{card}]")
+
+    rows = dispatch_check(al, reads)
+    log(f"seed link dispatch, {len(reads)} reads over buckets {buckets}, ~{LINK_SLEEP_MS:.0f} ms "
+        f"sleep queued before the loop: {fmt_dispatch(rows)} [{card}]")
+    slow = [r for r in rows if r["dispatch_ms"] >= 0.1 * r["sleep_ms"]]
+    if slow:
+        raise AssertionError(f"seed link: the dispatch loop waited behind the sleep: {slow}")
+
+    # one bucket's upload, host clock to a synchronize, in turns
+    di = al.dev_index
+    rng = np.random.default_rng(5)
+    mat = rng.integers(0, 4, (4096, 512)).astype(np.int8)
+    mat[:, 400:] = 4
+
+    def packed():
+        (x,) = S.upload_reads([mat], di)
+        return x
+
+    def pageable():
+        return torch.from_numpy(mat).to(dev)
+
+    if not torch.equal(S.unpack_reads(packed(), 512), pageable()):
+        raise AssertionError("seed link: the packed upload does not decode to the reads")
+    up = {"packed": [], "pageable": []}
+    for order in (("packed", "pageable"), ("pageable", "packed")) * 2:
+        for name in order:
+            up[name].append(host_ms(packed if name == "packed" else pageable))
+    log(f"upload of one 4096 x 512 bucket, host clock to a synchronize, in turns: packed into "
+        f"pinned staging + one non-blocking copy ({mat.nbytes // 2} B) "
+        f"{', '.join(f'{t:.3f}' for t in up['packed'])} ms; the int8 matrix's pageable copy "
+        f"({mat.nbytes} B) {', '.join(f'{t:.3f}' for t in up['pageable'])} ms [{card}]")
+
+    # map_sequences p50, and its records against the plain seeding's
+    (rec, _) = count_path(f"seed link: map_sequences, {len(reads)} reads",
+                          lambda: al.map_sequences(reads), ("seed_topn",))
+    map_ms = [host_ms(lambda: al.map_sequences(reads), reps=1, warm=0) for _ in range(5)]
+    kernel = S.seed_topn
+    S.seed_topn = S.seed_topn_plain  # the dispatch reads it at each call
+    try:
+        plain = al.map_sequences(reads)
+    finally:
+        S.seed_topn = kernel
+    same_records(rec, plain, "seed link map_sequences (H5 vs the plain seeding on the card)")
+    log(f"seed link map_sequences: {len(reads)} reads, {len(rec)} records equal to the plain "
+        f"seeding's; p50 {statistics.median(map_ms):.1f} ms "
+        f"({', '.join(f'{t:.1f}' for t in map_ms)}) [{card}]")
+    if live is not None:
+        log(f"live-alignment sim batch p50 (phase 7): {live['batch_p50_ms']:.1f} ms [{card}]")
+    if rf is not None:
+        log(f"readfish loop (phase 17): {rf['chunks_per_s']:.1f} chunks/s; before the packed "
+            f"link {READFISH_PARENT[0]:,}-{READFISH_PARENT[1]:,} chunks/s (PERF.md) [{card}]")
+
+
 def sm_clock_mhz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -3123,7 +3371,7 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-ALL_PHASES = range(3, 22)
+ALL_PHASES = range(3, 23)
 
 
 def parse_phases(argv: list[str]) -> set[int]:
@@ -3132,16 +3380,28 @@ def parse_phases(argv: list[str]) -> set[int]:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-21)")
+    ap.add_argument("--phases", default="", help="comma-separated phase numbers (3-22)")
     a = ap.parse_args(argv)
     phases = {int(x) for x in a.phases.split(",") if x} or set(ALL_PHASES)
     if not phases <= set(ALL_PHASES):
-        ap.error(f"phases are 3-21, got {sorted(phases)}")
+        ap.error(f"phases are 3-22, got {sorted(phases)}")
     if 15 in phases and 4 not in phases:
         ap.error("phase 15 compares against the sims of phase 4")
     if 12 in phases and 11 not in phases:
         ap.error("phase 12 runs on the corpus of phase 11")
     return phases
+
+
+def write_smoke_corpus(work: Path) -> dict:
+    """The 8.05 Mb corpus of phases 4-8, 17 and 22 under ``work``."""
+    from bossruns_torch.utils.datagen import write_corpus
+
+    t0 = time.perf_counter()
+    paths = write_corpus(work / "data", rng=np.random.default_rng(3), contig_lengths=GENOME,
+                         n_reads=N_READS * (N_BATCHES + 1), mean_len=float(MEAN_LEN))
+    log(f"corpus: {sum(GENOME.values())} sites, {N_READS * (N_BATCHES + 1)} reads, "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def main(argv: list[str]) -> int:
@@ -3168,20 +3428,13 @@ def main(argv: list[str]) -> int:
     kernels.load()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {so.name}")
 
-    res, sl, live, aeons, chrom = {}, None, None, None, None
+    res, sl, live, aeons, chrom, rf = {}, None, None, None, None, None
     if 3 in phases:
         res = check_kernels(dev, card)
     with tempfile.TemporaryDirectory(prefix="bossruns_smoke_") as tmp:
         work = Path(tmp)
-        from bossruns_torch.utils.datagen import write_corpus
-
-        if phases & {4, 5, 6, 7, 8, 17}:
-            t0 = time.perf_counter()
-            paths = write_corpus(work / "data", rng=np.random.default_rng(3),
-                                 contig_lengths=GENOME, n_reads=N_READS * (N_BATCHES + 1),
-                                 mean_len=float(MEAN_LEN))
-            log(f"corpus: {sum(GENOME.values())} sites, {N_READS * (N_BATCHES + 1)} reads, "
-                f"written in {time.perf_counter() - t0:.1f} s")
+        if phases & {4, 5, 6, 7, 8, 17, 22}:
+            paths = write_smoke_corpus(work)
             seqs = read_corpus_reads(paths, N_READS)
         if 4 in phases:
             sl = run_slice(dev, card, work, paths)
@@ -3223,7 +3476,7 @@ def main(argv: list[str]) -> int:
             run_conformance(dev, card, work)
         if 17 in phases:
             check_prepare(dev, card, work, paths)
-            run_readfish(dev, card, work, paths, seqs)
+            rf = run_readfish(dev, card, work, paths, seqs)
         if 18 in phases:
             opt = check_options(dev, card)
         if 19 in phases:
@@ -3232,6 +3485,8 @@ def main(argv: list[str]) -> int:
             run_scoreboard(card, work)
         if 21 in phases:
             graphs = check_graphs(dev, card)
+        if 22 in phases:
+            check_seed_link(dev, card, paths, live, rf)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bossruns_tpu")]
     if loaded:
         raise AssertionError(f"the JAX package or jax was imported: {loaded[:5]}")
@@ -3265,7 +3520,7 @@ def main(argv: list[str]) -> int:
          "launches": counts[k], "max_abs_err": res[k]["max_abs_err"],
          "ms": res[k]["ms"], "device_ms": res[k]["device_ms"], "plain_ms": res[k]["plain_ms"],
          "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"], "library_ms": None,
-         "split": res[k]["split"]}
+         "split": res[k]["split"], **({"shape": res[k]["shape"]} if "shape" in res[k] else {})}
         for k, (src, rep) in meta.items()
     ]}
     # phase 18's variants: launches from their option's run (the 8.05 Mb

@@ -141,8 +141,8 @@ def _jax_candidates(mat, idx, tol):
 
 def _check_k9(mat, idx, tol):
     want = _jax_candidates(mat, idx, tol)
-    got = tseed.seed_candidates(torch.from_numpy(mat), tseed.DeviceIndex(idx, "cpu"), ncand=4,
-                                tol=tol).numpy()
+    got = tseed.seed_candidates(torch.from_numpy(tseed.pack_reads(mat).view(np.int32)),
+                                tseed.DeviceIndex(idx, "cpu"), ncand=4, tol=tol).numpy()
     assert got.dtype == np.int32 and got.shape == want.shape == (mat.shape[0], 6, 8)
     np.testing.assert_array_equal(got, want.astype(np.int32))
     return got

@@ -85,8 +85,8 @@ def _jax_seeds(idx, mat, L):
 
 def _port_seeds(idx, mat, L):
     di = tseed.DeviceIndex(idx, "cpu")
-    return tseed.seed_topn(torch.from_numpy(mat), di, idx.k, idx.w,
-                           tseed.anchor_budget(L, idx.w), L).numpy()
+    return tseed.seed_topn(torch.from_numpy(tseed.pack_reads(mat).view(np.int32)), di, idx.k,
+                           idx.w, tseed.anchor_budget(L, idx.w), L).numpy()
 
 
 @pytest.mark.parametrize("world", ["corpus_small", "prefixes_k13w5"])

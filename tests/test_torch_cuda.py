@@ -309,7 +309,7 @@ def test_seed_kernel_exact(seed_world, dev, k, w):
         mat = np.full((len(reads), L), 4, np.int8)
         for r, e in enumerate(reads):
             mat[r, : e.shape[0]] = e[:L]
-        x = torch.from_numpy(mat).to(dev)
+        (x,) = S.upload_reads([mat], di)
         b = S.anchor_budget(L, w)
         got = S.seed_topn(x, di, k, w, b, L)
         want = S.seed_topn_plain(x, di, k, w, b, L)
@@ -344,7 +344,7 @@ def test_seed_kernel_ragged_batch_and_unmapped_reads(seed_world, dev, L):
             mat[r, :10] = rng.integers(0, 4, 10)        # shorter than k; the rest N
         else:
             mat[r] = rng.integers(0, 5, L)
-    x = torch.from_numpy(mat).to(dev)
+    (x,) = S.upload_reads([mat], di)
     b = S.anchor_budget(L, 5)
     got = S.seed_topn(x, di, 13, 5, b, L)
     want = S.seed_topn_plain(x, di, 13, 5, b, L)
@@ -392,12 +392,161 @@ def test_seed_candidates_kernel_exact(seed_world, dev, L):
     for r, e in enumerate(q):
         mat[r, : e.shape[0]] = e
     mat[len(q):] = rng.integers(0, 5, (4, L))
-    x = torch.from_numpy(mat).to(dev)
+    (x,) = S.upload_reads([mat], pidx.dev)
     got = S.seed_candidates(x, pidx.dev)
     want = S.seed_candidates_plain(x, pidx.dev, tol=S.candidate_tol(L))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert float((got[:-4, 0] >= 4).any(dim=1).float().mean()) > 0.8
+
+
+def test_seed_upload_from_staging_only(seed_world, dev):
+    """On the card the packed reads go through the index's pinned staging:
+    the staged payload decodes to the reads, and an array that was not
+    packed into staging raises (no pageable copy)."""
+    from bossruns_torch.aligner import seed as S
+    from bossruns_torch.aligner.index import build_index
+
+    base, _ = seed_world
+    di = S.DeviceIndex(build_index(base, np.ones(base.shape[0], bool), k=13, w=5), dev)
+    mat = np.random.default_rng(3).integers(0, 5, (33, 1024)).astype(np.int8)
+    (x,) = S.upload_reads([mat], di)
+    assert x.device.type == "cuda" and x.dtype == torch.int32 and x.shape == (33, 128)
+    np.testing.assert_array_equal(S.unpack_reads(x, 1024).cpu().numpy(), mat)
+    with pytest.raises(ValueError, match="staging"):
+        S.put_packed(S.pack_reads(mat), di)
+
+
+def test_pack_rows_host_loop_equals_numpy(dev):
+    """The kernel library's host pack (bk_pack_rows) writes the bytes of
+    NumPy's pack, rows cut or padded to L (empty, odd, exact, over-long),
+    and refuses a code outside 0..4."""
+    from bossruns_torch.aligner import seed as S
+
+    rng = np.random.default_rng(12)
+    for L in (512, 4096, 32768):
+        lens = rng.integers(0, L + 20, 57)
+        lens[:5] = (0, L, L + 100, 7, 9)
+        start = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        codes = rng.integers(0, 5, int(lens.sum())).astype(np.int8)
+        got = S.pack_rows(codes, start, lens, L, np.empty((57, L // 8), np.uint32), compiled=True)
+        want = S.pack_rows(codes, start, lens, L, np.empty((57, L // 8), np.uint32))
+        assert got.tobytes() == want.tobytes(), L
+    codes[3] = 5
+    with pytest.raises(RuntimeError, match="outside 0..4"):
+        S.pack_rows(codes, start, lens, L, np.empty((57, L // 8), np.uint32), compiled=True)
+
+
+def test_encode_rows_host_loop_equals_numpy(seed_world, dev):
+    """The aligner's one pass over a batch's text on the card's path (the
+    host loop encodes and packs into pinned staging) gives NumPy's codes
+    (every byte value, upper and lower case, N and junk) and payload."""
+    from bossruns_torch import aligner as tal
+    from bossruns_torch.aligner import seed as S
+    from bossruns_torch.aligner.index import build_index
+
+    base, _ = seed_world
+    idx = build_index(base, np.ones(base.shape[0], bool), k=13, w=5)
+    card, cpu = S.DeviceIndex(idx, dev), S.DeviceIndex(idx, "cpu")
+    rng = np.random.default_rng(4)
+    lens = rng.integers(0, 9000, 300)
+    lens[:4] = (0, 1, 40_000, 256)
+    alphabet = np.frombuffer(b"ACGTacgtNnRY-x", np.uint8)
+    raw = alphabet[rng.integers(0, alphabet.shape[0], int(lens.sum()))]
+    raw[1: 1 + 1024] = np.tile(np.arange(256, dtype=np.uint8), 4)   # inside the 40 kb read
+    text = raw.tobytes()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    calls = [(offs[g], lens[g], tal.bucket_of(int(lens[g].max())))
+             for g in tal.length_groups(lens)]
+    (c1, (_, p1)), (c0, (_, p0)) = S.encode_rows(text, calls, card), S.encode_rows(text, calls, cpu)
+    np.testing.assert_array_equal(c1, c0)
+    np.testing.assert_array_equal(c0, tal._ENC[raw])
+    assert len(p1) == len(p0) == len(calls)
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(p1, p0))
+
+
+def _link_reads(seed_world, n=300):
+    """Reads of mean 2,500 (sd 1,200): four or more length buckets."""
+    from bossruns_torch.utils.datagen import simulate_reads
+
+    base, _ = seed_world
+    genome = {"g": "".join(np.array(list("ACGT"))[base])}
+    reads = simulate_reads(np.random.default_rng(8), genome, n, mean_len=2500.0, sd_len=1200.0)
+    return {r.rid: r.seq for r in reads}
+
+
+def test_dispatch_queues_every_bucket_behind_a_sleep(seed_world, dev):
+    """map_sequences queues every bucket's upload and H5 launch before its
+    first pull: with ~50 ms of sleep queued on the stream, the dispatch
+    loop's host time stays under a tenth of the sleep."""
+    import time
+
+    from bossruns_torch.aligner import bucket_of, make_aligner
+    from bossruns_torch.models.layout import build_layout
+
+    base, _ = seed_world
+    seqs = _link_reads(seed_world)
+    assert len({bucket_of(len(s)) for s in seqs.values()}) >= 4
+    al = make_aligner(build_layout({"g": base}), device=dev, k=13, w=5, min_votes=3)
+    al.map_sequences(seqs)  # warm-up
+    real, spent = al._seed_bucket_dispatch, []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(*a):
+        e0.record()
+        torch.cuda._sleep(100_000_000)  # ~50 ms at 2 GHz, just before the loop
+        e1.record()
+        t0 = time.perf_counter()
+        out = real(*a)
+        spent.append(1000 * (time.perf_counter() - t0))
+        return out
+
+    al._seed_bucket_dispatch = timed
+    torch.cuda.synchronize()
+    al.map_sequences(seqs)
+    torch.cuda.synchronize()
+    assert sum(spent) < 0.1 * e0.elapsed_time(e1), (spent, e0.elapsed_time(e1))
+
+
+def test_map_sequences_on_card_equals_cpu_over_buckets(seed_world, dev):
+    """Records seeded on the card (packed, staged link) equal the CPU's
+    plain seeding's on a batch over four or more length buckets."""
+    from bossruns_torch.aligner import make_aligner
+    from bossruns_torch.models.layout import build_layout
+
+    base, _ = seed_world
+    seqs = _link_reads(seed_world, 200)
+    lay = build_layout({"g": base})
+    card = make_aligner(lay, device=dev, k=13, w=5, min_votes=3)
+    cpu = make_aligner(lay, device="cpu", k=13, w=5, min_votes=3)
+    for kw in (dict(trunc=True), dict(), dict(all_records=True)):
+        a, b = card.map_sequences(seqs, **kw), cpu.map_sequences(seqs, **kw)
+        assert len(a) == len(b) > 0 and list(a.qname) == list(b.qname)
+        for f in ("qstart", "qend", "rev", "tstart", "tend", "nmatch", "blocklen", "mapq",
+                  "align_score", "s1", "primary"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        for x, y in zip(a.cigars, b.cigars):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_strategy_pull_on_card(dev):
+    """strat_dict takes the pinned copy strat_to_host_async started behind
+    a step, equal to a plain pull, and a step drops a pending copy."""
+    rng = np.random.default_rng(6)
+    lay = build_layout({"a": rng.integers(0, 4, 150_000).astype(np.uint8)})
+    eng = truns.RunsEngine(lay, device=dev)
+    state, params = eng.init_state(), eng.make_params(CCL, 5300.0)
+    for _ in range(2):
+        eng.strat_to_host_async(state)
+        state, _ = eng.step(state, batch_from_numpy(_random_batch(rng, lay, n_obs=60_000), dev),
+                            params)
+    assert eng._strat_pull.take(state.strat) is None
+    want = {k: v.copy() for k, v in eng.strat_dict(state).items()}   # pulled
+    eng.strat_to_host_async(state)
+    got = eng.strat_dict(state)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    np.testing.assert_array_equal(eng._strat_pull._buf.numpy(), state.strat.cpu().numpy())
 
 
 @pytest.mark.parametrize("n_contigs", [40, 200])

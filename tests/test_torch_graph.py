@@ -40,9 +40,10 @@ from bossruns_tpu.models.layout import build_layout
 from bossruns_torch.io.coo import _pad_len
 from bossruns_torch.models import runs as truns
 from bossruns_torch.models.convert import batch_from_numpy, state_to_numpy, tensors_from_numpy
-from bossruns_torch.models.graphs import GraphCache, PinnedStaging
+from bossruns_torch.models.graphs import GraphCache
 from bossruns_torch.ops import genome_ops as tg
 from bossruns_torch.parallel import mesh as tmesh
+from bossruns_torch.utils.staging import PinnedStaging
 from test_engine_parity import _random_batch
 from test_torch_f16 import _override_scores
 from test_torch_options import _benefit, _threshold_rule
@@ -99,7 +100,7 @@ class HostStaging(PinnedStaging):
         return torch.empty(n_words, dtype=torch.int32)
 
     @staticmethod
-    def _recorded_event():
+    def _new_event():
         return None
 
 

@@ -1,0 +1,20 @@
+"""Mean per cycle of the engine"s ``engine.pack`` spans (ms): packing the
+batch"s wire into pinned staging, with the wait for a free staging
+buffer."""
+
+NAMES = ("engine.pack",)
+
+
+def read(ctx):
+    run = ctx["run"]
+    if not run.cycles:
+        return None
+    try:
+        from bossruns_torch.utils import spans
+    except ImportError:  # a program without the recorder
+        return None
+    env = ctx["env"]
+    w = spans.window(env.window_start, env.window_end)
+    if not any(n in w.seconds for n in NAMES):
+        return None
+    return 1e3 * sum(w.seconds.get(n, 0.0) for n in NAMES) / len(run.cycles)

@@ -112,6 +112,9 @@ class GraphCache:
         self.replays: Counter = Counter()
         self.eager: Counter = Counter()
         self.captures: list[tuple[str, float]] = []
+        #: how the last step ran: "eager", "capture" (captured, then
+        #: replayed) or "replay"
+        self.last_mode = None
         self.wires: dict[tuple, torch.Tensor] = {}
         self._lock = threading.Lock()
 
@@ -163,8 +166,12 @@ class GraphCache:
                 self._out_specs[key] = [None if t is None else (tuple(t.shape), t.dtype)
                                         for t in (aux.vec, aux.threshold, aux.scores)]
                 self.eager[path] += 1
+                self.last_mode = "eager"
                 return state, aux
             entry = self._capture(key, state, inputs, params, body)
+            self.last_mode = "capture"
+        else:
+            self.last_mode = "replay"
         pairs = [(entry.inputs[k], v) for k, v in inputs.items()]
         pairs.append((entry.params.block, params.block))
         pairs = [(dst, src) for dst, src in pairs if dst.data_ptr() != src.data_ptr()]

@@ -54,6 +54,7 @@ from torch import nn
 from ..ops.model import ObservationModel, make_model
 
 from ..device import as_device
+from ..utils import spans
 from ..ops.genome_ops import (
     NP_FLOAT, CovRows, benefit_strategy, coverage_update, default_dtypes, row_stage,
 )
@@ -304,16 +305,17 @@ class RunsEngine(nn.Module):
     def _pack_fields(get, fields, out=None):
         """Each field's bytes written straight into one uint32 buffer:
         ``out(n_words)`` (a staging buffer), or a new array."""
-        arrs = [np.ascontiguousarray(get(name), dtype=dt) for name, dt in fields]
-        words = [(a.nbytes + 3) // 4 for a in arrs]
-        wire = np.empty(sum(words), np.uint32) if out is None else out(sum(words))
-        raw = wire.view(np.uint8)
-        off = 0
-        for a, w in zip(arrs, words):
-            nb = a.nbytes
-            raw[off: off + nb] = a.reshape(-1).view(np.uint8)
-            raw[off + nb: off + 4 * w] = 0
-            off += 4 * w
+        with spans.span("engine.pack"):
+            arrs = [np.ascontiguousarray(get(name), dtype=dt) for name, dt in fields]
+            words = [(a.nbytes + 3) // 4 for a in arrs]
+            wire = np.empty(sum(words), np.uint32) if out is None else out(sum(words))
+            raw = wire.view(np.uint8)
+            off = 0
+            for a, w in zip(arrs, words):
+                nb = a.nbytes
+                raw[off: off + nb] = a.reshape(-1).view(np.uint8)
+                raw[off + nb: off + 4 * w] = 0
+                off += 4 * w
         return wire, tuple((name, int(a.shape[0])) for (name, _), a in zip(fields, arrs))
 
     @classmethod
@@ -372,14 +374,15 @@ class RunsEngine(nn.Module):
         it in the tier's static device wire, the buffer the tier's captured
         step reads (valid until the next upload of the same spec). On the
         CPU, the buffer itself."""
-        if self.graphs is None:
-            return torch.from_numpy(wire).to(self.device)
-        if spec is None or self._staging is None:
-            raise ValueError("upload_wire on the card takes a stage buffer and its spec")
-        dst = self.graphs.wire(spec, wire.shape[0])
-        if not self._staging.upload(wire, dst):
-            raise ValueError("upload_wire: the wire was not packed into a stage buffer")
-        return dst
+        with spans.span("engine.upload"):
+            if self.graphs is None:
+                return torch.from_numpy(wire).to(self.device)
+            if spec is None or self._staging is None:
+                raise ValueError("upload_wire on the card takes a stage buffer and its spec")
+            dst = self.graphs.wire(spec, wire.shape[0])
+            if not self._staging.upload(wire, dst):
+                raise ValueError("upload_wire: the wire was not packed into a stage buffer")
+            return dst
 
     def step_from_numpy(self, state: GenomeState, batch_np: dict | ReadBatch,
                         params: StepParams):
@@ -420,14 +423,17 @@ class RunsEngine(nn.Module):
         """StepParams on this engine's device (one host-to-device copy):
         approx_ccl as int32, time_cost and the config's bucket threshold
         rounded to f32, as the JAX engine's make_params."""
-        ccl = np.asarray(approx_ccl).astype(np.int32)
-        if ccl.shape != (10,):
-            raise ValueError(f"approx_ccl: 10 CCL pieces, got shape {ccl.shape}")
-        host = np.empty(12, np.int32)
-        host[:10] = ccl
-        host[10:] = np.array([time_cost, self.config.bucket_threshold], np.float32).view(np.int32)
-        widest = max(max(int(c) // DS, 1) for c in ccl)
-        return params_view(torch.from_numpy(host).to(self.device), 1 << (widest - 1).bit_length())
+        with spans.span("engine.params"):
+            ccl = np.asarray(approx_ccl).astype(np.int32)
+            if ccl.shape != (10,):
+                raise ValueError(f"approx_ccl: 10 CCL pieces, got shape {ccl.shape}")
+            host = np.empty(12, np.int32)
+            host[:10] = ccl
+            host[10:] = np.array([time_cost, self.config.bucket_threshold],
+                                 np.float32).view(np.int32)
+            widest = max(max(int(c) // DS, 1) for c in ccl)
+            return params_view(torch.from_numpy(host).to(self.device),
+                               1 << (widest - 1).bit_length())
 
     def win_cap(self, params: StepParams, win_clamp: int) -> int:
         """The widest window (ds rows) H4's shared memory holds for these
@@ -490,10 +496,14 @@ class RunsEngine(nn.Module):
         card, eagerly on the CPU."""
         if self._strat_pull is not None:
             self._strat_pull.drop()  # the step rewrites the strategy
-        if self.graphs is None:
-            return body(state, inputs, params)
-        return self.graphs.run(path, state, inputs, params, body,
-                               self.win_cap(params, self.config.ccl_clamp_ds))
+        with spans.span("engine.launch") as sp:
+            if self.graphs is None:
+                sp.attr("mode", "eager")
+                return body(state, inputs, params)
+            out = self.graphs.run(path, state, inputs, params, body,
+                                  self.win_cap(params, self.config.ccl_clamp_ds))
+            sp.attr("mode", self.graphs.last_mode)
+            return out
 
     def eager(self, path: str, state, *args):
         """The body of ``path`` ("step", "step_from_numpy" or "step_gated",
@@ -565,7 +575,9 @@ class RunsEngine(nn.Module):
     @staticmethod
     def pull_aux(aux: StepAux) -> AuxHost:
         """All step scalars in ONE device->host copy (waits for the step)."""
-        v = aux.vec.cpu().tolist()
+        with spans.span("engine.pull_aux"):
+            v = aux.vec.cpu().tolist()
+        spans.count("bytes.d2h", aux.vec.nbytes)
         return AuxHost(bool(v[0]), bool(v[1]), float(v[2]), float(v[3]))
 
     def strat_to_host_async(self, state: GenomeState) -> None:
@@ -583,16 +595,19 @@ class RunsEngine(nn.Module):
         single-False array (reference.py:109-118). Takes the copy
         ``strat_to_host_async`` started, if one of this state's strategy
         is pending, else pulls it."""
-        strat = None if self._strat_pull is None else self._strat_pull.take(state.strat)
-        if strat is None:
-            strat = state.strat.cpu().numpy()  # [NB, Gd, 2]
+        with spans.span("mask.pull"):
+            strat = None if self._strat_pull is None else self._strat_pull.take(state.strat)
+            if strat is None:
+                strat = state.strat.cpu().numpy()  # [NB, Gd, 2]
+        spans.count("bytes.d2h", strat.nbytes)
         out = {}
-        for c, name in enumerate(self.layout.names):
-            r0, n = self.layout.strat_rows(c)
-            # always a copy: on the CPU ``strat`` views the state, which the
-            # next step updates in place (with one barcode the transposed
-            # slice is already contiguous, and ascontiguousarray kept the view)
-            out[name] = np.array(strat[:, r0 : r0 + n, :].transpose(1, 2, 0), order="C")
-        for name in self.layout.rejected_names:
-            out[name] = np.zeros(1, dtype=bool)
+        with spans.span("mask.split"):
+            for c, name in enumerate(self.layout.names):
+                r0, n = self.layout.strat_rows(c)
+                # always a copy: on the CPU ``strat`` views the state, which the
+                # next step updates in place (with one barcode the transposed
+                # slice is already contiguous, and ascontiguousarray kept the view)
+                out[name] = np.array(strat[:, r0 : r0 + n, :].transpose(1, 2, 0), order="C")
+            for name in self.layout.rejected_names:
+                out[name] = np.zeros(1, dtype=bool)
         return out

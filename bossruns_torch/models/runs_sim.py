@@ -39,7 +39,8 @@ from ..io.paf import PafRecords, best_per_query, parse_paf
 from ..io.sampler import Sampler
 from ..ops.model import make_model
 from ..parallel.distributed import is_primary
-from ..utils.checkpoint import MetricsWriter, load_checkpoint, save_checkpoint
+from ..utils import spans
+from ..utils.checkpoint import MetricsWriter, load_checkpoint, pull_state, save_checkpoint
 from ..utils.misc import make_output_dirs, random_id, write_strategy_npz
 from ..utils.readlen import ReadLengthDist
 from .convert import batch_from_numpy
@@ -99,9 +100,11 @@ class ReadCache:
         cache = getattr(self, f"cache_{cond}")
         logger.info(f"dump {cond} #{n}: {len(cache)} reads")
         if is_primary():
-            with open(self.out / f"{cond}_{n}.fa", "w") as fh:
+            path = self.out / f"{cond}_{n}.fa"
+            with open(path, "w") as fh:
                 for rid, seq in cache.items():
                     fh.write(f">{rid}.{random_id()}\n{seq}\n")
+            spans.count_files(path)
         setattr(self, f"dump_n_{cond}", n + 1)
         setattr(self, f"cache_{cond}", {})
 
@@ -127,6 +130,14 @@ def load_reference_contigs(fasta: str | Path) -> dict[str, str]:
     return {name: seq for name, _c, seq, _q in read_fastx(fasta)}
 
 
+#: a batch's phases, each the wall time (s) from the end of the one before
+#: (``metrics/batches.jsonl``): sample (the wait for the prefetched batch,
+#: or its host work inline), align (live alignment; 0 over precomputed PAFs),
+#: decide, coo (the classic flow: read-length update, read-start rows and the
+#: batch's coverage rows; the gated flow, whose rows were built in the
+#: prefetch: the read-length and abundance bookkeeping), overlap (queueing
+#: the step, pseudotime, the read cache, the next prefetch), device (the wait
+#: for the step's scalars) and write (the strategy's publication)
 PHASES = ("sample", "align", "decide", "coo", "overlap", "device", "write")
 
 
@@ -333,88 +344,92 @@ class BossRunsSim:
         wire, on the worker's current (default) stream, the stream the step
         also runs on: queued after the step before it, which reads the
         same buffer when the tier repeats."""
-        seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
-        full = parse_paf(paf_f)
-        trunc = parse_paf(paf_t)
-        rid_list = list(seqs)
-        rid_idx = {r: i for i, r in enumerate(rid_list)}
-        read_bc = {rid: self.barcodes_index.get(bc, 0) for rid, bc in bc_names.items()}
-        best_full = best_per_query(full)
-        best_trunc = best_per_query(trunc)
-        known = set(self.layout.names)
-        len_b = self.engine.model.len_b
+        with spans.span("sim.draw"):
+            seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
+        with spans.span("sim.paf"):
+            full = parse_paf(paf_f)
+            trunc = parse_paf(paf_t)
+        with spans.span("sim.coo"):
+            rid_list = list(seqs)
+            rid_idx = {r: i for i, r in enumerate(rid_list)}
+            read_bc = {rid: self.barcodes_index.get(bc, 0) for rid, bc in bc_names.items()}
+            best_full = best_per_query(full)
+            best_trunc = best_per_query(trunc)
+            known = set(self.layout.names)
+            len_b = self.engine.model.len_b
 
-        def one_set(rec, rows, sset, qset):
-            packed = build_packed_runs(self.layout, [(rec, rows, sset, qset)], read_bc)
-            kept = [i for i in rows if rec.tname[i] in known]
-            rrow = np.array([rid_idx[rec.qname[i]] for i in kept], np.int32)
-            return split_runs_rows(
-                self.layout, packed[0], packed[1], packed[2], packed[3],
-                packed[4], rrow, 0, len_b,
-            )
+            def one_set(rec, rows, sset, qset):
+                packed = build_packed_runs(self.layout, [(rec, rows, sset, qset)], read_bc)
+                kept = [i for i in rows if rec.tname[i] in known]
+                rrow = np.array([rid_idx[rec.qname[i]] for i in kept], np.int32)
+                return split_runs_rows(
+                    self.layout, packed[0], packed[1], packed[2], packed[3],
+                    packed[4], rrow, 0, len_b,
+                )
 
-        f_split = one_set(full, list(best_full.values()), seqs, quals)
-        t_rows = list(best_trunc.values())
-        t_seqs = {r: s[: self.mu] for r, s in seqs.items()}
-        t_quals = {r: quals[r][: len(t_seqs[r])] for r in seqs}
-        if self.reference_quirks:
-            # Q2: a reverse trunc record's coverage expands from the read's
-            # LAST mu bases; active only when the read is rejected
-            for i in t_rows:
-                if trunc.rev[i]:
-                    rid = trunc.qname[i]
-                    t_seqs[rid] = seqs[rid][-self.mu:]
-                    t_quals[rid] = quals[rid][-self.mu:]
-        t_split = one_set(trunc, t_rows, t_seqs, t_quals)
+            f_split = one_set(full, list(best_full.values()), seqs, quals)
+            t_rows = list(best_trunc.values())
+            t_seqs = {r: s[: self.mu] for r, s in seqs.items()}
+            t_quals = {r: quals[r][: len(t_seqs[r])] for r in seqs}
+            if self.reference_quirks:
+                # Q2: a reverse trunc record's coverage expands from the read's
+                # LAST mu bases; active only when the read is rejected
+                for i in t_rows:
+                    if trunc.rev[i]:
+                        rid = trunc.qname[i]
+                        t_seqs[rid] = seqs[rid][-self.mu:]
+                        t_quals[rid] = quals[rid][-self.mu:]
+            t_split = one_set(trunc, t_rows, t_seqs, t_quals)
 
-        # read-start rows for every best full record (io/coo.
-        # build_read_start_rows incl. right-edge inclusion); active on
-        # device iff the read's bit is set
-        tid_of = {n: i for i, n in enumerate(self.layout.names)}
-        rs_row, rs_strand, rs_read = [], [], []
-        for rid, i in best_full.items():
-            tid = tid_of.get(full.tname[i])
-            if tid is None:
-                continue
-            wf = int(self.layout.lengths[tid]) // FHAT_WINDOW
-            if wf == 0:
-                continue
-            start = int(full.tend[i]) if full.rev[i] else int(full.tstart[i])
-            if start > FHAT_WINDOW * wf:
-                continue
-            rs_row.append(int(self.layout.fhat_offsets[tid]) + min(start // FHAT_WINDOW, wf - 1))
-            rs_strand.append(int(full.rev[i]))
-            rs_read.append(rid_idx[rid])
+            # read-start rows for every best full record (io/coo.
+            # build_read_start_rows incl. right-edge inclusion); active on
+            # device iff the read's bit is set
+            tid_of = {n: i for i, n in enumerate(self.layout.names)}
+            rs_row, rs_strand, rs_read = [], [], []
+            for rid, i in best_full.items():
+                tid = tid_of.get(full.tname[i])
+                if tid is None:
+                    continue
+                wf = int(self.layout.lengths[tid]) // FHAT_WINDOW
+                if wf == 0:
+                    continue
+                start = int(full.tend[i]) if full.rev[i] else int(full.tstart[i])
+                if start > FHAT_WINDOW * wf:
+                    continue
+                rs_row.append(int(self.layout.fhat_offsets[tid])
+                              + min(start // FHAT_WINDOW, wf - 1))
+                rs_strand.append(int(full.rev[i]))
+                rs_read.append(rid_idx[rid])
 
-        floors = getattr(self, "_gated_floors", {})
+            floors = getattr(self, "_gated_floors", {})
 
-        def pad_arr(a, name, fill=0):
-            m = max(_pad_len(a.shape[0]), floors.get(name, 0), 4)
-            floors[name] = m
-            out = np.full(m, fill, a.dtype)
-            out[: a.shape[0]] = a
-            return out
+            def pad_arr(a, name, fill=0):
+                m = max(_pad_len(a.shape[0]), floors.get(name, 0), 4)
+                floors[name] = m
+                out = np.full(m, fill, a.dtype)
+                out[: a.shape[0]] = a
+                return out
 
-        d = {
-            "f_mr_bc": pad_arr(f_split[0], "f_mr"),
-            "f_mr_g": pad_arr(f_split[1], "f_mr"),
-            "f_mr_len": pad_arr(f_split[2], "f_mr"),
-            "f_mr_read": pad_arr(f_split[3], "f_mr"),
-            "f_ex_bcsym": pad_arr(f_split[4], "f_ex"),
-            "f_ex_g": pad_arr(f_split[5], "f_ex", fill=EX_PAD),
-            "f_ex_read": pad_arr(f_split[6], "f_ex"),
-            "t_mr_bc": pad_arr(t_split[0], "t_mr"),
-            "t_mr_g": pad_arr(t_split[1], "t_mr"),
-            "t_mr_len": pad_arr(t_split[2], "t_mr"),
-            "t_mr_read": pad_arr(t_split[3], "t_mr"),
-            "t_ex_bcsym": pad_arr(t_split[4], "t_ex"),
-            "t_ex_g": pad_arr(t_split[5], "t_ex", fill=EX_PAD),
-            "t_ex_read": pad_arr(t_split[6], "t_ex"),
-            "rs_row": pad_arr(np.array(rs_row, np.int32), "rs"),
-            "rs_strand": pad_arr(np.array(rs_strand, np.int32), "rs"),
-            "rs_read": pad_arr(np.array(rs_read, np.int32), "rs", fill=-1),
-        }
-        self._gated_floors = floors
+            d = {
+                "f_mr_bc": pad_arr(f_split[0], "f_mr"),
+                "f_mr_g": pad_arr(f_split[1], "f_mr"),
+                "f_mr_len": pad_arr(f_split[2], "f_mr"),
+                "f_mr_read": pad_arr(f_split[3], "f_mr"),
+                "f_ex_bcsym": pad_arr(f_split[4], "f_ex"),
+                "f_ex_g": pad_arr(f_split[5], "f_ex", fill=EX_PAD),
+                "f_ex_read": pad_arr(f_split[6], "f_ex"),
+                "t_mr_bc": pad_arr(t_split[0], "t_mr"),
+                "t_mr_g": pad_arr(t_split[1], "t_mr"),
+                "t_mr_len": pad_arr(t_split[2], "t_mr"),
+                "t_mr_read": pad_arr(t_split[3], "t_mr"),
+                "t_ex_bcsym": pad_arr(t_split[4], "t_ex"),
+                "t_ex_g": pad_arr(t_split[5], "t_ex", fill=EX_PAD),
+                "t_ex_read": pad_arr(t_split[6], "t_ex"),
+                "rs_row": pad_arr(np.array(rs_row, np.int32), "rs"),
+                "rs_strand": pad_arr(np.array(rs_strand, np.int32), "rs"),
+                "rs_read": pad_arr(np.array(rs_read, np.int32), "rs", fill=-1),
+            }
+            self._gated_floors = floors
         wire, spec = self.engine.pack_gated(d, out=self.engine.stage)
         return dict(
             seqs=seqs, quals=quals, bc_names=bc_names, full=full, trunc=trunc,
@@ -422,21 +437,28 @@ class BossRunsSim:
             rid_idx=rid_idx, read_bc=read_bc, wire=self.engine.upload_wire(wire, spec), spec=spec,
         )
 
+    @staticmethod
+    def _prefetch(fn):
+        """One batch's strategy-independent host work, ``fn()``."""
+        with spans.span("sim.prefetch"):
+            return fn()
+
     def _submit_prefetch(self, fn) -> None:
         if self._prefetch_pool is None:
             self._prefetch_pool = ThreadPoolExecutor(max_workers=1)
-        self._prefetched = self._prefetch_pool.submit(fn)
+        # the worker's spans name the batch that submitted it as their parent
+        self._prefetched = self._prefetch_pool.submit(spans.carry(self._prefetch), fn)
 
     def _take_prefetched(self, fn):
         pre = self._prefetched
         self._prefetched = None
-        return pre.result() if pre is not None else fn()
+        return pre.result() if pre is not None else self._prefetch(fn)
 
     def _process_batch_gated(self) -> None:
         t = {"start": time.perf_counter()}
         pre = self._take_prefetched(self._prefetch_gated)
         t["sample"] = time.perf_counter()
-        t["align"] = t["sample"]
+        t["align"] = t["sample"]  # the PAFs hold the alignments: always 0
         seqs = pre["seqs"]
         decisions = self._trunc_decisions(pre["trunc"], pre["read_bc"])
         bits = np.zeros(self.batchsize, np.uint8)
@@ -475,6 +497,8 @@ class BossRunsSim:
         n_mapped = len(decisions)
         logger.info(f"mapped {n_mapped}, unmapped {len(seqs) - n_mapped}")
         logger.info(f"accepted {n_accepted}, rejected {n_rejected}")
+        # the coverage rows came with the prefetch: the "coo" phase here is
+        # the read-length and abundance bookkeeping
         self.rl_dist.update(np.array(accepted_lengths, dtype=np.int64))
         self.tracker.update(
             n_accepted, pre["full"], {pre["full"].qname[i]: i for i in acc_rows}
@@ -504,15 +528,18 @@ class BossRunsSim:
     def _sample_parsed(self):
         """One sampled batch + parsed PAF records (strategy-independent);
         no records when aligning live."""
-        seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
+        with spans.span("sim.draw"):
+            seqs, quals, bc_names, paf_f, paf_t = self.sampler.sample()
         if self.aligner is not None:
             return seqs, quals, bc_names, None, None
-        return seqs, quals, bc_names, parse_paf(paf_f), parse_paf(paf_t)
+        with spans.span("sim.paf"):
+            return seqs, quals, bc_names, parse_paf(paf_f), parse_paf(paf_t)
 
     def process_batch(self) -> None:
-        if self._gated:
-            return self._process_batch_gated()
-        return self._process_batch_classic()
+        with spans.span("sim.batch"):
+            if self._gated:
+                return self._process_batch_gated()
+            return self._process_batch_classic()
 
     def _process_batch_classic(self) -> None:
         t = {"start": time.perf_counter()}
@@ -628,7 +655,7 @@ class BossRunsSim:
         )
         if self.checkpoint_every and self.batch % self.checkpoint_every == 0:
             save_checkpoint(
-                self.out_dir, self.engine.state_numpy(self.state),
+                self.out_dir, pull_state(self.state, self.engine.state_numpy),
                 dict(batch=self.batch,
                      time_boss=self.read_cache.time_boss,
                      time_control=self.read_cache.time_control),

@@ -17,6 +17,7 @@ import torch
 
 from ..models.convert import state_from_numpy, state_to_numpy
 from ..models.runs import GenomeState
+from . import spans
 
 logger = logging.getLogger("boss_torch")
 
@@ -25,9 +26,18 @@ def save_checkpoint(out_dir: str | Path, state, host_state: dict,
                     tag: str = "state", extra_arrays: dict | None = None) -> Path:
     """Atomically persist the state (a GenomeState of tensors, or its
     fields as a dict of NumPy arrays) and a host dict."""
-    arrays = state if isinstance(state, dict) else state_to_numpy(state)
+    arrays = state if isinstance(state, dict) else pull_state(state)
     return _save_np(out_dir, GenomeState(**arrays), host_state,
                     tag=tag, extra_arrays=extra_arrays)
+
+
+def pull_state(state, to_numpy=state_to_numpy) -> dict[str, np.ndarray]:
+    """``to_numpy(state)`` (the state's fields as NumPy) timed as a
+    checkpoint's pull, its bytes counted as copied from the device."""
+    with spans.span("checkpoint.pull"):
+        arrays = to_numpy(state)
+    spans.count("bytes.d2h", sum(a.nbytes for a in arrays.values()))
+    return arrays
 
 
 def load_checkpoint(out_dir: str | Path, device, tag: str = "state", *, numpy: bool = False,
@@ -70,16 +80,18 @@ def _save_np(out_dir: str | Path, state, host_state: dict, tag: str = "state",
     arrays = {k: fetch(v) for k, v in state._asdict().items()}
     if not is_primary():
         return final
-    ckpt.mkdir(parents=True, exist_ok=True)
     tmp = ckpt / f"{tag}_tmp.npz"
     for k, v in (extra_arrays or {}).items():
         arrays[f"host__{k}"] = np.asarray(v)
-    np.savez_compressed(tmp, **arrays)
-    tmp.rename(final)
     meta_tmp = ckpt / f"{tag}_meta_tmp.json"
     meta = ckpt / f"{tag}_meta.json"
-    meta_tmp.write_text(json.dumps(host_state, default=_coerce))
-    meta_tmp.rename(meta)
+    with spans.span("checkpoint.write"):
+        ckpt.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(tmp, **arrays)
+        tmp.rename(final)
+        meta_tmp.write_text(json.dumps(host_state, default=_coerce))
+        meta_tmp.rename(meta)
+    spans.count_files(final, meta)
     return final
 
 
@@ -108,5 +120,7 @@ class MetricsWriter:
 
         if not is_primary():
             return
+        line = json.dumps(fields, default=_coerce) + "\n"
         with open(self.path, "a") as fh:
-            fh.write(json.dumps(fields, default=_coerce) + "\n")
+            fh.write(line)
+        spans.count("bytes.disk", len(line))

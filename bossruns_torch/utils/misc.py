@@ -8,6 +8,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import spans
+
 
 def init_logger(logfile: str | Path | None = None, level=logging.INFO) -> logging.Logger:
     logger = logging.getLogger("boss_tpu")
@@ -35,10 +37,12 @@ def write_strategy_npz(out_dir: str | Path, strat_dict: dict[str, np.ndarray], n
     final = masks / f"{name}.npz"
     if not is_primary():
         return final
-    masks.mkdir(parents=True, exist_ok=True)
     tmp = masks / f"{name}_tmp.npz"
-    np.savez(tmp, **strat_dict)
-    tmp.rename(final)
+    with spans.span("mask.write"):
+        masks.mkdir(parents=True, exist_ok=True)
+        np.savez(tmp, **strat_dict)
+        tmp.rename(final)
+    spans.count_files(final)
     return final
 
 

@@ -39,7 +39,8 @@ The spans (where each is opened):
 ``mask.split``      the per-contig arrays
 ``mask.write``      the strategy file the readfish side reads
 ``checkpoint.pull`` the state's copy to the host
-``checkpoint.write`` the checkpoint's files
+``checkpoint.write`` the checkpoint's files (attrs ``workers``,
+                    ``chunks``: the npz writer's pool and pieces)
 =================== =================================================
 
 The counters: ``bytes.d2h`` (bytes copied from the device: the aux

@@ -242,6 +242,9 @@ def test_gated_sim_records_every_span_with_its_parent(corpus, tmp_path):
             assert parent(r) == ("sim.batch" if r.t0 > prefetch[0].t0 else None), r
         if r.name == "engine.launch":
             assert r.attrs == {"mode": "eager"}   # the CPU has no graphs
+        elif r.name == "checkpoint.write":   # the npz writer's pool and pieces
+            assert set(r.attrs) == {"workers", "chunks"}
+            assert r.attrs["workers"] >= 1 and r.attrs["chunks"] >= 1
         else:
             assert r.attrs is None
         assert r.t0 <= r.t1

@@ -1,0 +1,20 @@
+"""Mean per batch of the aligner's ``align.encode`` and ``align.dispatch``
+spans (ms): the batch's text encoded and packed into staging, its upload
+and the seeding launches; spans under the window's ``sim.batch``."""
+
+NAMES = ("align.encode", "align.dispatch")
+
+
+def read(ctx):
+    run = ctx["run"]
+    if not run.cycles:
+        return None
+    try:
+        from bossruns_torch.utils import spans
+    except ImportError:  # a program without the recorder
+        return None
+    env = ctx["env"]
+    w = spans.window(env.window_start, env.window_end, under="sim.batch")
+    if not any(n in w.seconds for n in NAMES):
+        return None
+    return 1e3 * sum(w.seconds.get(n, 0.0) for n in NAMES) / len(run.cycles)

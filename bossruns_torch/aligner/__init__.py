@@ -125,12 +125,14 @@ class TorchAligner:
         on-disk index cache (the reference's .mmi analogue). device: where
         the seeding runs ("cuda" launches H5)."""
         from ..device import as_device
+        from ..utils import spans
         from .seed import DeviceIndex
 
         self.device = as_device(device)
-        self._init_host(layout, k, w, max_occ, min_votes, max_divergence, mu, threads,
-                        source)
-        self.dev_index = DeviceIndex(self.index, self.device)
+        with spans.span("align.index"):
+            self._init_host(layout, k, w, max_occ, min_votes, max_divergence, mu, threads,
+                            source)
+            self.dev_index = DeviceIndex(self.index, self.device)
 
     def _init_host(self, layout, k, w, max_occ, min_votes, max_divergence, mu, threads,
                    source) -> None:
@@ -207,9 +209,12 @@ class TorchAligner:
     def _pull_seeds(out_dev, n: int):
         """Wait for one bucket's seeding and unpack its
         [len(SEED_FIELDS) * NCAND, n] result to field -> [n, NCAND]."""
+        from ..utils import spans
         from .seed import NCAND, seed_fields
 
-        return seed_fields(out_dev.cpu().numpy()[:, :n], NCAND)
+        host = out_dev.cpu().numpy()
+        spans.count("bytes.d2h", host.nbytes)
+        return seed_fields(host[:, :n], NCAND)
 
     # ----------------------------------------------------------- mapping ----
 
@@ -222,35 +227,47 @@ class TorchAligner:
         reference's mapper). all_records: keep secondary alignments (primary
         flag 0); split-read segments are primary and always kept.
         """
+        from ..utils import spans
+
+        with spans.span("align.map", trunc=bool(trunc), reads=len(sequences)):
+            return self._map(sequences, trunc, min_len, all_records)
+
+    def _map(self, sequences: dict[str, str], trunc: bool, min_len: int | None,
+             all_records: bool):
         from ..io.paf import PafRecords
+        from ..utils import spans
 
         min_len = int(self.mu / 2) if min_len is None else min_len
         rids = list(sequences)
         if not rids:
             return _empty_records()
-        # one encode pass over the concatenated batch (which also stages the
-        # seeding payload); enc entries are views
-        parts = [sequences[r][: self.mu] if trunc else sequences[r] for r in rids]
-        offs = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
-        groups = length_groups(np.diff(offs))
-        codes_cat, staged = self._encode("".join(parts).encode(), offs, groups)
-        enc = [codes_cat[offs[i]: offs[i + 1]] for i in range(len(parts))]
+        with spans.span("align.encode"):
+            # one encode pass over the concatenated batch (which also stages
+            # the seeding payload); enc entries are views
+            parts = [sequences[r][: self.mu] if trunc else sequences[r] for r in rids]
+            offs = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+            lens = np.diff(offs)
+            groups = length_groups(lens)
+            codes_cat, staged = self._encode("".join(parts).encode(), offs, groups)
+            enc = [codes_cat[offs[i]: offs[i + 1]] for i in range(len(parts))]
+        calls = [(len(g), bucket_of(int(lens[g].max()))) for g in groups]
+        spans.count("align.reads", len(rids))
+        spans.count("align.bases", sum(int(np.minimum(lens[g], L).sum())
+                                       for g, (_, L) in zip(groups, calls)))
         # queue every bucket's seeding up front, then pull and extend bucket
         # by bucket
-        pend = zip(groups, self._seed_bucket_dispatch(codes_cat, offs, groups, staged))
+        with spans.span("align.dispatch", calls=calls):
+            handles = self._seed_bucket_dispatch(codes_cat, offs, groups, staged)
 
         rows = {k: [] for k in (
             "qname qlen qstart qend rev tname tlen tstart tend nmatch blocklen mapq "
             "align_score s1 primary".split()
         )}
         cigs = []
-        for group, out_dev in pend:
-            seeds = self._pull_seeds(out_dev, len(group))
-            results = {
-                g: {k: v[slot] for k, v in seeds.items()}
-                for slot, g in enumerate(group)
-            }
-            self._extend_bucket(rids, enc, results, min_len, rows, cigs, all_records)
+        for group, out_dev in zip(groups, handles):
+            with spans.span("align.pull"):
+                seeds = self._pull_seeds(out_dev, len(group))
+            self._extend_bucket(rids, enc, group, seeds, min_len, rows, cigs, all_records)
 
         def cat(f, dt):
             if not rows[f]:
@@ -369,22 +386,28 @@ class TorchAligner:
         return dict(use=use, qs=qs, qe=qe, half=half, ts_pred=ts_pred,
                     ws=ws, we=we, mapq=mapq)
 
-    def _extend_bucket(self, rids, enc, results, min_len, rows, cigs,
+    def _extend_bucket(self, rids, enc, group, seeds, min_len, rows, cigs,
                        all_records: bool = False) -> None:
         """Banded-DP extension + record assembly for one bucket's seeds
-        (host work, which runs while later buckets seed on the device)."""
-        from . import native
-        from .seed import SEED_FIELDS
+        (host work, which runs while later buckets seed on the device):
+        ``group`` the reads' indices, ``seeds`` field -> [len(group), NCAND]."""
+        from ..utils import spans
 
-        group = list(results)
-        if not group:
+        if len(group) == 0:
             return
-        seeds = {
-            f: np.stack([results[g][f] for g in group])
-            for f in SEED_FIELDS
-        }  # [n, NCAND]
-        mlen = np.array([enc[g].shape[0] for g in group], np.int64)
-        plan = self._candidate_plan(seeds, mlen, min_len)
+        with spans.span("align.plan"):
+            mlen = np.array([enc[g].shape[0] for g in group], np.int64)
+            plan = self._candidate_plan(seeds, mlen, min_len)
+        with spans.span("align.extend"):
+            self._extend_planned(rids, enc, group, seeds, mlen, plan, min_len, rows, cigs,
+                                 all_records)
+
+    def _extend_planned(self, rids, enc, group, seeds, mlen, plan, min_len, rows, cigs,
+                        all_records: bool) -> None:
+        """The banded DP of a bucket's planned jobs and their records."""
+        from ..utils import spans
+        from . import native
+
         use = plan["use"] & (mlen >= 50)[:, None]
         job_r, job_c = np.nonzero(use)           # bucket-local (row, cand)
         if job_r.shape[0] == 0:
@@ -408,6 +431,8 @@ class TorchAligner:
         win_e = plan["we"][job_r, job_c].astype(np.int64)
         pad = np.maximum(plan["ts_pred"][job_r, job_c] - win_s, 0).astype(np.int32)
         half = plan["half"][job_r, job_c].astype(np.int32)
+        spans.count("align.jobs", job_r.shape[0])
+        spans.count("align.dp_cells", int((slen_j * (2 * half.astype(np.int64) + 1)).sum()))
         cost, tstart, tend, cigars = native.align_batch(
             q_cat, q_off, self.target, win_s, win_e, pad, half, self.threads
         )

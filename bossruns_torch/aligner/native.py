@@ -142,8 +142,7 @@ def _fallback_one(q, t, half, pad):
     return best, j, tend, [(int(l), int(o)) for o, l in cig[::-1]]
 
 
-def align_batch(queries_cat, q_off, target, win_start, win_end, pad, half, threads=8,
-                cigar_cap=4096):
+def align_batch(queries_cat, q_off, target, win_start, win_end, pad, half, threads=8):
     """Batch banded alignment.
 
     Returns (cost [n], tstart [n], tend [n], cigars: list of packed uint32
@@ -151,8 +150,15 @@ def align_batch(queries_cat, q_off, target, win_start, win_end, pad, half, threa
     same packing the C kernels and io/coo_native consume, so CIGARs flow
     through the pipeline without string round-trips). cost < 0 or empty
     cigar => failed.
+
+    A job's CIGAR holds up to 2 m + 1 runs for the longest query (m
+    bases), which no path can exceed: D runs are never adjacent, and every
+    other run consumes a query base. (The C entry fails a job whose path
+    needs more runs than it is given; the JAX package's fixed 4096 drops
+    reads beyond about 50 kb at ONT error rates.)
     """
     n = int(q_off.shape[0] - 1)
+    cigar_cap = 2 * int(np.diff(q_off).max(initial=0)) + 1
     lib = _load()
     if lib:
         if not hasattr(lib, "_align_ready"):

@@ -55,6 +55,10 @@ ALPHA = 300
 RHO = 300
 
 
+#: bases of read dumps gathered before a write
+DUMP_CHUNK = 1 << 22
+
+
 class ReadCache:
     """Pseudotime bookkeeping + cumulative read dumps (batch.py:123-281)."""
 
@@ -101,9 +105,19 @@ class ReadCache:
         logger.info(f"dump {cond} #{n}: {len(cache)} reads")
         if is_primary():
             path = self.out / f"{cond}_{n}.fa"
+            # every read's 20-character id from one draw (the characters a
+            # draw per read gives, in order); the records written about
+            # DUMP_CHUNK bases at a time, not one write per read
+            ids = random_id(20 * len(cache))
             with open(path, "w") as fh:
-                for rid, seq in cache.items():
-                    fh.write(f">{rid}.{random_id()}\n{seq}\n")
+                parts, size = [], 0
+                for i, (rid, seq) in enumerate(cache.items()):
+                    parts.append(f">{rid}.{ids[20 * i:20 * i + 20]}\n{seq}\n")
+                    size += len(seq)
+                    if size >= DUMP_CHUNK:
+                        fh.write("".join(parts))
+                        parts, size = [], 0
+                fh.write("".join(parts))
             spans.count_files(path)
         setattr(self, f"dump_n_{cond}", n + 1)
         setattr(self, f"cache_{cond}", {})
@@ -551,53 +565,56 @@ class BossRunsSim:
             # decides (what the sequencer knows at decision time), so the
             # full-length extension runs only for reads that are accepted —
             # rejected reads contribute only their truncated alignment
-            trunc_rec = self.aligner.map_sequences(seqs, trunc=True)
-            decisions = self._trunc_decisions(trunc_rec, read_bc)
-            need_full = [rid for rid, acc in decisions.items() if acc]
-            if self.accept_unmapped:
-                need_full += [rid for rid in seqs if rid not in decisions]
-            full_rec = self.aligner.map_sequences({r: seqs[r] for r in need_full})
+            with spans.span("sim.align"):
+                trunc_rec = self.aligner.map_sequences(seqs, trunc=True)
+                decisions = self._trunc_decisions(trunc_rec, read_bc)
+                need_full = [rid for rid, acc in decisions.items() if acc]
+                if self.accept_unmapped:
+                    need_full += [rid for rid in seqs if rid not in decisions]
+                full_rec = self.aligner.map_sequences({r: seqs[r] for r in need_full})
         t["align"] = time.perf_counter()
-        full, trunc, outc = self.make_decisions(seqs, full_rec, trunc_rec, read_bc)
+        with spans.span("sim.decide"):
+            full, trunc, outc = self.make_decisions(seqs, full_rec, trunc_rec, read_bc)
         self._last_decisions = outc.reads_decision
         t["decide"] = time.perf_counter()
         logger.info(f"mapped {outc.n_mapped}, unmapped {outc.n_unmapped}")
         logger.info(f"accepted {outc.n_accepted}, rejected {outc.n_rejected}")
-        self.rl_dist.update(np.array(outc.accepted_lengths, dtype=np.int64))
+        with spans.span("sim.coo"):
+            self.rl_dist.update(np.array(outc.accepted_lengths, dtype=np.int64))
 
-        decided_quals = {
-            rid: quals[rid][: len(seq)] for rid, seq in outc.reads_decision.items()
-        }
-        full_rows = [i for kind, i in outc.cov_rows if kind == "full"]
-        trunc_rows = [i for kind, i in outc.cov_rows if kind == "trunc"]
-        trunc_seqs, trunc_quals = outc.reads_decision, decided_quals
-        if self.reference_quirks:
-            # Q2: rejected reverse reads' coverage comes from the read's LAST
-            # mu bases (the reference's wrong-bases expansion)
-            trunc_seqs = dict(outc.reads_decision)
-            trunc_quals = dict(decided_quals)
-            for i in trunc_rows:
-                if trunc.rev[i]:
-                    rid = trunc.qname[i]
-                    trunc_seqs[rid] = seqs[rid][-self.mu:]
-                    trunc_quals[rid] = quals[rid][-self.mu:]
-        rs_row, rs_strand, rs_w = coo_mod.build_read_start_rows(
-            self.layout, full, outc.acc_rows, floor=getattr(self, "_rs_floor", 512)
-        )
-        self._rs_floor = max(getattr(self, "_rs_floor", 512), rs_row.shape[0])
-        self.tracker.update(
-            outc.n_accepted, full, {full.qname[i]: i for i in outc.acc_rows}
-        )
-        batch = pack_batch(
-            self.layout,
-            [(full, full_rows, seqs, quals), (trunc, trunc_rows, trunc_seqs, trunc_quals)],
-            device=None,
-            barcodes=read_bc,
-            rs=(rs_row, rs_strand, rs_w),
-            floors=getattr(self, "_batch_floors", (0, 0)),
-            len_b=self.engine.model.len_b,
-        )
-        self._batch_floors = (batch["mr_g"].shape[0], batch["ex_g"].shape[0])
+            decided_quals = {
+                rid: quals[rid][: len(seq)] for rid, seq in outc.reads_decision.items()
+            }
+            full_rows = [i for kind, i in outc.cov_rows if kind == "full"]
+            trunc_rows = [i for kind, i in outc.cov_rows if kind == "trunc"]
+            trunc_seqs, trunc_quals = outc.reads_decision, decided_quals
+            if self.reference_quirks:
+                # Q2: rejected reverse reads' coverage comes from the read's LAST
+                # mu bases (the reference's wrong-bases expansion)
+                trunc_seqs = dict(outc.reads_decision)
+                trunc_quals = dict(decided_quals)
+                for i in trunc_rows:
+                    if trunc.rev[i]:
+                        rid = trunc.qname[i]
+                        trunc_seqs[rid] = seqs[rid][-self.mu:]
+                        trunc_quals[rid] = quals[rid][-self.mu:]
+            rs_row, rs_strand, rs_w = coo_mod.build_read_start_rows(
+                self.layout, full, outc.acc_rows, floor=getattr(self, "_rs_floor", 512)
+            )
+            self._rs_floor = max(getattr(self, "_rs_floor", 512), rs_row.shape[0])
+            self.tracker.update(
+                outc.n_accepted, full, {full.qname[i]: i for i in outc.acc_rows}
+            )
+            batch = pack_batch(
+                self.layout,
+                [(full, full_rows, seqs, quals), (trunc, trunc_rows, trunc_seqs, trunc_quals)],
+                device=None,
+                barcodes=read_bc,
+                rs=(rs_row, rs_strand, rs_w),
+                floors=getattr(self, "_batch_floors", (0, 0)),
+                len_b=self.engine.model.len_b,
+            )
+            self._batch_floors = (batch["mr_g"].shape[0], batch["ex_g"].shape[0])
         t["coo"] = time.perf_counter()
         params = self.engine.make_params(self.rl_dist.approx_ccl, self.rl_dist.time_cost)
         # the step is queued on the device; the host overlaps it with the

@@ -27,7 +27,19 @@ The spans (where each is opened):
 ``sim.draw``        sampling the batch from the pool
 ``sim.paf``         parsing its full and truncated PAF records
 ``sim.coo``         the gated flow's coverage rows, read-start rows and
-                    padding
+                    padding; the classic flow's read lengths, read-start
+                    rows and packed batch
+``sim.align``       the classic flow's live alignment: the prefixes'
+                    mapping, the decisions and the accepted reads' mapping
+``sim.decide``      the classic flow's decisions and coverage rows' choice
+``align.index``     the aligner's index, built or loaded, and its upload
+``align.map``       one ``map_sequences`` call (attrs ``trunc``, ``reads``)
+``align.encode``    the batch's text encoded and staged for the seeding
+``align.dispatch``  the staged reads' upload and every seeding launch
+                    (attr ``calls``: each call's reads and length bucket)
+``align.pull``      one call's seeds: the wait for its seeding, its copy
+``align.plan``      one call's candidates, windows and mapq
+``align.extend``    one call's banded DP and its records
 ``engine.pack``     packing a wire into staging (with the wait for a
                     free staging buffer)
 ``engine.upload``   the wire's async copy, its host side
@@ -44,9 +56,12 @@ The spans (where each is opened):
 =================== =================================================
 
 The counters: ``bytes.d2h`` (bytes copied from the device: the aux
-vector, the strategy, the checkpointed state) and ``bytes.disk`` (bytes
-written to files: the strategy file, the checkpoint, the metrics lines,
-the read dumps).
+vector, the strategy, the checkpointed state, the aligner's seeds),
+``bytes.disk`` (bytes written to files: the strategy file, the
+checkpoint, the metrics lines, the read dumps) and the aligner's
+``align.reads``, ``align.bases`` (the bases seeded), ``align.jobs`` (DP
+jobs) and ``align.dp_cells`` (each job's query bases times its band's
+width, 2 half + 1).
 """
 from __future__ import annotations
 

@@ -295,6 +295,24 @@ def test_empty_cigars_give_empty_records(worlds, monkeypatch):
         assert len(rec) == 0 and rec.cigars == []
 
 
+def test_reads_past_4096_cigar_runs_map():
+    """A read of 60-80 kb at ONT error rates needs more than 4,096 CIGAR
+    runs; the port's DP sizes its buffer to the query and maps it whole
+    (the JAX package's fixed 4,096 runs drop it)."""
+    rng = np.random.default_rng(6)
+    genome = random_genome(rng, {"g": 200_000})
+    lay = build_layout(genome)
+    seqs = {f"r{n}": _simulate_alignment(rng, genome["g"][5_000: 5_000 + n])[0]
+            for n in (60_000, 80_000)}
+    port = tal.TorchAligner(lay, k=13, w=5, min_votes=3, device="cpu")
+    rec = port.map_sequences(seqs)
+    _same_records(rec, CpuAligner(lay, k=13, w=5, min_votes=3).map_sequences(seqs), "long")
+    assert sorted(rec.qname) == ["r60000", "r80000"]
+    assert max(c.size for c in rec.cigars) > 4096
+    for q0, q1, n in zip(rec.qstart, rec.qend, rec.qlen):
+        assert q1 - q0 > 0.99 * n
+
+
 def test_long_reads_cut_to_last_bucket_and_empty_index(worlds):
     """Reads beyond 32768 bases seed on their first 32768 (the last
     bucket) in both seeding paths; an index with no minimizer maps nothing."""

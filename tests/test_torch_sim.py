@@ -164,3 +164,30 @@ def test_checkpoints_interchange_with_jax(rng, tmp_path):
     assert jhost["batch"] == 4
     for k, v in st.items():
         np.testing.assert_array_equal(np.asarray(getattr(jstate, k)), v)
+
+
+@pytest.mark.parametrize("chunk", [1, 5_000, 1 << 22])
+def test_read_dumps_match_jax_byte_for_byte(tmp_path, monkeypatch, chunk):
+    """The port's read dumps, written in pieces, hold the bytes the JAX
+    package's write a read gives, random ids included, on the same draws;
+    a piece of one read, of several and of the whole dump."""
+    import random
+
+    from bossruns_tpu.models.runs_sim import ReadCache as JaxCache
+    from bossruns_torch.models import runs_sim
+
+    monkeypatch.setattr(runs_sim, "DUMP_CHUNK", chunk)
+    rng = np.random.default_rng(11)
+    seqs = {f"r{i}": "".join("ACGTN"[c] for c in rng.integers(0, 5, int(n)))
+            for i, n in enumerate(rng.integers(1, 3_000, 40))}
+    keep = {r: s[:400] for r, s in seqs.items() if len(s) % 3}
+    files = {}
+    for name, cls in (("jax", JaxCache), ("port", runs_sim.ReadCache)):
+        cache = cls(batchsize=40, dumptime=10 ** 12, out_base=tmp_path / name)
+        random.seed(7)
+        cache.fill(seqs, keep, barcodes={r: i % 3 for i, r in enumerate(seqs)})
+        cache.flush()
+        files[name] = {p.name: p.read_bytes() for p in sorted(cache.out.iterdir())}
+    assert files["port"] == files["jax"]
+    assert files["port"]["control_1.fa"].count(b">") == len(seqs)
+    assert files["port"]["boss_1.fa"].count(b">") == len(keep)

@@ -11,6 +11,10 @@
   trace matches its record, also once placed through a marker;
 * spans change no result: masks, metrics lines and state are equal bit for
   bit with and without them;
+* the live-alignment sim (no PAFs): the aligner's spans nest under
+  ``sim.align`` within ``sim.batch``, its counters equal hand counts of a
+  batch's reads, bases, DP jobs, cells and seed pulls, nothing records
+  with the profiler off, and the gated flow records none of them;
 * on the card (marker ``cuda``): a replayed step's launch is recorded as a
   replay, and the strategy's pinned pull counts its bytes.
 
@@ -29,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from bossruns_torch.aligner import TorchAligner, bucket_of
+from bossruns_torch.aligner import native as tnative
 from bossruns_torch.io.coo_native import pad_split, split_runs
 from bossruns_torch.models import runs as truns
 from bossruns_torch.models.convert import state_to_numpy
@@ -48,6 +54,10 @@ SIM_SPANS = {"sim.batch", "sim.prefetch", "sim.draw", "sim.paf", "sim.coo", "eng
              "mask.split", "mask.write", "checkpoint.pull", "checkpoint.write"}
 CHAIN_SPANS = ["engine.params", "engine.pack", "engine.upload", "engine.launch",
                "engine.pull_aux", "mask.pull", "mask.split", "mask.write"]
+ALIGN_SPANS = {"align.map", "align.encode", "align.dispatch", "align.pull", "align.plan",
+               "align.extend"}
+LIVE_SPANS = (SIM_SPANS - {"sim.paf"}) | ALIGN_SPANS | {
+    "sim.align", "sim.decide"}
 
 
 def profiling():
@@ -343,6 +353,108 @@ def test_spans_change_no_result(corpus, tmp_path):
         assert set(a) == set(b)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# ----------------------------------------------------- live alignment ---
+
+def _live_sim(corpus, out: Path) -> BossRunsSim:
+    sim = BossRunsSim(ref=corpus["ref"], fq=corpus["fq"], name="s", batchsize=150, maxb=2,
+                      out_base=out, seed=5, device="cpu")
+    sim.checkpoint_every = 2
+    return sim
+
+
+def test_live_sim_nests_the_aligners_spans_under_sim_align(corpus, tmp_path):
+    n = len(spans.recorded())
+    with profiling():
+        sim = _live_sim(corpus, tmp_path)
+        for _ in range(2):
+            sim.process_batch()
+        sim.cleanup()
+    got = span_records(since(n))
+    assert {r.name for r in got} == LIVE_SPANS | {"align.index"}
+    by_id = {r.id: r for r in got}
+    parent = lambda r: by_id[r.parent].name if r.parent in by_id else None  # noqa: E731
+    names = Counter(r.name for r in got)
+    assert names["sim.batch"] == names["sim.align"] == names["sim.decide"] == 2
+    assert names["align.map"] == 4 and names["align.index"] == 1      # two passes a batch
+    assert names["align.pull"] == names["align.plan"] == names["align.extend"] >= 4
+    assert parent(next(r for r in got if r.name == "align.index")) is None  # the constructor
+    for r in got:
+        if r.name in ("sim.align", "sim.decide", "sim.coo"):
+            assert parent(r) == "sim.batch", r
+        if r.name == "align.map":
+            assert parent(r) == "sim.align" and set(r.attrs) == {"trunc", "reads"}, r
+        if r.name in ALIGN_SPANS - {"align.map"}:
+            assert parent(r) == "align.map", r
+        if r.name == "align.dispatch":
+            assert all(L == bucket_of(L) for _, L in r.attrs["calls"])
+    maps = [r for r in got if r.name == "align.map"]
+    assert [r.attrs["trunc"] for r in maps] == [True, False] * 2
+    assert [r.attrs["reads"] for r in maps][::2] == [150, 150]
+    # the five pieces of a map call lie inside it, one after another
+    for m in maps:
+        inside = sorted((r for r in got if r.parent == m.id), key=lambda r: r.t0)
+        assert all(a.t1 <= b.t0 for a, b in zip(inside, inside[1:]))
+        assert m.t0 <= inside[0].t0 and inside[-1].t1 <= m.t1
+
+
+def test_aligner_counters_equal_hand_counts(corpus, monkeypatch):
+    from bossruns_torch.models.runs_sim import load_reference_contigs
+
+    lay = build_layout(load_reference_contigs(corpus["ref"]))
+    al = TorchAligner(lay, k=13, w=5, min_votes=3, device="cpu")
+    rng = np.random.default_rng(3)
+    seqs = {}
+    with open(corpus["fq"]) as fh:
+        for i, line in enumerate(fh):
+            if i % 4 == 1 and rng.random() < 0.2:
+                seqs[f"r{i}"] = line.strip()
+    jobs = []
+    orig = tnative.align_batch
+
+    def hand(q_cat, q_off, target, ws, we, pad, half, threads=8):
+        jobs.append((np.diff(q_off), half.astype(np.int64)))
+        return orig(q_cat, q_off, target, ws, we, pad, half, threads)
+
+    monkeypatch.setattr(tnative, "align_batch", hand)
+    for trunc in (True, False):
+        jobs.clear()
+        n = len(spans.recorded())
+        with profiling():
+            al.map_sequences(seqs, trunc=trunc)
+        recs = since(n)
+        lens = np.array([min(len(s), al.mu) if trunc else len(s) for s in seqs.values()])
+        assert counted(recs, "align.reads") == len(seqs)
+        assert counted(recs, "align.bases") == int(np.minimum(lens, 32768).sum())
+        assert counted(recs, "align.jobs") == sum(len(m) for m, _ in jobs) > 0.8 * len(seqs)
+        assert counted(recs, "align.dp_cells") == sum(int((m * (2 * h + 1)).sum())
+                                                      for m, h in jobs)
+        # each call pulls its [24, rows] int32 seeds
+        assert counted(recs, "bytes.d2h") == 24 * 4 * len(seqs)
+
+
+def test_live_sim_off_records_nothing(corpus, tmp_path):
+    assert not torch.autograd._profiler_enabled()
+    n = len(spans.recorded())
+    sim = _live_sim(corpus, tmp_path)
+    sim.process_batch()
+    sim.cleanup()
+    assert len(spans.recorded()) == n
+
+
+def test_gated_flow_records_no_aligner_span(corpus, tmp_path):
+    n = len(spans.recorded())
+    with profiling():
+        sim = _sim(corpus, tmp_path)
+        sim.process_batch()
+        sim.cleanup()
+    recs = since(n)
+    got = {r.name for r in span_records(recs)}
+    assert got <= SIM_SPANS and not got & (ALIGN_SPANS | {"sim.align", "sim.decide",
+                                                           "align.index"})
+    assert not {r.name for r in recs if isinstance(r, spans.Count)} - {"bytes.d2h",
+                                                                      "bytes.disk"}
 
 
 # ------------------------------------------------------------------ card ---

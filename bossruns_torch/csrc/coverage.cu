@@ -29,11 +29,19 @@
 //   4. combine: an unmarked tile writes changed = 0 and stops; a marked tile
 //      adds each nonzero match count into plane seq[g] of the coverage with
 //      saturation and ors the count into changed.
-// The tile flags (one byte per tile, zeroed by the wrapper) and the scratch
-// (4 B per site and barcode) belong to the call: nothing is kept between
-// calls, so a failed call leaves nothing behind for the next one. A scratch
-// kept zero between steps would stay allocated through the scores and row
-// stages and raise the step's peak memory (PERF.md). Every increment is
+// The tile flags (one byte per tile, zeroed by the wrapper) belong to the
+// call, and H2 reads them next. The scratch (4 B per site and barcode) may
+// hold anything: the call's own, or, in the single engine's step, the
+// coverage sums the engine keeps between steps (models/runs.py), which H2
+// then rewrites over exactly the flagged tiles (scores.cu). So that buffer
+// stays exact only because passes 2-4 write the scratch inside marked
+// tiles alone: a pass that wrote it anywhere else (a zeroing of the whole
+// scratch, say) would corrupt the kept sums. The card tests
+// test_coverage_writes_match_scratch_only_in_flagged_tiles and
+// test_captured_step_across_a_restore_equals_dense_engine
+// (tests/test_torch_cuda.py) guard it.
+// A scratch kept zero between steps would stay allocated through the
+// scores and row stages and raise the step's peak memory (PERF.md). Every increment is
 // >= 0, so saturating per increment equals saturating the summed increment
 // once (min(c + a + b, 65535)), and "changed" is "any match count or
 // explicit observation" (the argument of models/runs.py:570-575): the

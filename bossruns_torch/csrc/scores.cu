@@ -14,23 +14,54 @@
 // LG = 15 (ploidy 2) the 36 special functions take longer than the site's
 // 20 B at the card's byte rate.
 //
-// Design: a 2-D launch, barcodes on blockIdx.y and four consecutive sites
-// per thread on x, with 32-bit offsets inside a barcode row (no 64-bit
-// divide): 8-byte loads of each coverage plane, 4-byte loads of seq and
-// site_valid, 16-byte stores of scores and covsum, so each thread has a
-// dozen independent loads in flight. A G that is not a multiple of 4 or a
-// base that is not aligned takes the scalar instantiation of the same
-// kernel. Sites that need no contraction get their score from the masks:
-// `tiny` when frozen, 0 when invalid, else one of four per-reference
-// constants (no counts), which each block computes once through the same
-// device function as the full path, so they carry the same bits. At each of
-// its four site slots a warp votes and skips the contraction when no lane
+// Design, per site: four consecutive sites per thread, with 32-bit offsets
+// inside a barcode row (no 64-bit divide): 8-byte loads of each coverage
+// plane, 4-byte loads of seq and site_valid, 16-byte stores of scores and
+// covsum, so each thread has a dozen independent loads in flight. A G that
+// is not a multiple of 4 or a base that is not aligned takes the scalar
+// instantiation of the same code.
+// Sites that need no contraction get their score from the masks: `tiny`
+// when frozen, 0 when invalid, else one of four per-reference constants
+// (no counts), which each block computes once through the same device
+// function as the full path, so they carry the same bits. At each of its
+// four site slots a warp votes and skips the contraction when no lane
 // needs it. The posterior is exp(lp - lse), a second pass of LG
 // exponentials: reusing the log-sum-exp's exp(lp - m) terms as e / se would
 // halve them, but it drops the rounding of lse that the plain version's
 // exp(lp - lse) carries, and moved scores by up to 3.3e-6 from the plain
 // version at the 8.05 Mb shape on an H100 (PERF.md), beyond H2's atol of
 // 1e-6.
+//
+// Two launches share that per-site code (score_chunk), so a site carries
+// the same bits from either:
+//   dense  (tiles == NULL: the sharded step, and any caller that passes
+//          no tile flags) one block a chunk of 1024 sites, barcodes on
+//          blockIdx.y, into fresh scores and covsum;
+//   tiled  (the single engine's step) over the scores and covsum the
+//          engine keeps between steps: pick_tiles lists the tiles of TILE
+//          = 4096 sites that H1 flagged this step (one warp-aggregated
+//          atomic a warp), then a grid of the blocks the card holds at
+//          once walks the listed tiles' chunks, each block taking its next
+//          (chunk, barcode) item from an atomic counter, so neither the
+//          ~57k untouched tiles of a chr1 step nor a block per tile is
+//          launched. A device flag (`full`, set by the engine before the
+//          step, outside any captured graph) makes the same launch walk
+//          every tile instead. A chr1 batch touches ~5% of the tiles.
+// The engine's rule for `full` (models/runs.py): it records, after each
+// step, the state's coverage and zeroed tensors (object, address and
+// `_version`, which every in-place torch write bumps and the kernels do
+// not) and rescores by tile only when the next step's state matches: an
+// engine's first step, another state, or a state written outside the
+// engine's steps (a restore's copy_, state_from_numpy) rescores all.
+// Why the kept values are exact (the argument of row_apply, rows.cu): a
+// site H1 did not touch has unchanged coverage in every barcode, so its
+// covsum is the kept one and `changed` is 0 there; its kept score is its
+// unmasked score, or 0 where an earlier step zeroed it. Zeroed and
+// unchanged, `hold` keeps it zeroed, and row_apply outputs 0 as on the
+// dense path; not zeroed, row_apply masks the same unmasked score the
+// dense path would have written. row_sums, row_apply and H4 run dense on
+// the kept buffers. H1 takes the kept covsum as its match scratch: it
+// writes only inside the tiles it flags, which this launch then rewrites.
 // Counts are clipped at 990; the contraction runs as f32
 // FMAs in registers, never on tensor cores, so TF32 can never enter (ROADMAP
 // F5). Genotype and symbol counts are template parameters, so every
@@ -69,6 +100,9 @@ namespace {
 constexpr int COUNT_CLIP = 990;
 constexpr int THREADS = 256;
 constexpr int SPT = 4;  // sites per thread
+constexpr int CHUNK = THREADS * SPT;  // sites of one block's pass
+constexpr int TILE = 4096;  // sites per tile flag (TILE in coverage.cu)
+constexpr int CHUNKS_PER_TILE = TILE / CHUNK;
 
 __device__ __forceinline__ float sc_exp(float x) { return expf(x); }
 __device__ __forceinline__ double sc_exp(double x) { return exp(x); }
@@ -227,16 +261,15 @@ __device__ __forceinline__ void store4(__half* p, const float (&v)[SPT]) {
     *reinterpret_cast<uint2*>(p) = w;
 }
 
-template <int LB, int LG, bool kVec, class T>
-__global__ void __launch_bounds__(THREADS)
-site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
-                   const uint8_t* __restrict__ site_valid, const T* __restrict__ tab, int G,
-                   int freeze_cov, typename Compute<T>::type tiny, T* __restrict__ scores,
-                   int32_t* __restrict__ covsum) {
+// Each block's set-up: the model tables into shared memory (widened to
+// the arithmetic type) and the score of a valid site without counts per
+// reference symbol, through the same device function as the full path.
+template <int LB, int LG, class T>
+__device__ __forceinline__ void load_tables(const T* __restrict__ tab,
+                                            typename Compute<T>::type* s_tab,
+                                            typename Compute<T>::type* s_empty) {
     using C = typename Compute<T>::type;
     constexpr int NT = 2 * LB * LG + 5 * LG;
-    __shared__ __align__(16) C s_tab[NT];  // 16-byte aligned: vector loads of the tables
-    __shared__ C s_empty[4];  // the score of a valid site without counts, per reference
     for (int i = threadIdx.x; i < NT; i += blockDim.x) s_tab[i] = widen(tab[i]);
     __syncthreads();
     if (threadIdx.x < 4) {
@@ -246,10 +279,18 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
         s_empty[threadIdx.x] = site_score<LB, LG, T>(zero, threadIdx.x, s_tab);
     }
     __syncthreads();
+}
 
-    // 32-bit site offsets inside one barcode row (the wrapper checks G < 2^31 - 2^10)
-    const uint32_t g0 = (blockIdx.x * THREADS + threadIdx.x) * SPT;
-    const int64_t b = blockIdx.y;
+// One chunk of CHUNK sites of barcode b: this thread's four sites from g0
+// on. Every thread of the block calls it (the warp votes below).
+template <int LB, int LG, bool kVec, class T>
+__device__ __forceinline__ void score_chunk(
+        const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
+        const uint8_t* __restrict__ site_valid, const typename Compute<T>::type* s_tab,
+        const typename Compute<T>::type* s_empty, int G, int freeze_cov,
+        typename Compute<T>::type tiny, T* __restrict__ scores, int32_t* __restrict__ covsum,
+        uint32_t g0, int64_t b) {
+    using C = typename Compute<T>::type;
     const uint16_t* c = cov + b * 5 * G;
     uint32_t v[5][SPT];
     int ref[SPT];
@@ -331,20 +372,128 @@ site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ 
     }
 }
 
+// Dense: one block a chunk, barcodes on blockIdx.y.
+template <int LB, int LG, bool kVec, class T>
+__global__ void __launch_bounds__(THREADS)
+site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
+                   const uint8_t* __restrict__ site_valid, const T* __restrict__ tab, int G,
+                   int freeze_cov, typename Compute<T>::type tiny, T* __restrict__ scores,
+                   int32_t* __restrict__ covsum) {
+    using C = typename Compute<T>::type;
+    __shared__ __align__(16) C s_tab[2 * LB * LG + 5 * LG];  // 16-byte aligned: vector loads
+    __shared__ C s_empty[4];  // the score of a valid site without counts, per reference
+    load_tables<LB, LG, T>(tab, s_tab, s_empty);
+    // 32-bit site offsets inside one barcode row (the wrapper checks G < 2^31 - 2^10)
+    score_chunk<LB, LG, kVec, T>(cov, seq, site_valid, s_tab, s_empty, G, freeze_cov, tiny,
+                                 scores, covsum, (blockIdx.x * THREADS + threadIdx.x) * SPT,
+                                 blockIdx.y);
+}
+
+// The marked tiles as a list: one thread a tile; each warp appends its
+// marked tiles with one atomic on work[0] (list order does not matter).
+// Nothing to do when every site is rescored.
+__global__ void pick_tiles(const uint8_t* __restrict__ tiles, int n_tiles,
+                           const int32_t* __restrict__ full, int32_t* __restrict__ list,
+                           int32_t* __restrict__ work) {
+    if (*full != 0) return;
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool marked = t < n_tiles && tiles[t] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, marked);
+    if (ballot == 0) return;
+    const int lane = threadIdx.x & 31;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(work, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (marked) list[base + __popc(ballot & ((1u << lane) - 1u))] = t;
+}
+
+// Tiled: resident blocks take (chunk, barcode) items from the counter
+// work[1] until none is left: the chunks of the listed tiles, or of every
+// tile when *full is set. Thread 0 takes the next item while the block
+// scores the current one.
+template <int LB, int LG, bool kVec, class T>
+__global__ void __launch_bounds__(THREADS)
+site_scores_tiled(const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
+                  const uint8_t* __restrict__ site_valid, const T* __restrict__ tab, int G,
+                  int freeze_cov, typename Compute<T>::type tiny, T* __restrict__ scores,
+                  int32_t* __restrict__ covsum, const int32_t* __restrict__ full,
+                  const int32_t* __restrict__ list, int32_t* __restrict__ work, int nb,
+                  int n_tiles) {
+    using C = typename Compute<T>::type;
+    __shared__ __align__(16) C s_tab[2 * LB * LG + 5 * LG];
+    __shared__ C s_empty[4];
+    __shared__ int s_item[2];
+    load_tables<LB, LG, T>(tab, s_tab, s_empty);
+    const bool all = *full != 0;
+    const int n_items = (all ? n_tiles : work[0]) * CHUNKS_PER_TILE * nb;
+    if (threadIdx.x == 0) s_item[0] = atomicAdd(work + 1, 1);
+    __syncthreads();
+    for (int k = 0;; k ^= 1) {
+        const int item = s_item[k];
+        if (item >= n_items) break;
+        if (threadIdx.x == 0) s_item[k ^ 1] = atomicAdd(work + 1, 1);
+        const int j = item / nb;
+        const int tile = all ? j / CHUNKS_PER_TILE : list[j / CHUNKS_PER_TILE];
+        const uint32_t chunk = (uint32_t)tile * CHUNKS_PER_TILE + j % CHUNKS_PER_TILE;
+        score_chunk<LB, LG, kVec, T>(cov, seq, site_valid, s_tab, s_empty, G, freeze_cov, tiny,
+                                     scores, covsum, chunk * CHUNK + threadIdx.x * SPT,
+                                     item % nb);
+        __syncthreads();  // s_item[k ^ 1] is written; s_item[k] is read by all
+    }
+}
+
+// Resident blocks of one tiled instantiation on the card (all SMs), asked
+// once: the same for every call of a process.
+template <int LB, int LG, bool kVec, class T>
+int tiled_grid() {
+    static const int blocks = [] {
+        int dev = 0, sms = 0, per_sm = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, site_scores_tiled<LB, LG, kVec, T>, THREADS, 0) != cudaSuccess)
+            return 0;
+        return sms * per_sm;
+    }();
+    return blocks;
+}
+
 template <int LB, int LG, class T>
 int launch(const void* cov, const void* seq, const void* site_valid, const void* tab, int64_t nb,
            int64_t G, int freeze_cov, typename Compute<T>::type tiny, void* scores, void* covsum,
-           cudaStream_t st) {
+           const void* tiles, const void* full, void* list, void* work, cudaStream_t st) {
     if (G <= 0 || nb <= 0) return 0;
-    if (G >= (int64_t{1} << 31) - THREADS * SPT || nb > 65535) return -1;
+    if (G >= (int64_t{1} << 31) - CHUNK || nb > 65535) return -1;
     auto al = [](const void* p, uintptr_t a) { return (uintptr_t)p % a == 0; };
     bool vec = G % SPT == 0 && al(cov, 8) && al(seq, 4) && al(site_valid, 4) && al(scores, 16) &&
                al(covsum, 16);
-    dim3 grid((unsigned)((G + THREADS * SPT - 1) / (THREADS * SPT)), (unsigned)nb);
-    auto kern = vec ? site_scores_kernel<LB, LG, true, T> : site_scores_kernel<LB, LG, false, T>;
-    kern<<<grid, THREADS, 0, st>>>((const uint16_t*)cov, (const int8_t*)seq,
-                                   (const uint8_t*)site_valid, (const T*)tab, (int)G,
-                                   freeze_cov, tiny, (T*)scores, (int32_t*)covsum);
+    if (tiles == nullptr) {
+        dim3 grid((unsigned)((G + CHUNK - 1) / CHUNK), (unsigned)nb);
+        auto kern = vec ? site_scores_kernel<LB, LG, true, T> : site_scores_kernel<LB, LG, false, T>;
+        kern<<<grid, THREADS, 0, st>>>((const uint16_t*)cov, (const int8_t*)seq,
+                                       (const uint8_t*)site_valid, (const T*)tab, (int)G,
+                                       freeze_cov, tiny, (T*)scores, (int32_t*)covsum);
+        BK_LAUNCHED();
+        return 0;
+    }
+    const int64_t n_tiles = (G + TILE - 1) / TILE;
+    const int64_t n_items = n_tiles * CHUNKS_PER_TILE * nb;
+    if (full == nullptr || list == nullptr || work == nullptr || G >= (int64_t{1} << 31) - TILE)
+        return -1;
+    const int blocks = vec ? tiled_grid<LB, LG, true, T>() : tiled_grid<LB, LG, false, T>();
+    if (blocks <= 0) {
+        const cudaError_t err = cudaGetLastError();
+        return err != cudaSuccess ? (int)err : -1;
+    }
+    if (n_items + blocks >= (int64_t{1} << 31)) return -1;
+    pick_tiles<<<(unsigned)((n_tiles + 255) / 256), 256, 0, st>>>(
+        (const uint8_t*)tiles, (int)n_tiles, (const int32_t*)full, (int32_t*)list, (int32_t*)work);
+    BK_LAUNCHED();
+    auto kern = vec ? site_scores_tiled<LB, LG, true, T> : site_scores_tiled<LB, LG, false, T>;
+    kern<<<(unsigned)(blocks < n_items ? blocks : n_items), THREADS, 0, st>>>(
+        (const uint16_t*)cov, (const int8_t*)seq, (const uint8_t*)site_valid, (const T*)tab,
+        (int)G, freeze_cov, tiny, (T*)scores, (int32_t*)covsum, (const int32_t*)full,
+        (const int32_t*)list, (int32_t*)work, (int)nb, (int)n_tiles);
     BK_LAUNCHED();
     return 0;
 }
@@ -352,43 +501,56 @@ int launch(const void* cov, const void* seq, const void* site_valid, const void*
 template <class T>
 int site_scores(const void* coverage, const void* seq, const void* site_valid, const void* tab,
                 int len_b, int len_g, int64_t nb, int64_t G, int freeze_cov,
-                typename Compute<T>::type tiny, void* scores, void* covsum, cudaStream_t st) {
-    if (len_b == 5 && len_g == 5)
-        return launch<5, 5, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    if (len_b == 4 && len_g == 4)
-        return launch<4, 4, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    if (len_b == 5 && len_g == 15)
-        return launch<5, 15, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
-    if (len_b == 4 && len_g == 10)
-        return launch<4, 10, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, covsum, st);
+                typename Compute<T>::type tiny, void* scores, void* covsum, const void* tiles,
+                const void* full, void* list, void* work, cudaStream_t st) {
+#define BK_SCORES(B, L)                                                                        \
+    if (len_b == B && len_g == L)                                                              \
+        return launch<B, L, T>(coverage, seq, site_valid, tab, nb, G, freeze_cov, tiny, scores, \
+                               covsum, tiles, full, list, work, st);
+    BK_SCORES(5, 5)
+    BK_SCORES(4, 4)
+    BK_SCORES(5, 15)
+    BK_SCORES(4, 10)
+#undef BK_SCORES
     return -1;
 }
 
 }  // namespace
 
 // coverage uint16[nb,5,G], seq int8[G], site_valid bool[G], tab f32 (see
-// above) -> scores f32[nb,G], covsum int32[nb,G]. Returns -1 for a model
-// shape without an instantiation or a G or nb beyond the launch's range.
+// above) -> scores f32[nb,G], covsum int32[nb,G]. tiles == NULL: every site
+// (the dense launch). Else tiles uint8[ceil(G / TILE)] (H1's flags), full
+// int32[1] (nonzero: every site), list int32[ceil(G / TILE)] scratch and
+// work int32[2] zeroed: the sites of the flagged tiles, or every site when
+// *full; the rest of scores and covsum is left as it is. Returns -1 for a
+// model shape without an instantiation or a G or nb beyond the launch's
+// range.
 BK_API int bk_site_scores(const void* coverage, const void* seq, const void* site_valid,
                           const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
-                          int freeze_cov, float tiny, void* scores, void* covsum, void* stream) {
+                          int freeze_cov, float tiny, void* scores, void* covsum,
+                          const void* tiles, const void* full, void* list, void* work,
+                          void* stream) {
     return site_scores<float>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov, tiny,
-                              scores, covsum, (cudaStream_t)stream);
+                              scores, covsum, tiles, full, list, work, (cudaStream_t)stream);
 }
 
 // the same with f64 tables and f64 scores
 BK_API int bk_site_scores_s64(const void* coverage, const void* seq, const void* site_valid,
                               const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
-                              int freeze_cov, double tiny, void* scores, void* covsum, void* stream) {
+                              int freeze_cov, double tiny, void* scores, void* covsum,
+                              const void* tiles, const void* full, void* list, void* work,
+                              void* stream) {
     return site_scores<double>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov, tiny,
-                               scores, covsum, (cudaStream_t)stream);
+                               scores, covsum, tiles, full, list, work, (cudaStream_t)stream);
 }
 
 // the same with f16 tables and f16 scores (tiny: the half's smallest
 // normal, 6.1035e-05, passed as an exact float)
 BK_API int bk_site_scores_h16(const void* coverage, const void* seq, const void* site_valid,
                               const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
-                              int freeze_cov, float tiny, void* scores, void* covsum, void* stream) {
+                              int freeze_cov, float tiny, void* scores, void* covsum,
+                              const void* tiles, const void* full, void* list, void* work,
+                              void* stream) {
     return site_scores<__half>(coverage, seq, site_valid, tab, len_b, len_g, nb, G, freeze_cov,
-                               tiny, scores, covsum, (cudaStream_t)stream);
+                               tiny, scores, covsum, tiles, full, list, work, (cudaStream_t)stream);
 }

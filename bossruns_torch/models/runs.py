@@ -16,6 +16,21 @@ CUDA tensors and a plain PyTorch version for CPU tensors:
 
 The state is updated IN PLACE, where the JAX engine donated it
 (``donate_argnums=(0,)``): ``step`` returns the same tensors it was given.
+The engine keeps H2's output, the per-site scores (after the row stage's
+zeros) and coverage sums, in buffers of its own between steps, and H2
+rescores only the tiles of 4096 sites that H1 flagged, as the upstream
+recomputes only changed sites (``Scoring.update_scores``). That holds
+while the state is the one the engine last stepped, untouched since: the
+same coverage and zeroed tensors at the same ``_version`` (a restore's
+``copy_``, a new state or another engine's step makes the next step
+rescore every site; the counters ``scores.full`` and ``scores.tiled``
+count the two kinds). Every step bumps the two tensors' ``_version``
+itself, since the kernels' writes do not; so a state may be written only
+through torch ops and engines' steps, or a writer that bypasses both (a
+DLPack consumer, a kernel of its own) bumps it too
+(``torch.autograd.graph.increment_version``).
+csrc/scores.cu gives the argument that the result is the dense one, bit
+for bit. H1 uses the kept coverage sums as its match scratch.
 A host batch ships as the JAX package's uint32 wire buffer
 (``pack_wire``/``pack_gated``, byte for byte the same buffer and spec),
 packed into a pinned staging buffer and landed in the tier's static device
@@ -45,6 +60,7 @@ counterpart, and nothing narrows silently.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -56,7 +72,7 @@ from ..ops.model import ObservationModel, make_model
 from ..device import as_device
 from ..utils import spans
 from ..ops.genome_ops import (
-    NP_FLOAT, CovRows, benefit_strategy, coverage_update, default_dtypes, row_stage,
+    NP_FLOAT, CovRows, benefit_strategy, coverage_update_tiled, default_dtypes, row_stage,
 )
 from ..ops.scores import ScoreTables, site_scores
 from .layout import BUCKET, DS, GenomeLayout
@@ -195,13 +211,20 @@ _TORCH_OF = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16,
 
 
 class RunsEngine(nn.Module):
-    """Genome-sized constants (registered buffers) and the update step."""
+    """Genome-sized constants (registered buffers) and the update step.
+
+    The engine keeps the scores of the state it stepped last; a state
+    written outside torch ops and engines' steps must have its coverage's
+    and zeroed's ``_version`` bumped by its writer (module docstring)."""
 
     #: step_from_numpy (one-copy wire upload) is valid on this engine
     wire_capable = True
     #: the strategy's copy to pinned host memory after a step
     #: (``strat_to_host_async``); None on the CPU and on the sharded engine
     _strat_pull = None
+    #: (scores, covsum) [NB, G_pad] kept between steps, H2's output buffers;
+    #: None on the sharded engine
+    _kept = None
 
     def __init__(self, layout: GenomeLayout, model: ObservationModel | None = None,
                  config: RunsConfig = RunsConfig(), *, device):
@@ -212,6 +235,14 @@ class RunsEngine(nn.Module):
         self.tables = ScoreTables(self.model, self.dtype, device=dev)
         for name, (a, dtype) in consts.items():
             self.register_buffer(name, torch.as_tensor(np.asarray(a), dtype=dtype).to(dev))
+        shape = (self.nb, layout.G_pad)
+        self._kept = (torch.zeros(shape, dtype=self.dtype, device=dev),
+                      torch.zeros(shape, dtype=torch.int32, device=dev))
+        # H2's rescore-all flag (int32 [1], read on the device), its host
+        # copy, and the state the kept values belong to (``_kept_valid``)
+        self._full = torch.ones(1, dtype=torch.int32, device=dev)
+        self._full_host = True
+        self._kept_for = None
         self.graphs, self._staging = None, None
         if dev.type == "cuda":
             from ..utils.staging import PinnedCopy, PinnedStaging
@@ -489,6 +520,49 @@ class RunsEngine(nn.Module):
         exact, that is, away from the default dtypes."""
         return not default_dtypes(self.dtype, self.benefit_dtype)
 
+    # ------------------------------------------------------ kept scores ----
+    # H2 rescores only the tiles H1 flagged, over the scores and coverage
+    # sums this engine keeps between steps, when they belong to the state
+    # being stepped (csrc/scores.cu: why that is exact); else every site.
+
+    @staticmethod
+    def _stamp(state: GenomeState) -> tuple:
+        """Address and version of the state's coverage and zeroed: every
+        in-place torch write bumps a tensor's ``_version`` (a restore's
+        ``copy_``); the kernels' writes do not, so ``_end_step`` bumps it."""
+        return tuple((t.data_ptr(), t._version) for t in (state.coverage, state.zeroed))
+
+    def _kept_valid(self, state: GenomeState) -> bool:
+        """Whether the kept values are those of ``state`` as it is: the same
+        coverage and zeroed objects that this engine's last step left, at
+        the same address and version."""
+        kf = self._kept_for
+        return (kf is not None and kf[0]() is state.coverage and kf[1]() is state.zeroed
+                and kf[2] == self._stamp(state))
+
+    def _begin_step(self, state) -> None:
+        """Before a step's body, outside any graph: set H2's device flag to
+        rescore every site unless the kept values are valid (one fill, only
+        when the flag changes), and count the step's kind."""
+        if self._kept is None:
+            return
+        full = not self._kept_valid(state)
+        self._kept_for = None  # until the step has run
+        if full != self._full_host:
+            self._full.fill_(int(full))
+            self._full_host = full
+        spans.count("scores.full" if full else "scores.tiled", 1)
+
+    def _end_step(self, state) -> None:
+        """After a step: the kept values are now ``state``'s. The step's
+        kernels wrote coverage and zeroed without a torch op: bump their
+        versions, so that another engine's kept values for this state are
+        no longer valid."""
+        if self._kept is not None:
+            torch.autograd.graph.increment_version((state.coverage, state.zeroed))
+            self._kept_for = (weakref.ref(state.coverage), weakref.ref(state.zeroed),
+                              self._stamp(state))
+
     # -------------------------------------------------------------- step ----
 
     def _through_graphs(self, path: str, state, inputs: dict, params: StepParams, body):
@@ -496,14 +570,17 @@ class RunsEngine(nn.Module):
         card, eagerly on the CPU."""
         if self._strat_pull is not None:
             self._strat_pull.drop()  # the step rewrites the strategy
+        self._begin_step(state)
         with spans.span("engine.launch") as sp:
             if self.graphs is None:
                 sp.attr("mode", "eager")
-                return body(state, inputs, params)
-            out = self.graphs.run(path, state, inputs, params, body,
-                                  self.win_cap(params, self.config.ccl_clamp_ds))
-            sp.attr("mode", self.graphs.last_mode)
-            return out
+                out = body(state, inputs, params)
+            else:
+                out = self.graphs.run(path, state, inputs, params, body,
+                                      self.win_cap(params, self.config.ccl_clamp_ds))
+                sp.attr("mode", self.graphs.last_mode)
+        self._end_step(state)
+        return out
 
     def eager(self, path: str, state, *args):
         """The body of ``path`` ("step", "step_from_numpy" or "step_gated",
@@ -515,12 +592,17 @@ class RunsEngine(nn.Module):
             batch_np, params = args
             wire, spec = self.pack_wire(batch_np)
             batch = self.unpack_wire(torch.from_numpy(wire).to(self.device), spec)
-            return self._classic(state, batch._asdict(), params)
-        if path == "step":
+            body, inputs = self._classic, batch._asdict()
+        elif path == "step":
             batch, params = args
-            return self._classic(state, batch._asdict(), params)
-        gated, bits, params = args
-        return self._gated(state, dict(gated, bits=bits), params)
+            body, inputs = self._classic, batch._asdict()
+        else:
+            gated, bits, params = args
+            body, inputs = self._gated, dict(gated, bits=bits)
+        self._begin_step(state)
+        out = body(state, inputs, params)
+        self._end_step(state)
+        return out
 
     def _classic(self, state: GenomeState, inputs: dict, params: StepParams):
         b = ReadBatch(**inputs)
@@ -539,15 +621,17 @@ class RunsEngine(nn.Module):
     @torch.no_grad()
     def _step(self, state: GenomeState, full: CovRows, trunc, bits, params: StepParams,
               rs_row, rs_strand, rs_w=None, rs_read=None):
-        changed = coverage_update(**self.coverage_args(state, full, trunc, bits))
-        scores, covsum = site_scores(**self.score_args(state))
+        changed, tiles = coverage_update_tiled(**self.coverage_args(state, full, trunc, bits),
+                                               match=self._kept[1])
+        scores, covsum = site_scores(**self.score_args(state), out=self._kept, tiles=tiles,
+                                     full=self._full)
         aux = torch.zeros(4, dtype=self.dtype, device=self.device)
         scores_ds, fhat_exp = row_stage(**self.row_args(
             state, scores, covsum, changed, aux, params, rs_row, rs_strand, rs_w, rs_read, bits))
         _, _, threshold = benefit_strategy(**self.benefit_args(
             state, scores_ds, fhat_exp, aux, params))
         return state, StepAux(vec=aux, threshold=threshold,
-                              scores=scores if self.config.debug_aux else None)
+                              scores=scores.clone() if self.config.debug_aux else None)
 
     def step(self, state: GenomeState, batch: ReadBatch, params: StepParams):
         """One update from a ReadBatch on this engine's device. Updates

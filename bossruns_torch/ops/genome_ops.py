@@ -420,17 +420,29 @@ def _check_coverage(coverage, seq) -> None:
                          f"4-byte aligned seq, got G={G}")
 
 
-def _coverage_call(kernel: str, coverage, args) -> torch.Tensor:
+def _coverage_call(kernel: str, coverage, args, match=None):
     """Launch a coverage entry point with ``args(changed, match, tiles)``
-    (the call's own int32 match scratch, any contents, and zeroed tile
-    flags, one per COVERAGE_TILE sites) and return changed [G] bool."""
+    (an int32 [nb, G] match scratch of any contents: ``match``, else the
+    call's own; zeroed tile flags, one per COVERAGE_TILE sites) and return
+    (changed [G] bool, tiles uint8)."""
     nb, _, G = coverage.shape
     dev = coverage.device
     changed = torch.empty(G, dtype=torch.bool, device=dev)
-    match = torch.empty(nb * G, dtype=torch.int32, device=dev)
+    if match is None:
+        match = torch.empty(nb * G, dtype=torch.int32, device=dev)
+    else:
+        K.check(match, "match", torch.int32, (nb, G), dev, align=16)
     tiles = torch.zeros(-(-G // COVERAGE_TILE), dtype=torch.uint8, device=dev)
     K.KERNELS[kernel](*args(changed, match, tiles), K.stream_ptr(coverage))
-    return changed
+    return changed, tiles
+
+
+def tile_flags(changed) -> torch.Tensor:
+    """uint8 [ceil(G / COVERAGE_TILE)]: 1 where a tile holds a changed site
+    (the plain counterpart of H1's tile flags)."""
+    pad = -changed.shape[0] % COVERAGE_TILE
+    return torch.nn.functional.pad(changed, (0, pad)).reshape(-1, COVERAGE_TILE).any(1).to(
+        torch.uint8)
 
 
 def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, bits=None):
@@ -438,8 +450,20 @@ def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, 
     return the per-site changed flag. Ungated: ``full`` alone. Gated
     (``bits`` given): a full row survives iff bits[read] == 1, a trunc row
     iff bits[read] == 0 (models/runs.py:409-460)."""
+    return coverage_update_tiled(coverage, seq, full, trunc, bits)[0]
+
+
+def coverage_update_tiled(coverage, seq, full: CovRows, trunc: CovRows | None = None, bits=None,
+                          match=None):
+    """``coverage_update``, returning (changed [G] bool, tiles uint8
+    [ceil(G / COVERAGE_TILE)]): the flags of the tiles the batch touched
+    (H1's; on the CPU ``tile_flags(changed)``), which H2 rescores. ``match``:
+    an int32 [nb, G] buffer for the kernel's match scratch (the engine's
+    kept covsum: H1 writes it only inside the flagged tiles), else the
+    call's own."""
     if coverage.device.type == "cpu":
-        return coverage_update_plain(coverage, seq, full, trunc, bits)
+        changed = coverage_update_plain(coverage, seq, full, trunc, bits)
+        return changed, tile_flags(changed)
     nb, _, G = coverage.shape
     dev = coverage.device
     _check_coverage(coverage, seq)
@@ -467,10 +491,10 @@ def coverage_update(coverage, seq, full: CovRows, trunc: CovRows | None = None, 
             return [p(r.mr_bc), p(r.mr_g), p(r.mr_len), p(r.mr_read), r.mr_len.shape[0]]
         return [p(r.ex_bcsym), p(r.ex_g), p(r.ex_read), r.ex_g.shape[0]]
 
-    return _coverage_call("coverage_update", coverage, lambda changed, match, tl: (
+    return _coverage_call("coverage_update", coverage, lambda changed, m, tl: (
         *fam_args(f, True), *fam_args(t, True), *fam_args(f, False), *fam_args(t, False),
         p(bits), 0 if bits is None else bits.shape[0], p(seq), p(coverage), p(changed),
-        p(match), p(tl), nb, G))
+        p(m), p(tl), nb, G), match)
 
 
 # ============================================================ H3: row_stage ==
@@ -985,7 +1009,7 @@ def shard_coverage(coverage, seq, full: CovRows, b0: int, g0: int):
     p = K.ptr
     return _coverage_call("shard_coverage", coverage, lambda changed, match, tl: (
         p(full.mr_bc), p(full.mr_g), p(full.mr_len), n_mr, p(full.ex_bcsym), p(full.ex_g), n_ex,
-        p(seq), p(coverage), p(changed), p(match), p(tl), int(b0), int(g0), nb, G))
+        p(seq), p(coverage), p(changed), p(match), p(tl), int(b0), int(g0), nb, G))[0]
 
 
 def shard_rows_plain(phase: str, ws: dict, **kw) -> None:

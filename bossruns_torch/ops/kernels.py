@@ -130,8 +130,9 @@ class Kernel:
 
 
 def _score_args(tiny_type) -> list:
+    # ..., scores, covsum, tiles, full, list, work, stream
     return [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, ctypes.c_int, tiny_type,
-            _P, _P, _P]
+            _P, _P, _P, _P, _P, _P, _P]
 
 
 #: suffixes of the engine options' entry points: "_s64" takes f64 scores

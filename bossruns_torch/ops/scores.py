@@ -9,9 +9,12 @@ symbol and the genotype, in the closed form of ``bossruns_tpu.ops.scores``:
 ``site_scores_t`` is the plain PyTorch version (genome on the last axis).
 ``site_scores`` adds the engine's masking (max(.,0), site validity, the
 freeze at ``freeze_cov``) and launches kernel H2 (csrc/scores.cu) for CUDA
-tensors. The JAX package's ``site_scores_t_scan`` block loop is not ported:
-it only capped [genotypes, G] temporaries, which a per-site kernel never
-creates. Counts are clipped at 990 like the reference (sequences.py:493).
+tensors: into new tensors, or, for the engine, into the scores and
+coverage sums it keeps between steps, rescoring only the tiles H1 flagged
+unless a device flag asks for every site (the plain version scores every
+site and writes the same selection). The JAX package's
+``site_scores_t_scan`` block loop is not ported: it only capped
+[genotypes, G] temporaries, which a per-site kernel never creates. Counts are clipped at 990 like the reference (sequences.py:493).
 
 With f16 tables (``RunsConfig(dtype="float16")``) the plain version
 follows the JAX engine's f16 program as XLA compiles it on the CPU, which
@@ -36,7 +39,7 @@ from torch import nn
 from .model import ObservationModel
 
 from . import kernels as K
-from .genome_ops import widen
+from .genome_ops import COVERAGE_TILE, widen
 
 COUNT_CLIP = 990
 
@@ -171,19 +174,33 @@ def prior_score(model: ObservationModel, dtype=torch.float64, *, device) -> tupl
     return float(s[0]), float(e[0])
 
 
+def tile_mask(tiles, full, G: int):
+    """Per-site [G] bool: the site's tile of COVERAGE_TILE sites is flagged in
+    ``tiles`` (uint8 [ceil(G / COVERAGE_TILE)]), or ``full`` (int32 [1]) is set."""
+    return (tiles != 0).repeat_interleave(COVERAGE_TILE)[:G] | (full != 0)
+
+
 def site_scores_plain(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
-                      tiny: float):
+                      tiny: float, out=None, tiles=None, full=None):
     """Plain version of H2: (scores [nb, G] in the tables' dtype, covsum
     int32 [nb, G]) from coverage uint16 [nb, 5, G], with the masking of
-    models/runs.py:577-590."""
+    models/runs.py:577-590. ``out``, ``tiles`` and ``full`` as
+    ``site_scores``: every site is scored, and only the selected ones are
+    written into ``out``."""
     fresh = site_scores_t(coverage, seq, tables)[0]
     covsum = torch.sum(widen(coverage), dim=1, dtype=torch.int32)
     scores = torch.where(site_valid[None, :], torch.clamp_min(fresh, 0.0), 0.0)
     scores = torch.where(covsum >= freeze_cov, tiny, scores)
-    return scores, covsum
+    if out is None:
+        return scores, covsum
+    sel = tile_mask(tiles, full, covsum.shape[1])[None, :]
+    out[0].copy_(torch.where(sel, scores, out[0]))
+    out[1].copy_(torch.where(sel, covsum, out[1]))
+    return out
 
 
-def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int, tiny: float):
+def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int, tiny: float,
+                out=None, tiles=None, full=None):
     """H2: per-site scores and coverage sums; same results as
     ``site_scores_plain`` (in the tables' dtype, summed in another order;
     the posterior is exp(lp - lse), a second exponential pass, as the plain
@@ -191,9 +208,19 @@ def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
     ``site_scores_s64``, f16 tables ``site_scores_h16`` (f32 arithmetic
     rounded to f16 where the plain version rounds). Any G and base
     alignment: the kernel takes 16-byte accesses where G % 4 == 0 and the
-    bases are aligned, scalar ones otherwise."""
+    bases are aligned, scalar ones otherwise.
+
+    Without further arguments, every site into new tensors. With ``out``
+    (the engine's kept (scores, covsum)), ``tiles`` (uint8
+    [ceil(G / COVERAGE_TILE)], H1's flags of the tiles a step touched) and
+    ``full`` (int32 [1] on the device): the sites of the flagged tiles, or
+    every site where ``full`` is set, into ``out``, whose other sites keep
+    their values (csrc/scores.cu says why that is exact)."""
+    if (out is None) != (tiles is None) or (tiles is None) != (full is None):
+        raise ValueError("site_scores: give out, tiles and full together, or none of them")
     if coverage.device.type == "cpu":
-        return site_scores_plain(coverage, seq, site_valid, tables, freeze_cov, tiny)
+        return site_scores_plain(coverage, seq, site_valid, tables, freeze_cov, tiny, out,
+                                 tiles, full)
     nb, _, G = coverage.shape
     dev = coverage.device
     dt = tables.packed.dtype
@@ -203,11 +230,23 @@ def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
     K.check(seq, "seq", torch.int8, (G,), dev)
     K.check(site_valid, "site_valid", torch.bool, (G,), dev)
     K.check(tables.packed, "tables", dt, None, dev)
-    scores = torch.empty((nb, G), dtype=dt, device=dev)
-    covsum = torch.empty((nb, G), dtype=torch.int32, device=dev)
+    lst = work = None
+    if out is None:
+        scores = torch.empty((nb, G), dtype=dt, device=dev)
+        covsum = torch.empty((nb, G), dtype=torch.int32, device=dev)
+    else:
+        scores, covsum = out
+        n_tiles = -(-G // COVERAGE_TILE)
+        K.check(scores, "scores", dt, (nb, G), dev)
+        K.check(covsum, "covsum", torch.int32, (nb, G), dev)
+        K.check(tiles, "tiles", torch.uint8, (n_tiles,), dev)
+        K.check(full, "full", torch.int32, (1,), dev)
+        lst = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        work = torch.zeros(2, dtype=torch.int32, device=dev)
     K.KERNELS["site_scores" + K.SCORE_SUFFIX[dt]](
         coverage.data_ptr(), seq.data_ptr(), site_valid.data_ptr(), tables.packed.data_ptr(),
         tables.len_b, tables.len_g, nb, G, freeze_cov, tiny,
-        scores.data_ptr(), covsum.data_ptr(), K.stream_ptr(coverage),
+        scores.data_ptr(), covsum.data_ptr(), K.ptr(tiles), K.ptr(full), K.ptr(lst), K.ptr(work),
+        K.stream_ptr(coverage),
     )
     return scores, covsum

@@ -10,7 +10,10 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      in parallel, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      8.05 Mb slice shape with a 4000-read batch (mean length 3500), with
-     median times of both;
+     median times of both; H2 also in the tiled launch the single engine
+     makes, on the tiles H1 flagged and with its rescore-all flag set,
+     against the dense launch bit for bit and the plain version, with
+     times and bounds;
   4. the slice: a synthetic 8.05 Mb corpus through the port's gated
      BossRunsSim (4000-read batches), checked for strategy activation,
      rejections, enrichment, mask shapes, kernel launch counts and a
@@ -56,7 +59,9 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      p50 and peak memory of each, H8's launches in the sharded run
      (whose shards have phase 13's shapes), and then each step's device
      time by launch; then H1, H2 and H4 at the single engine's shape
-     (launches, device time, H4's split, bounds), and H4's binning launch
+     (launches, device time, H4's split, bounds; H2 dense, tiled over the
+     tiles the last batch's H1 call flagged and tiled with every site,
+     checked as in 3, the plain version on gathered sites), and H4's binning launch
      alone (shard_benefit's bins phase) on the step's own benefit and on a
      copy spread over 100 exponent bins, counts and fsum exact;
  15. a (2, 2) mesh with two barcodes on the 8.05 Mb genome against the
@@ -367,11 +372,14 @@ def coverage_bound(rows, seq, changed, before, after) -> dict:
 F64_FLOP_PER_MS = 34e12 / 1e3
 
 
-def score_bound(args: dict, scores, covsum) -> dict:
+def score_bound(args: dict, scores, covsum, sel=None, tiles=None) -> dict:
     """H2's bound for these inputs: the larger of the byte bound (each input
     read once, scores and covsum written once) and the arithmetic of the
     sites that need the contraction (a nonzero count among the model's
-    symbols, unfrozen, valid): 2 LB LG + LG + LB FMAs (the two contractions,
+    symbols, unfrozen, valid). With ``sel`` (bool [G], the sites of the
+    tiles H1 flagged) and ``tiles`` (the flags): the tiled launch's bound,
+    which counts the bytes and the arithmetic of the selected sites only
+    and the flags read once. Per contracted site: 2 LB LG + LG + LB FMAs (the two contractions,
     the k and q log q sums) and LG + LB + 2 special-function operations
     (an exponential per genotype for the log-sum-exp, a log per symbol, the
     log of the sum and its reciprocal) per such site. The posterior can
@@ -387,8 +395,17 @@ def score_bound(args: dict, scores, covsum) -> dict:
     cov = args["coverage"]
     nz = (cov[:, :LB].view(torch.int16) != 0).any(dim=1)
     need = nz & (covsum < args["freeze_cov"]) & args["site_valid"][None, :]
+    moved = nbytes(args) + nbytes(scores, covsum)
+    sites = int(need.numel())
+    if sel is not None:
+        G = cov.shape[-1]
+        per_site = nbytes(cov, args["seq"], args["site_valid"], scores, covsum) // G
+        n_sel = int(sel.sum())
+        need &= sel[None, :]
+        moved += per_site * (n_sel - G) + nbytes(tiles)
+        sites = cov.shape[0] * n_sel
     n = int(need.sum())
-    by = bound(nbytes(args) + nbytes(scores, covsum))
+    by = bound(moved)
     f64 = t.dtype == torch.float64
     if f64:
         fma_ms = (2 * (2 * LB * LG + LG + LB) + LG + LB + 2) * n / F64_FLOP_PER_MS
@@ -397,7 +414,7 @@ def score_bound(args: dict, scores, covsum) -> dict:
         fma_ms = 2 * (2 * LB * LG + LG + LB) * n / F32_FLOP_PER_MS
         sfu_ms = (LG + LB + 2) * n / (N_SMS * SFU_PER_SM_CLOCK * SM_CLOCK_MHZ * 1e3)
     ops_ms = max(fma_ms, sfu_ms)
-    out = dict(by, n_contract=n, sites=int(need.numel()), byte_ms=by["bound_ms"],
+    out = dict(by, n_contract=n, sites=sites, byte_ms=by["bound_ms"],
                fma_ms=fma_ms, sfu_ms=sfu_ms, f64=f64)
     if ops_ms > by["bound_ms"]:
         out.update(bound_ms=ops_ms, bound_by="operations")
@@ -412,6 +429,84 @@ def fmt_score_bound(b: dict) -> str:
                f"{SM_CLOCK_MHZ:.0f} MHz")
     return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes {b['byte_ms']:.4f} ms for "
             f"{b['bytes']} B; {b['n_contract']} of {b['sites']} sites contracted: {ops})")
+
+
+def check_tiled_scores(what: str, args: dict, tiles, dense, plain_chunk: int = 0,
+                       atol: float = 1e-6) -> dict:
+    """H2's tiled launch, the single engine's, against its dense launch
+    ``dense`` (scores, covsum) and its plain version on the same inputs and
+    H1's tile flags ``tiles``, into kept buffers that hold a sentinel:
+    with ``full`` clear the flagged tiles' sites equal the dense launch's
+    bit for bit and every other site keeps the sentinel; with ``full`` set
+    every site equals the dense launch's. The plain version, given the same
+    ``out``, ``tiles`` and ``full`` (or, with ``plain_chunk``, on the
+    selected sites gathered that many at a time, where the whole genome's
+    temporaries would not fit), agrees within H2's f32 tolerance (rtol
+    1e-5, ``atol``) on the rescored sites, covsum exact, and leaves the
+    same sentinel. Then each
+    launch's device time (queued events) and bound: the tiled one counts
+    the flagged tiles' sites only (``score_bound``)."""
+    from bossruns_torch.ops import scores as sc
+
+    s_d, cs_d = dense
+    nb, G = cs_d.shape
+    dev = cs_d.device
+    flags = {m: torch.full((1,), int(m == "full"), dtype=torch.int32, device=dev)
+             for m in ("tiled", "full")}
+    sel = sc.tile_mask(tiles, flags["tiled"], G)
+    sentinel = lambda: (torch.full_like(s_d, -7.0), torch.full_like(cs_d, -1))
+    out = dict(tiles=int((tiles != 0).sum()), n_tiles=int(tiles.numel()))
+    err = 0.0
+    for mode in ("tiled", "full"):
+        kept = sentinel()
+        sc.site_scores(**args, out=kept, tiles=tiles, full=flags[mode])
+        if mode == "tiled":
+            exact(f"H2 {what} tiled scores (sentinel outside the flagged tiles)", kept[0],
+                  torch.where(sel[None, :], s_d, torch.full_like(s_d, -7.0)))
+            exact(f"H2 {what} tiled covsum (sentinel outside the flagged tiles)", kept[1],
+                  torch.where(sel[None, :], cs_d, torch.full_like(cs_d, -1)))
+        else:
+            exact(f"H2 {what} tiled launch with full set, scores", kept[0], s_d)
+            exact(f"H2 {what} tiled launch with full set, covsum", kept[1], cs_d)
+        if plain_chunk:
+            idx = sel.nonzero()[:, 0] if mode == "tiled" else torch.arange(G, device=dev)
+            pieces = idx.split(plain_chunk)
+        else:
+            kp = sentinel()
+            sc.site_scores_plain(**args, out=kp, tiles=tiles, full=flags[mode])
+            exact(f"H2 {what} {mode}: plain covsum", kept[1], kp[1])
+            pieces = [None]  # the sentinel's sites: -7 on both sides, inside the tolerance
+        for ix in pieces:
+            if ix is None:
+                s_p, s_k = kp[0], kept[0]
+            else:
+                # uint16 has no gather on the card: gather its int16 view
+                cov = args["coverage"].view(torch.int16)[:, :, ix].view(torch.uint16)
+                a = dict(args, coverage=cov, seq=args["seq"][ix], site_valid=args["site_valid"][ix])
+                s_p, cs_p = sc.site_scores_plain(**a)
+                exact(f"H2 {what} {mode}: plain covsum", kept[1][:, ix], cs_p)
+                s_k = kept[0][:, ix]
+            e = (s_k - s_p).abs()
+            if not bool((e <= atol + 1e-5 * s_p.abs()).all()):
+                raise AssertionError(f"H2 {what} {mode}: scores outside rtol 1e-5 / atol {atol} "
+                                     f"of the plain version: max err {float(e.max())}")
+            err = max(err, float(e.max()) if e.numel() else 0.0)
+        del kept
+    kept = sentinel()
+    for mode in ("tiled", "full"):
+        ms = queued_ms(lambda: sc.site_scores(**args, out=kept, tiles=tiles, full=flags[mode]))
+        b = (score_bound(args, *kept, sel=sel, tiles=tiles) if mode == "tiled"
+             else score_bound(args, *kept))
+        out[mode] = dict(b, device_ms=ms)
+    out["max_abs_err"] = err
+    log(f"H2 {what}, tiled launch: {out['tiles']} of {out['n_tiles']} tiles flagged by H1; "
+        f"the flagged tiles equal the dense launch bit for bit and the rest keeps the "
+        f"sentinel; with full set every site equals the dense launch; plain version "
+        f"max abs err {err:.3g} (rtol 1e-5, atol {atol}), covsum and sentinel exact")
+    for mode in ("tiled", "full"):
+        log(f"H2 {what}, tiled launch ({'flagged tiles' if mode == 'tiled' else 'full set'}): "
+            f"device {out[mode]['device_ms']:.4f} ms, {fmt_score_bound(out[mode])}")
+    return out
 
 
 def deep_clone(o):
@@ -668,7 +763,7 @@ def check_kernels(dev, card: str) -> dict:
         **device(lambda: gops.coverage_update(**ak)), **h1_bound)
 
     # the stages below take the kernel outputs of the stage before
-    changed = gops.coverage_update(**eng.coverage_args(state, full))
+    changed, tiles = gops.coverage_update_tiled(**eng.coverage_args(state, full))
 
     # H2: scores within the stated f32 tolerance, covsum exact
     args = eng.score_args(state)
@@ -688,6 +783,10 @@ def check_kernels(dev, card: str) -> dict:
     log(f"H2 site_scores: covsum exact, scores max abs err {float(err.max()):.3g} "
         "(rtol 1e-5, atol 1e-6: same f32 closed form, other summation order); "
         f"{fmt_score_bound(res['site_scores'])}")
+    # the same inputs through the tiled launch the single engine makes, on
+    # the tiles this batch's H1 call flagged
+    res["site_scores"]["modes"] = {"slice": check_tiled_scores("slice", args, tiles,
+                                                               (s_k, cs_k))}
 
     # H3, ungated (per-read weights) and gated (read bits): everything exact
     aux0 = torch.zeros(4, dtype=torch.float32, device=dev)
@@ -1714,25 +1813,42 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
     from bossruns_torch.ops import scores as sc
 
     eng, st, b = s_res["engine"], s_res["state"], batches[-1]
+    if eng._full_host:
+        raise AssertionError("chromosome single: the engine's last step rescored every site "
+                             "(its steps on one state should rescore by tile after the first)")
     rows = gops.CovRows(b.mr_bc, b.mr_g, b.mr_len, b.ex_bcsym, b.ex_g)
     cargs = eng.coverage_args(st._replace(coverage=st.coverage.clone()), rows)
-    h1 = coverage_bound(rows, eng.seq, gops.coverage_update(**cargs), st.coverage,
-                        cargs["coverage"])
+    changed, tiles = gops.coverage_update_tiled(**cargs)
+    h1 = coverage_bound(rows, eng.seq, changed, st.coverage, cargs["coverage"])
+    # H2 on the coverage after that call: the dense launch (the sharded
+    # step's form), and the tiled launch the single engine makes, on the
+    # tiles H1 flagged and with its rescore-all flag set
+    args = eng.score_args(st._replace(coverage=cargs["coverage"]))
+    dense = sc.site_scores(**args)
+    h2 = score_bound(args, *dense)
+    h2_ms = queued_ms(lambda: sc.site_scores(**args))
+    log(f"chromosome single, H2 site_scores dense launch: device {h2_ms:.4f} ms, "
+        f"{fmt_score_bound(h2)} [{card}]")
+    # the plain version on the sites gathered 16M at a time, at phase 13's
+    # bar for H2 on a chromosome's coverage (atol 5e-5)
+    h2_modes = check_tiled_scores("chromosome single", args, tiles, dense, plain_chunk=1 << 24,
+                                  atol=5e-5)
+    h2_modes["dense"] = dict(h2, device_ms=h2_ms)
+    del args, dense
     h1_ms = queued_ms(lambda: gops.coverage_update(**cargs))
     del cargs
-    args = eng.score_args(st)
-    h2 = score_bound(args, *sc.site_scores(**args))
-    h2_ms = queued_ms(lambda: sc.site_scores(**args))
     log(f"chromosome single, H1 coverage_update: {single_launches['coverage_update']} launches, "
         f"device {h1_ms:.4f} ms, bound {h1['bound_ms']:.4f} ms by bytes ({h1['bytes']} B, "
         f"{h1['entries_changed']} coverage entries changed) [{card}]")
-    log(f"chromosome single, H2 site_scores: {single_launches['site_scores']} launches, device "
-        f"{h2_ms:.4f} ms, {fmt_score_bound(h2)} [{card}]")
-    del args
+    log(f"chromosome single, H2 site_scores: {single_launches['site_scores']} launches, tiled "
+        f"{h2_modes['tiled']['device_ms']:.4f} ms over {h2_modes['tiles']} of "
+        f"{h2_modes['n_tiles']} tiles (bound {h2_modes['tiled']['bound_ms']:.4f} ms), full set "
+        f"{h2_modes['full']['device_ms']:.4f} ms (bound {h2_modes['full']['bound_ms']:.4f} ms), "
+        f"dense {h2_ms:.4f} ms [{card}]")
     h4 = chrom_benefit(eng, st, b, card, single_launches["benefit_strategy"])
     del s_res, m_res, sharded
     torch.cuda.empty_cache()
-    return dict(out, launches=launches, benefit=h4)
+    return dict(out, launches=launches, benefit=h4, h2_modes=h2_modes)
 
 
 #: exact powers of two 2^0 ... 2^-99 (scaling by one is exact)
@@ -3515,12 +3631,14 @@ def main(argv: list[str]) -> int:
                   seed_candidates=aeons["launches"]["seed_candidates"],
                   aeons_strategy=aeons["launches"]["aeons_strategy"],
                   **{k: chrom["launches"][k] for k in SHARD_KERNELS})
+    res["site_scores"]["modes"]["chromosome single"] = chrom["h2_modes"]
     table = {"kernels": [
         {"name": k, "route": "cuda", "source": f"bossruns_torch/{src}", "replaces": rep,
          "launches": counts[k], "max_abs_err": res[k]["max_abs_err"],
          "ms": res[k]["ms"], "device_ms": res[k]["device_ms"], "plain_ms": res[k]["plain_ms"],
          "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"], "library_ms": None,
-         "split": res[k]["split"], **({"shape": res[k]["shape"]} if "shape" in res[k] else {})}
+         "split": res[k]["split"], **({"shape": res[k]["shape"]} if "shape" in res[k] else {}),
+         **({"modes": res[k]["modes"]} if "modes" in res[k] else {})}
         for k, (src, rep) in meta.items()
     ]}
     # phase 18's variants: launches from their option's run (the 8.05 Mb

@@ -931,6 +931,39 @@ def test_coverage_exact_over_five_steps(dev, kind):
         assert bool(got.any())
 
 
+@pytest.mark.parametrize("gated", [False, True])
+def test_coverage_writes_match_scratch_only_in_flagged_tiles(dev, gated):
+    """H1 given a match scratch, as the engine passes it its kept coverage
+    sums (csrc/coverage.cu), over three steps with rows in the first two
+    tiles of six: the scratch outside the tiles H1 flags keeps what it
+    held, every changed site lies in a flagged tile, and coverage and
+    changed equal the plain version's."""
+    rng = np.random.default_rng(2205 + gated)
+    nb, G = 2, COV_G
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8)).to(dev)
+    cov = torch.from_numpy(rng.integers(0, 50, (nb, 5, G)).astype(np.uint16)).to(dev)
+    ref = cov.clone()
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    for step in range(3):
+        match = torch.full((nb, G), -12345, dtype=torch.int32, device=dev)
+        trunc = bits = None
+        if gated:
+            full = _family(dev, _rows(dev, rng, 2 * 4096, nb, 20, 600, 60, n_reads=64))
+            trunc = _family(dev, _rows(dev, rng, 2 * 4096, nb, 20, 400, 30, n_reads=64))
+            bits = torch.from_numpy((rng.random(64) < 0.5).astype(np.uint8)).to(dev)
+        else:
+            full = _family(dev, _rows(dev, rng, 2 * 4096, nb, 20, 600, 60))
+        got, tiles = tg.coverage_update_tiled(cov, seq, full, trunc, bits, match=match)
+        want = tg.coverage_update_plain(ref, seq, full, trunc, bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), step
+        assert torch.equal(cov.view(torch.int16), ref.view(torch.int16)), step
+        flagged = ts.tile_mask(tiles, zero, G)
+        assert bool(want.any()) and bool(flagged[want].all()), step
+        assert 0 < int(tiles.sum()) < tiles.numel(), (step, tiles.tolist())
+        assert bool((match[:, ~flagged] == -12345).all()), step
+
+
 def test_coverage_saturates_at_65535(dev):
     """Sites at 65530 take 20 increments (a match run over them and
     explicit observations): they stop at 65535 in kernel and plain."""
@@ -1098,6 +1131,113 @@ def test_score_kernel_ragged_and_unaligned(dev, G, offset):
     _score_both(dev, tables, cov, seq, valid)
 
 
+# ------------------------------------------------- H2 over kept buffers --
+
+@pytest.mark.parametrize("G", [6 * 4096 + 1000, 6 * 4096 + 1237])
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
+def test_score_kernel_tiled_equals_dense(dev, dtype, nb, G):
+    """H2's tiled launch (float, _s64 and _h16; G % 4 == 0 and the scalar
+    instantiation at G % 4 != 0) over kept buffers: the flagged tiles'
+    sites equal the dense launch's bit for bit, the others keep what they
+    held; with ``full`` set every site equals it, with no flag none moves."""
+    from bossruns_torch.ops.model import make_model
+
+    rng = np.random.default_rng(int(G) + 7 * nb + (dtype == torch.float64))
+    tables = ts.ScoreTables(make_model(ploidy=2), dtype, device=dev)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    seq = up(rng.integers(0, 4, G).astype(np.int8))
+    valid = up(rng.random(G) < 0.9)
+    cov = up(_mixed_coverage(rng, nb, G))
+    args = dict(coverage=cov, seq=seq, site_valid=valid, tables=tables, freeze_cov=30,
+                tiny=float(np.finfo(ts.NP_DTYPES[dtype]).tiny))
+    want_s, want_c = ts.site_scores(**args)
+    n_tiles = -(-G // tg.COVERAGE_TILE)
+    i32 = lambda v: torch.full((1,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    for mask in (rng.random(n_tiles) < 0.5, np.zeros(n_tiles, bool)):
+        if mask.any():
+            mask[0] = True  # the first tile too
+        tiles = up(mask.astype(np.uint8))
+        kept = (torch.full((nb, G), 7.0, dtype=dtype, device=dev),
+                torch.full((nb, G), -1, dtype=torch.int32, device=dev))
+        ts.site_scores(**args, out=kept, tiles=tiles, full=i32(0))
+        sel = ts.tile_mask(tiles, i32(0), G)
+        assert torch.equal(kept[0][:, sel], want_s[:, sel])
+        assert torch.equal(kept[1][:, sel], want_c[:, sel])
+        assert bool((kept[0][:, ~sel] == 7.0).all()) and bool((kept[1][:, ~sel] == -1).all())
+        ts.site_scores(**args, out=kept, tiles=tiles, full=i32(1))
+        assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
+
+
+def test_captured_step_across_a_restore_equals_dense_engine(dev):
+    """The engine's captured step over its kept scores, with the state
+    restored by copy_ in the middle (as the chromosome cell's harness does),
+    equals an engine that rescores every site, run eagerly, bit for bit:
+    state, aux and scores at every step; the restore keeps the graph."""
+    rng = np.random.default_rng(2203)
+    lay = build_layout({"a": rng.integers(0, 4, 900_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 700_000).astype(np.uint8)}, n_barcodes=2)
+    cfg = truns.RunsConfig(debug_aux=True)
+    eng = truns.RunsEngine(lay, config=cfg, device=dev)
+    dense = truns.RunsEngine(lay, config=cfg, device=dev)
+    dense._kept_valid = lambda state: False
+    sg, sd = eng.init_state(), dense.init_state()
+    params = eng.make_params(CCL, 5300.0)
+    saved, full = None, []
+    for step, b in enumerate(_graph_batches(lay, 2, 2204, n=8)):
+        if step == 5:
+            for t, s in zip(sg, saved):
+                t.copy_(s)
+            for t, s in zip(sd, saved):
+                t.copy_(s)
+        sg, ag = eng.step_from_numpy(sg, b, params)
+        full.append(eng._full_host)
+        sd, ad = dense.eager("step", sd, batch_from_numpy(b, dev), params)
+        torch.cuda.synchronize()
+        if step == 1:
+            saved = [t.clone() for t in sg]
+        for k in truns.GenomeState._fields:
+            assert torch.equal(getattr(sg, k), getattr(sd, k)), (k, step)
+        for k in ("vec", "threshold", "scores"):
+            assert torch.equal(getattr(ag, k), getattr(ad, k)), (k, step)
+    assert full == [True, False, False, False, False, True, False, False]
+    assert eng.graphs.replays["step_from_numpy"] == 7 and len(eng.graphs.entries) == 1
+
+
+def test_second_engine_on_the_same_state_forces_a_full_rescore(dev):
+    """Two engines stepping one state in turns through their captured
+    graphs: a step after the other engine's rescores every site (that step
+    bumped the state's versions), a step after the engine's own rescores by
+    tile; every step equals an engine that rescores every site, bit for bit
+    (batches in one 8 kb window per contig, so most tiles are untouched)."""
+    from test_torch_engine import _window_batch
+
+    rng = np.random.default_rng(2206)
+    lay = build_layout({"a": rng.integers(0, 4, 300_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 200_000).astype(np.uint8)}, n_barcodes=1)
+    cfg = truns.RunsConfig(debug_aux=True)
+    engines = {w: truns.RunsEngine(lay, config=cfg, device=dev) for w in "AB"}
+    dense = truns.RunsEngine(lay, config=cfg, device=dev)
+    dense._kept_valid = lambda state: False
+    params = {w: e.make_params(CCL, 5300.0) for w, e in engines.items()}
+    pd = dense.make_params(CCL, 5300.0)
+    s, sd = engines["A"].init_state(), dense.init_state()
+    order = "AABAABBA"
+    batches = _one_tier([_window_batch(rng, lay, 1, n_runs=600, width=8_000) for _ in order])
+    kinds = []
+    for step, (w, b) in enumerate(zip(order, batches)):
+        s, a = engines[w].step_from_numpy(s, b, params[w])
+        kinds.append(engines[w]._full_host)
+        sd, ad = dense.eager("step", sd, batch_from_numpy(b, dev), pd)
+        torch.cuda.synchronize()
+        for k in truns.GenomeState._fields:
+            assert torch.equal(getattr(s, k), getattr(sd, k)), (k, step)
+        for k in ("vec", "threshold", "scores"):
+            assert torch.equal(getattr(a, k), getattr(ad, k)), (k, step)
+    assert kinds == [True, False, True, True, False, True, False, True]
+    assert sum(e.graphs.replays["step_from_numpy"] for e in engines.values()) > 0
+
+
 # ----------------------------------------------------------- engine options --
 # fhat_alpha != 1 (H3's general point mass), dtype="float64" (the _s64 entry
 # points of H2, H3 and H8's rows), benefit_dtype="float32" (the _d32
@@ -1261,7 +1401,11 @@ def test_option_shard_kernels_and_mesh_on_card(dev, option):
 def _graph_batches(lay, nb: int, seed: int, n: int = 5) -> list:
     """n batches of one shape tier (every field padded to the largest)."""
     rng = np.random.default_rng(seed)
-    bs = [_random_batch(rng, lay, n_obs=300_000, nb=nb) for _ in range(n)]
+    return _one_tier([_random_batch(rng, lay, n_obs=300_000, nb=nb) for _ in range(n)])
+
+
+def _one_tier(bs: list) -> list:
+    """The batches ``bs``, every field padded to the largest."""
     for k, fill in (("mr_bc", 0), ("mr_g", 0), ("mr_len", 0), ("ex_bcsym", 0),
                     ("ex_g", tg.EX_PAD), ("rs_row", 0), ("rs_strand", 0), ("rs_w", 0)):
         m = max(b[k].shape[0] for b in bs)

@@ -9,20 +9,35 @@
     tolerance of test_torch_scores.py; strat exact, and any flipped row
     must lie where the two engines' scores differ;
 (c) padding and out-of-range rows in the int64 index math;
-(d) diploid.
+(d) diploid;
+(e) the scores and coverage sums kept between steps: H2 rescores only the
+    tiles H1 touched while the state is the one the engine last stepped,
+    and every site otherwise. Over 14 steps with 2 barcodes (a copy_
+    restore, a state_from_numpy state, two states stepped in turns; sites
+    zeroed in untouched tiles, zeroed sites that change again, frozen
+    sites), eagerly and through the stand-in graph cache, the engine
+    equals an engine that rescores every site bit for bit, and the JAX
+    engine as (b) holds it; the plain H2 writes only the flagged tiles.
 """
+import time
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from bossruns_tpu import oracle
+from bossruns_tpu.io.coo_native import pad_split, split_runs
 from bossruns_tpu.models import runs as jruns
 from bossruns_tpu.models.layout import DS, build_layout
 from bossruns_tpu.ops.model import make_model
 from bossruns_torch.models import runs as truns
 from bossruns_torch.models.convert import batch_from_numpy, state_from_numpy, state_to_numpy
 from bossruns_torch.ops import genome_ops as tg
+from bossruns_torch.ops import scores as ts
+from bossruns_torch.utils import spans
 from test_engine_parity import _random_batch
+from test_torch_graph import _graphed
 
 torch.set_num_threads(2)
 
@@ -90,22 +105,30 @@ def test_port_engine_matches_jax_engine(rng):
         b = _random_batch(rng, lay, n_obs=100_000, nb=2)
         js, ja = je.step(js, jruns.ReadBatch(**{k: jnp.asarray(v) for k, v in b.items()}), jp)
         ts, ta = te.step(ts, batch_from_numpy(b, "cpu"), tp)
-        got = state_to_numpy(ts)
-        for k in ("coverage", "zeroed", "bucket_on", "read_starts"):
-            np.testing.assert_array_equal(got[k], np.asarray(getattr(js, k)),
-                                          err_msg=f"{k} step {step}")
-        s_j, s_t = np.asarray(ja.scores), ta.scores.numpy()
-        np.testing.assert_allclose(s_t, s_j, rtol=1e-5, atol=5e-5)
-        assert bool(ta.any_on) == bool(ja.any_on)
-        assert bool(ta.updated) == bool(ja.updated)
-        flips = np.argwhere(got["strat"] != np.asarray(js.strat))
-        if flips.size:
-            # a flip is allowed only where the scores that feed its benefit
-            # windows differ between the engines
-            diff_ds = (s_t != s_j).reshape(s_t.shape[0], -1, DS).any(axis=2)
-            for bc, r, _ in flips:
-                lo, hi = max(r - max_w, 0), r + max_w + 1
-                assert diff_ds[bc, lo:hi].any(), (step, bc, r)
+        _assert_matches_jax(ts, ta, js, ja, max_w, step)
+
+
+def _assert_matches_jax(ts, ta, js, ja, max_w: int, step) -> None:
+    """The port's state and aux against the JAX engine's after one step:
+    coverage, zeroed, bucket_on and read_starts exact, scores within the
+    f32 tolerance, strat exact but where the two engines' scores differ in
+    a flipped row's benefit windows."""
+    got = state_to_numpy(ts)
+    for k in ("coverage", "zeroed", "bucket_on", "read_starts"):
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(js, k)),
+                                      err_msg=f"{k} step {step}")
+    s_j, s_t = np.asarray(ja.scores), ta.scores.numpy()
+    np.testing.assert_allclose(s_t, s_j, rtol=1e-5, atol=5e-5)
+    assert bool(ta.any_on) == bool(ja.any_on)
+    assert bool(ta.updated) == bool(ja.updated)
+    flips = np.argwhere(got["strat"] != np.asarray(js.strat))
+    if flips.size:
+        # a flip is allowed only where the scores that feed its benefit
+        # windows differ between the engines
+        diff_ds = (s_t != s_j).reshape(s_t.shape[0], -1, DS).any(axis=2)
+        for bc, r, _ in flips:
+            lo, hi = max(r - max_w, 0), r + max_w + 1
+            assert diff_ds[bc, lo:hi].any(), (step, bc, r)
 
 
 def _rows(mr, ex):
@@ -228,3 +251,191 @@ def test_strat_dict_is_a_copy():
     state.strat.fill_(False)
     assert all(m.all() for m in masks.values())
     assert not any(eng.strat_dict(state)[n].any() for n in masks)
+
+
+# ------------------------------------------------------------------- (e) ----
+
+def _window_batch(rng, lay, nb: int, n_runs: int, width: int, run_len: int = 40,
+                  n_rs: int = 300) -> dict:
+    """Runs of ``run_len`` at uniform starts inside one window of ``width``
+    sites per contig, placed at random, on random barcodes; 5% of the
+    symbols random (the batch form of test_engine_parity._random_batch)."""
+    starts = []
+    for c in range(lay.n_contigs):
+        w0 = rng.integers(0, int(lay.lengths[c]) - width)
+        starts.append(lay.offsets[c] + w0 + rng.integers(0, width - run_len, n_runs))
+    rstart = np.concatenate(starts).astype(np.int64)
+    pos = (rstart[:, None] + np.arange(run_len)[None, :]).ravel()
+    sym = lay.seq_int[pos].astype(np.int8)
+    flip = rng.random(pos.shape[0]) < 0.05
+    sym[flip] = rng.integers(0, 5, int(flip.sum()))
+    split = split_runs(lay, sym, np.full(pos.shape[0], 40, np.int8), rstart,
+                       np.full(rstart.shape[0], run_len, np.int32),
+                       rng.integers(0, nb, rstart.shape[0]).astype(np.int32), 0, 5)
+    return dict(pad_split(split), rs_row=rng.integers(0, lay.n_fhat, n_rs).astype(np.int32),
+                rs_strand=rng.integers(0, 2, n_rs).astype(np.int32),
+                rs_w=np.ones(n_rs, np.float32))
+
+
+def _mid_run_state(rng, je) -> dict:
+    """A state (numpy) of the JAX engine ``je`` with coverage about 20 at
+    the reference symbol over each contig's first 25 kb (some sites at or
+    above the freeze at 30) and none beyond, so the dropout is active and
+    zeroes the rest."""
+    lay = je.layout
+    cov = np.zeros((lay.n_barcodes, 5, lay.G_pad), np.uint16)
+    for c in range(lay.n_contigs):
+        g = lay.offsets[c] + np.arange(25_000)
+        cov[:, lay.seq_int[g], g] = rng.poisson(20, (lay.n_barcodes, g.shape[0]))
+    return dict({k: np.asarray(v) for k, v in je.init_state()._asdict().items()}, coverage=cov)
+
+
+def _dense(eng):
+    """``eng`` made to rescore every site at every step: its kept values
+    never count as valid."""
+    eng._kept_valid = lambda state: False
+    return eng
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_kept_scores_equal_dense_engine_and_jax(graphed):
+    rng = np.random.default_rng(2201 + graphed)
+    nb = 2
+    lay = build_layout({"a": rng.integers(0, 4, 40_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 36_000).astype(np.uint8)}, n_barcodes=nb,
+                       min_len=30_000)
+    cfg = truns.RunsConfig(debug_aux=True)
+    je = jruns.RunsEngine(lay, config=jruns.RunsConfig(debug_aux=True))
+    te = truns.RunsEngine(lay, config=cfg, device="cpu")
+    de = _dense(truns.RunsEngine(lay, config=cfg, device="cpu"))
+    if graphed:
+        _graphed(te)
+    tp, dp, jp = (e.make_params(CCL, 5300.0) for e in (te, de, je))
+    start = _mid_run_state(rng, je)
+    jstate = lambda d: jruns.GenomeState(**{k: jnp.asarray(d[k])
+                                            for k in jruns.GenomeState._fields})
+    T = {"A": te.state_from_numpy(start)}
+    D = {"A": de.state_from_numpy(start)}
+    J = {"A": jstate(start)}
+    # a copy_ restore of A's state after step 0, a new state B forked from
+    # A through NumPy, then A and B in turns, and B twice
+    plan = ["A"] * 4 + ["restore"] + ["A"] * 3 + ["fork"] + ["B", "A", "B", "A", "B", "B", "B"]
+    want = []
+    seen = dict(zeroed_untouched=0, zeroed_changed=0)
+    last, snap = None, None
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for step, what in enumerate(plan):
+            if what == "restore":
+                for st, e in ((T["A"], te), (D["A"], de)):
+                    for t, v in zip(st, e.state_from_numpy(snap)):
+                        t.copy_(v)
+                J["A"] = jstate(snap)
+                last = None
+                continue
+            if what == "fork":
+                d = state_to_numpy(T["A"])
+                T["B"], D["B"], J["B"] = te.state_from_numpy(d), de.state_from_numpy(d), jstate(d)
+                continue
+            b = _window_batch(rng, lay, nb, n_runs=600, width=8_000)
+            before = state_to_numpy(T[what])
+            want.append("scores.tiled" if last == what else "scores.full")
+            if graphed:
+                T[what], ta = te.step_from_numpy(T[what], b, tp)
+            else:
+                T[what], ta = te.step(T[what], batch_from_numpy(b, "cpu"), tp)
+            D[what], da = de.step(D[what], batch_from_numpy(b, "cpu"), dp)
+            J[what], ja = je.step(J[what], jruns.ReadBatch(**{k: jnp.asarray(v)
+                                                              for k, v in b.items()}), jp)
+            last = what
+            if snap is None:
+                snap = state_to_numpy(T["A"])
+            for k in truns.GenomeState._fields:
+                assert torch.equal(getattr(T[what], k), getattr(D[what], k)), (k, step)
+            for k in ("vec", "threshold", "scores"):
+                assert torch.equal(getattr(ta, k), getattr(da, k)), (k, step)
+            _assert_matches_jax(T[what], ta, J[what], ja, max(CCL) // DS, step)
+            if want[-1] == "scores.tiled":
+                changed = (state_to_numpy(T[what])["coverage"] != before["coverage"]).any(
+                    axis=(0, 1))
+                touched = tg.tile_flags(torch.from_numpy(changed)).numpy()
+                untouched = ~np.repeat(touched != 0, tg.COVERAGE_TILE)[: lay.G_pad]
+                seen["zeroed_untouched"] += int((before["zeroed"] & untouched).sum())
+                seen["zeroed_changed"] += int((before["zeroed"] & changed).sum())
+    counts = spans.window(t0, time.perf_counter()).counts
+    assert len(want) == 14 and want.count("scores.full") == 7
+    # the dense engine counts a full rescore at each of its 14 steps
+    assert counts.get("scores.full", 0) == 7 + 14
+    assert counts.get("scores.tiled", 0) == want.count("scores.tiled") == 7
+    assert seen["zeroed_untouched"] > 0 and seen["zeroed_changed"] > 0, seen
+    cov = T["B"].coverage.to(torch.int32).sum(dim=1)
+    assert (cov >= cfg.freeze_cov).any() and T["B"].zeroed.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
+def test_plain_scores_write_only_flagged_tiles(dtype):
+    """site_scores with kept buffers and tile flags on the CPU: the flagged
+    tiles' sites as the dense call gives them, bit for bit, the rest of the
+    buffers untouched; with ``full`` set, every site."""
+    rng = np.random.default_rng(2202)
+    nb, G = 2, 3 * tg.COVERAGE_TILE + 1237  # G % 4 != 0, a ragged last tile
+    cov = rng.integers(0, 4, (nb, 5, G)) * (rng.random((nb, 5, G)) < 0.5)
+    cov[:, :, rng.random(G) < 0.1] += 30  # frozen sites
+    cov = torch.from_numpy(cov.astype(np.uint16))
+    seq = torch.from_numpy(rng.integers(0, 4, G).astype(np.int8))
+    valid = torch.from_numpy(rng.random(G) < 0.9)
+    tables = ts.ScoreTables(make_model(ploidy=2), dtype, device="cpu")
+    tiny = float(np.finfo(ts.NP_DTYPES[dtype]).tiny)
+    args = (cov, seq, valid, tables, 30, tiny)
+    want_s, want_c = ts.site_scores(*args)
+    n_tiles = -(-G // tg.COVERAGE_TILE)
+    tiles = torch.tensor([1, 0, 0, 1], dtype=torch.uint8)
+    assert tiles.shape[0] == n_tiles
+    kept = (torch.full((nb, G), 7.0, dtype=dtype), torch.full((nb, G), -1, dtype=torch.int32))
+    out = ts.site_scores(*args, out=kept, tiles=tiles, full=torch.zeros(1, dtype=torch.int32))
+    assert out[0] is kept[0] and out[1] is kept[1]
+    sel = ts.tile_mask(tiles, torch.zeros(1, dtype=torch.int32), G)
+    assert int(sel.sum()) == 2 * tg.COVERAGE_TILE - (n_tiles * tg.COVERAGE_TILE - G)
+    assert torch.equal(kept[0][:, sel], want_s[:, sel])
+    assert torch.equal(kept[1][:, sel], want_c[:, sel])
+    assert (kept[0][:, ~sel] == 7.0).all() and (kept[1][:, ~sel] == -1).all()
+    ts.site_scores(*args, out=kept, tiles=tiles, full=torch.ones(1, dtype=torch.int32))
+    assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
+    with pytest.raises(ValueError):
+        ts.site_scores(*args, out=kept)
+    with pytest.raises(ValueError):
+        ts.site_scores(*args, tiles=tiles, full=torch.ones(1, dtype=torch.int32))
+
+
+def test_second_engine_on_the_same_state_rescores_every_site():
+    """Two engines stepping one state in turns: a step after the other
+    engine's rescores every site, a step after the engine's own rescores by
+    tile (the counters say which), and every step equals an engine that
+    rescores every site, bit for bit."""
+    rng = np.random.default_rng(2207)
+    lay = build_layout({"a": rng.integers(0, 4, 40_000).astype(np.uint8),
+                        "b": rng.integers(0, 4, 36_000).astype(np.uint8)}, n_barcodes=1,
+                       min_len=30_000)
+    cfg = truns.RunsConfig(debug_aux=True)
+    engines = {w: truns.RunsEngine(lay, config=cfg, device="cpu") for w in "AB"}
+    de = _dense(truns.RunsEngine(lay, config=cfg, device="cpu"))
+    params = {w: e.make_params(CCL, 5300.0) for w, e in engines.items()}
+    dp = de.make_params(CCL, 5300.0)
+    s, sd = engines["A"].init_state(), de.init_state()
+    order = "AABAABBA"
+    kinds = []
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for step, w in enumerate(order):
+            b = _window_batch(rng, lay, 1, n_runs=600, width=8_000)
+            s, a = engines[w].step(s, batch_from_numpy(b, "cpu"), params[w])
+            kinds.append(engines[w]._full_host)
+            sd, ad = de.step(sd, batch_from_numpy(b, "cpu"), dp)
+            for k in truns.GenomeState._fields:
+                assert torch.equal(getattr(s, k), getattr(sd, k)), (k, step)
+            for k in ("vec", "threshold", "scores"):
+                assert torch.equal(getattr(a, k), getattr(ad, k)), (k, step)
+    counts = spans.window(t0, time.perf_counter()).counts
+    assert kinds == [True, False, True, True, False, True, False, True]
+    assert counts.get("scores.tiled", 0) == 3
+    assert counts.get("scores.full", 0) == 5 + len(order)

@@ -453,8 +453,8 @@ def test_gated_flow_records_no_aligner_span(corpus, tmp_path):
     got = {r.name for r in span_records(recs)}
     assert got <= SIM_SPANS and not got & (ALIGN_SPANS | {"sim.align", "sim.decide",
                                                            "align.index"})
-    assert not {r.name for r in recs if isinstance(r, spans.Count)} - {"bytes.d2h",
-                                                                      "bytes.disk"}
+    assert not {r.name for r in recs if isinstance(r, spans.Count)} - {
+        "bytes.d2h", "bytes.disk", "scores.full", "scores.tiled"}
 
 
 # ------------------------------------------------------------------ card ---

@@ -15,7 +15,9 @@
 // 20 B at the card's byte rate.
 //
 // Design, per site: four consecutive sites per thread, with 32-bit offsets
-// inside a barcode row (no 64-bit divide): 8-byte loads of each coverage
+// inside a barcode row (no 64-bit divide; its five coverage planes hold
+// 5 G <= 2^32 entries, so G is at most 858,993,459 sites, and chr1, the
+// longest contig a caller gives, has 248,956,422): 8-byte loads of each coverage
 // plane, 4-byte loads of seq and site_valid, 16-byte stores of scores and
 // covsum, so each thread has a dozen independent loads in flight. A G that
 // is not a multiple of 4 or a base that is not aligned takes the scalar
@@ -32,21 +34,19 @@
 // version at the 8.05 Mb shape on an H100 (PERF.md), beyond H2's atol of
 // 1e-6.
 //
-// Two launches share that per-site code (score_chunk), so a site carries
-// the same bits from either:
-//   dense  (tiles == NULL: the sharded step, and any caller that passes
-//          no tile flags) one block a chunk of 1024 sites, barcodes on
-//          blockIdx.y, into fresh scores and covsum;
-//   tiled  (the single engine's step) over the scores and covsum the
-//          engine keeps between steps: pick_tiles lists the tiles of TILE
-//          = 4096 sites that H1 flagged this step (one warp-aggregated
-//          atomic a warp), then a grid of the blocks the card holds at
-//          once walks the listed tiles' chunks, each block taking its next
-//          (chunk, barcode) item from an atomic counter, so neither the
-//          ~57k untouched tiles of a chr1 step nor a block per tile is
-//          launched. A device flag (`full`, set by the engine before the
-//          step, outside any captured graph) makes the same launch walk
-//          every tile instead. A chr1 batch touches ~5% of the tiles.
+// One launch, over scores and covsum buffers the caller gives: pick_tiles
+// lists the tiles of TILE = 4096 sites flagged in `tiles` (H1's flags of
+// a step; one warp-aggregated atomic a warp), then a grid of the blocks
+// the card holds at once walks the listed tiles' chunks of 1024 sites
+// (score_chunk), each block taking its next (chunk, barcode) item from an
+// atomic counter, so neither the ~57k untouched tiles of a chr1 step nor
+// a block per tile is launched; the other sites keep what the buffers
+// held. A device flag (`full`) makes the same launch walk every tile:
+// pick_tiles then returns at once and `tiles` is never read. The single
+// engine sets it before a step (outside any captured graph) when its kept
+// values are not the state's; a caller without flags (the sharded step,
+// the tests) gets it set by the wrapper, into fresh buffers. A chr1 batch
+// touches ~5% of the tiles.
 // The engine's rule for `full` (models/runs.py): it records, after each
 // step, the state's coverage and zeroed tensors (object, address and
 // `_version`, which every in-place torch write bumps and the kernels do
@@ -57,10 +57,10 @@
 // site H1 did not touch has unchanged coverage in every barcode, so its
 // covsum is the kept one and `changed` is 0 there; its kept score is its
 // unmasked score, or 0 where an earlier step zeroed it. Zeroed and
-// unchanged, `hold` keeps it zeroed, and row_apply outputs 0 as on the
-// dense path; not zeroed, row_apply masks the same unmasked score the
-// dense path would have written. row_sums, row_apply and H4 run dense on
-// the kept buffers. H1 takes the kept covsum as its match scratch: it
+// unchanged, `hold` keeps it zeroed, and row_apply outputs 0 as a
+// rescore of every site would; not zeroed, row_apply masks the same
+// unmasked score that rescore would have written. row_sums, row_apply and
+// H4 run dense on the kept buffers. H1 takes the kept covsum as its match scratch: it
 // writes only inside the tiles it flags, which this launch then rewrites.
 // Counts are clipped at 990; the contraction runs as f32
 // FMAs in registers, never on tensor cores, so TF32 can never enter (ROADMAP
@@ -372,23 +372,6 @@ __device__ __forceinline__ void score_chunk(
     }
 }
 
-// Dense: one block a chunk, barcodes on blockIdx.y.
-template <int LB, int LG, bool kVec, class T>
-__global__ void __launch_bounds__(THREADS)
-site_scores_kernel(const uint16_t* __restrict__ cov, const int8_t* __restrict__ seq,
-                   const uint8_t* __restrict__ site_valid, const T* __restrict__ tab, int G,
-                   int freeze_cov, typename Compute<T>::type tiny, T* __restrict__ scores,
-                   int32_t* __restrict__ covsum) {
-    using C = typename Compute<T>::type;
-    __shared__ __align__(16) C s_tab[2 * LB * LG + 5 * LG];  // 16-byte aligned: vector loads
-    __shared__ C s_empty[4];  // the score of a valid site without counts, per reference
-    load_tables<LB, LG, T>(tab, s_tab, s_empty);
-    // 32-bit site offsets inside one barcode row (the wrapper checks G < 2^31 - 2^10)
-    score_chunk<LB, LG, kVec, T>(cov, seq, site_valid, s_tab, s_empty, G, freeze_cov, tiny,
-                                 scores, covsum, (blockIdx.x * THREADS + threadIdx.x) * SPT,
-                                 blockIdx.y);
-}
-
 // The marked tiles as a list: one thread a tile; each warp appends its
 // marked tiles with one atomic on work[0] (list order does not matter).
 // Nothing to do when every site is rescored.
@@ -407,7 +390,7 @@ __global__ void pick_tiles(const uint8_t* __restrict__ tiles, int n_tiles,
     if (marked) list[base + __popc(ballot & ((1u << lane) - 1u))] = t;
 }
 
-// Tiled: resident blocks take (chunk, barcode) items from the counter
+// Resident blocks take (chunk, barcode) items from the counter
 // work[1] until none is left: the chunks of the listed tiles, or of every
 // tile when *full is set. Thread 0 takes the next item while the block
 // scores the current one.
@@ -442,7 +425,7 @@ site_scores_tiled(const uint16_t* __restrict__ cov, const int8_t* __restrict__ s
     }
 }
 
-// Resident blocks of one tiled instantiation on the card (all SMs), asked
+// Resident blocks of one instantiation on the card (all SMs), asked
 // once: the same for every call of a process.
 template <int LB, int LG, bool kVec, class T>
 int tiled_grid() {
@@ -463,23 +446,14 @@ int launch(const void* cov, const void* seq, const void* site_valid, const void*
            int64_t G, int freeze_cov, typename Compute<T>::type tiny, void* scores, void* covsum,
            const void* tiles, const void* full, void* list, void* work, cudaStream_t st) {
     if (G <= 0 || nb <= 0) return 0;
-    if (G >= (int64_t{1} << 31) - CHUNK || nb > 65535) return -1;
+    // a barcode row's five coverage planes on 32-bit offsets (score_chunk)
+    if (5 * G > (int64_t{1} << 32) || nb > 65535) return -1;
+    if (!tiles || !full || !list || !work) return -1;
     auto al = [](const void* p, uintptr_t a) { return (uintptr_t)p % a == 0; };
     bool vec = G % SPT == 0 && al(cov, 8) && al(seq, 4) && al(site_valid, 4) && al(scores, 16) &&
                al(covsum, 16);
-    if (tiles == nullptr) {
-        dim3 grid((unsigned)((G + CHUNK - 1) / CHUNK), (unsigned)nb);
-        auto kern = vec ? site_scores_kernel<LB, LG, true, T> : site_scores_kernel<LB, LG, false, T>;
-        kern<<<grid, THREADS, 0, st>>>((const uint16_t*)cov, (const int8_t*)seq,
-                                       (const uint8_t*)site_valid, (const T*)tab, (int)G,
-                                       freeze_cov, tiny, (T*)scores, (int32_t*)covsum);
-        BK_LAUNCHED();
-        return 0;
-    }
     const int64_t n_tiles = (G + TILE - 1) / TILE;
     const int64_t n_items = n_tiles * CHUNKS_PER_TILE * nb;
-    if (full == nullptr || list == nullptr || work == nullptr || G >= (int64_t{1} << 31) - TILE)
-        return -1;
     const int blocks = vec ? tiled_grid<LB, LG, true, T>() : tiled_grid<LB, LG, false, T>();
     if (blocks <= 0) {
         const cudaError_t err = cudaGetLastError();
@@ -518,13 +492,13 @@ int site_scores(const void* coverage, const void* seq, const void* site_valid, c
 }  // namespace
 
 // coverage uint16[nb,5,G], seq int8[G], site_valid bool[G], tab f32 (see
-// above) -> scores f32[nb,G], covsum int32[nb,G]. tiles == NULL: every site
-// (the dense launch). Else tiles uint8[ceil(G / TILE)] (H1's flags), full
-// int32[1] (nonzero: every site), list int32[ceil(G / TILE)] scratch and
-// work int32[2] zeroed: the sites of the flagged tiles, or every site when
-// *full; the rest of scores and covsum is left as it is. Returns -1 for a
-// model shape without an instantiation or a G or nb beyond the launch's
-// range.
+// above), tiles uint8[ceil(G / TILE)] (H1's flags), full int32[1]
+// (nonzero: every site), list int32[ceil(G / TILE)] scratch and work
+// int32[2] zeroed -> scores f32[nb,G], covsum int32[nb,G] at the sites of
+// the flagged tiles, or at every site when *full; the rest of scores and
+// covsum is left as it is. Returns -1 for a model shape without an
+// instantiation, a NULL flag or scratch pointer, or a G (5 G <= 2^32) or
+// nb (<= 65535) beyond the launch's range.
 BK_API int bk_site_scores(const void* coverage, const void* seq, const void* site_valid,
                           const void* tab, int len_b, int len_g, int64_t nb, int64_t G,
                           int freeze_cov, float tiny, void* scores, void* covsum,

@@ -138,6 +138,37 @@ class SimOutcome:
     cov_rows: list = field(default_factory=list)     # (records, row) for coverage
     acc_rows: list = field(default_factory=list)     # rows of accepted full recs
     accepted_lengths: list = field(default_factory=list)
+    accepted: list = field(default_factory=list)     # ids of the accepted reads
+
+
+def decision_tally(seqs: dict[str, str], decisions: dict[str, bool], best_full: dict,
+                   best_trunc: dict, full: PafRecords, mu: int,
+                   accept_unmapped: bool) -> SimOutcome:
+    """A batch's accept/reject bookkeeping (runs/simulation.py:88-120), for
+    both flows: the mapped reads in ``decisions`` order, then the unmapped
+    ones in ``seqs`` order, each accepted as ``decisions`` or
+    ``accept_unmapped`` says. An accepted read adds its best full record's
+    row and length where it has one; a rejected mapped read its best
+    truncated row; a rejected read its ``mu``-base prefix as its decided
+    sequence."""
+    out = SimOutcome(reads_decision=dict(seqs), n_mapped=len(decisions),
+                     n_unmapped=len(seqs) - len(decisions))
+    unmapped = ((rid, accept_unmapped) for rid in seqs if rid not in decisions)
+    for rid, acc in (*decisions.items(), *unmapped):
+        if acc:
+            out.accepted.append(rid)
+            j = best_full.get(rid)
+            if j is not None:
+                out.cov_rows.append(("full", j))
+                out.acc_rows.append(j)
+                out.accepted_lengths.append(int(full.qlen[j]))
+        else:
+            if rid in decisions:
+                out.cov_rows.append(("trunc", best_trunc[rid]))
+            out.reads_decision[rid] = seqs[rid][:mu]
+            out.n_rejected += 1
+    out.n_accepted = len(out.accepted)
+    return out
 
 
 def load_reference_contigs(fasta: str | Path) -> dict[str, str]:
@@ -309,41 +340,9 @@ class BossRunsSim:
         """In-silico ReadUntil (runs/simulation.py:37-120): accepted reads
         contribute their full-length alignment, rejected reads their
         mu-sized truncated alignment."""
-        best_full = best_per_query(full)
-        best_trunc = best_per_query(trunc)
         decisions = self._trunc_decisions(trunc, barcodes)
-
-        out = SimOutcome()
-        out.reads_decision = dict(seqs)
-        mapped = set(decisions)
-        for rid, decision in decisions.items():
-            if decision and rid in best_full:
-                j = best_full[rid]
-                out.cov_rows.append(("full", j))
-                out.acc_rows.append(j)
-                out.accepted_lengths.append(int(full.qlen[j]))
-                out.n_accepted += 1
-            elif decision:
-                out.n_accepted += 1
-            else:
-                out.cov_rows.append(("trunc", best_trunc[rid]))
-                out.reads_decision[rid] = seqs[rid][: self.mu]
-                out.n_rejected += 1
-        for rid, seq in seqs.items():
-            if rid in mapped:
-                continue
-            if self.accept_unmapped:
-                if rid in best_full:
-                    j = best_full[rid]
-                    out.cov_rows.append(("full", j))
-                    out.acc_rows.append(j)
-                    out.accepted_lengths.append(int(full.qlen[j]))
-                out.n_accepted += 1
-            else:
-                out.reads_decision[rid] = seq[: self.mu]
-                out.n_rejected += 1
-        out.n_mapped = len(mapped)
-        out.n_unmapped = len(seqs) - len(mapped)
+        out = decision_tally(seqs, decisions, best_per_query(full), best_per_query(trunc), full,
+                             self.mu, self.accept_unmapped)
         return full, trunc, out
 
     # ------------------------------------------------------ gated batch ------
@@ -475,67 +474,40 @@ class BossRunsSim:
         t["align"] = t["sample"]  # the PAFs hold the alignments: always 0
         seqs = pre["seqs"]
         decisions = self._trunc_decisions(pre["trunc"], pre["read_bc"])
+        outc = decision_tally(seqs, decisions, pre["best_full"], pre["best_trunc"], pre["full"],
+                              self.mu, self.accept_unmapped)
         bits = np.zeros(self.batchsize, np.uint8)
-        best_full = pre["best_full"]
-        rid_idx = pre["rid_idx"]
-        reads_decision = dict(seqs)
-        accepted_lengths = []
-        n_accepted = n_rejected = 0
-        acc_rows = []
-        for rid, acc in decisions.items():
-            if acc:
-                bits[rid_idx[rid]] = 1
-                n_accepted += 1
-                if rid in best_full:
-                    j = best_full[rid]
-                    acc_rows.append(j)
-                    accepted_lengths.append(int(pre["full"].qlen[j]))
-            else:
-                reads_decision[rid] = seqs[rid][: self.mu]
-                n_rejected += 1
-        for rid in seqs:
-            if rid in decisions:
-                continue
-            if self.accept_unmapped:
-                bits[rid_idx[rid]] = 1
-                n_accepted += 1
-                if rid in best_full:
-                    j = best_full[rid]
-                    acc_rows.append(j)
-                    accepted_lengths.append(int(pre["full"].qlen[j]))
-            else:
-                reads_decision[rid] = seqs[rid][: self.mu]
-                n_rejected += 1
-        self._last_decisions = reads_decision
+        for rid in outc.accepted:
+            bits[pre["rid_idx"][rid]] = 1
+        self._last_decisions = outc.reads_decision
         t["decide"] = time.perf_counter()
-        n_mapped = len(decisions)
-        logger.info(f"mapped {n_mapped}, unmapped {len(seqs) - n_mapped}")
-        logger.info(f"accepted {n_accepted}, rejected {n_rejected}")
+        logger.info(f"mapped {outc.n_mapped}, unmapped {outc.n_unmapped}")
+        logger.info(f"accepted {outc.n_accepted}, rejected {outc.n_rejected}")
         # the coverage rows came with the prefetch: the "coo" phase here is
         # the read-length and abundance bookkeeping
-        self.rl_dist.update(np.array(accepted_lengths, dtype=np.int64))
+        self.rl_dist.update(np.array(outc.accepted_lengths, dtype=np.int64))
         self.tracker.update(
-            n_accepted, pre["full"], {pre["full"].qname[i]: i for i in acc_rows}
+            outc.n_accepted, pre["full"], {pre["full"].qname[i]: i for i in outc.acc_rows}
         )
         t["coo"] = time.perf_counter()
         params = self.engine.make_params(self.rl_dist.approx_ccl, self.rl_dist.time_cost)
         bits_dev = torch.from_numpy(bits).to(self.device)
         gated = self.engine.unpack_gated(pre["wire"], pre["spec"])
         self.state, aux = self.engine.step_gated(self.state, gated, bits_dev, params)
-        decided_bases = sum(len(s) for s in reads_decision.values())
+        decided_bases = sum(len(s) for s in outc.reads_decision.values())
         self.read_cache.update_times(
             total_bases=self.sampler.fq_stream.total_bases,
             decided_bases=decided_bases,
-            n_reject=n_rejected,
+            n_reject=outc.n_rejected,
         )
         self.read_cache.fill(
-            seqs, reads_decision,
+            seqs, outc.reads_decision,
             pre["bc_names"] if len(self.barcodes_index) > 1 else None,
         )
         if self.sampler.fq_stream.offsets.shape[0] > 0:
             self._submit_prefetch(self._prefetch_gated)
         t["overlap"] = time.perf_counter()
-        self._finish_batch(aux, t, n_mapped, n_accepted, n_rejected)
+        self._finish_batch(aux, t, outc.n_mapped, outc.n_accepted, outc.n_rejected)
 
     # ------------------------------------------------------------ batch ------
 

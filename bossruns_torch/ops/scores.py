@@ -9,10 +9,10 @@ symbol and the genotype, in the closed form of ``bossruns_tpu.ops.scores``:
 ``site_scores_t`` is the plain PyTorch version (genome on the last axis).
 ``site_scores`` adds the engine's masking (max(.,0), site validity, the
 freeze at ``freeze_cov``) and launches kernel H2 (csrc/scores.cu) for CUDA
-tensors: into new tensors, or, for the engine, into the scores and
-coverage sums it keeps between steps, rescoring only the tiles H1 flagged
-unless a device flag asks for every site (the plain version scores every
-site and writes the same selection). The JAX package's
+tensors: every site, into new tensors or given ones, or, for the engine,
+into the scores and coverage sums it keeps between steps, rescoring only
+the tiles H1 flagged unless a device flag asks for every site (the plain
+version scores every site and writes the same selection). The JAX package's
 ``site_scores_t_scan`` block loop is not ported: it only capped
 [genotypes, G] temporaries, which a per-site kernel never creates. Counts are clipped at 990 like the reference (sequences.py:493).
 
@@ -193,9 +193,11 @@ def site_scores_plain(coverage, seq, site_valid, tables: ScoreTables, freeze_cov
     scores = torch.where(covsum >= freeze_cov, tiny, scores)
     if out is None:
         return scores, covsum
-    sel = tile_mask(tiles, full, covsum.shape[1])[None, :]
-    out[0].copy_(torch.where(sel, scores, out[0]))
-    out[1].copy_(torch.where(sel, covsum, out[1]))
+    if tiles is not None:
+        sel = tile_mask(tiles, full, covsum.shape[1])[None, :]
+        scores, covsum = torch.where(sel, scores, out[0]), torch.where(sel, covsum, out[1])
+    out[0].copy_(scores)
+    out[1].copy_(covsum)
     return out
 
 
@@ -210,14 +212,15 @@ def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
     alignment: the kernel takes 16-byte accesses where G % 4 == 0 and the
     bases are aligned, scalar ones otherwise.
 
-    Without further arguments, every site into new tensors. With ``out``
-    (the engine's kept (scores, covsum)), ``tiles`` (uint8
-    [ceil(G / COVERAGE_TILE)], H1's flags of the tiles a step touched) and
-    ``full`` (int32 [1] on the device): the sites of the flagged tiles, or
-    every site where ``full`` is set, into ``out``, whose other sites keep
-    their values (csrc/scores.cu says why that is exact)."""
-    if (out is None) != (tiles is None) or (tiles is None) != (full is None):
-        raise ValueError("site_scores: give out, tiles and full together, or none of them")
+    Into ``out`` (scores, covsum), or new tensors without it. Without
+    ``tiles``, every site. With ``tiles`` (uint8 [ceil(G / COVERAGE_TILE)],
+    H1's flags of the tiles a step touched), ``full`` (int32 [1] on the
+    device) and ``out`` (the engine's kept buffers): the sites of the
+    flagged tiles, or every site where ``full`` is set, whose other sites
+    keep their values (csrc/scores.cu says why that is exact). One launch
+    either way: without ``tiles`` it runs with a ``full`` flag set."""
+    if (tiles is None) != (full is None) or (tiles is not None and out is None):
+        raise ValueError("site_scores: give tiles and full together, and out with them")
     if coverage.device.type == "cpu":
         return site_scores_plain(coverage, seq, site_valid, tables, freeze_cov, tiny, out,
                                  tiles, full)
@@ -230,23 +233,25 @@ def site_scores(coverage, seq, site_valid, tables: ScoreTables, freeze_cov: int,
     K.check(seq, "seq", torch.int8, (G,), dev)
     K.check(site_valid, "site_valid", torch.bool, (G,), dev)
     K.check(tables.packed, "tables", dt, None, dev)
-    lst = work = None
     if out is None:
-        scores = torch.empty((nb, G), dtype=dt, device=dev)
-        covsum = torch.empty((nb, G), dtype=torch.int32, device=dev)
+        out = (torch.empty((nb, G), dtype=dt, device=dev),
+               torch.empty((nb, G), dtype=torch.int32, device=dev))
+    scores, covsum = out
+    n_tiles = -(-G // COVERAGE_TILE)
+    K.check(scores, "scores", dt, (nb, G), dev)
+    K.check(covsum, "covsum", torch.int32, (nb, G), dev)
+    if tiles is None:
+        full = torch.ones(1, dtype=torch.int32, device=dev)
+        tiles = full  # never read while full is set
     else:
-        scores, covsum = out
-        n_tiles = -(-G // COVERAGE_TILE)
-        K.check(scores, "scores", dt, (nb, G), dev)
-        K.check(covsum, "covsum", torch.int32, (nb, G), dev)
         K.check(tiles, "tiles", torch.uint8, (n_tiles,), dev)
         K.check(full, "full", torch.int32, (1,), dev)
-        lst = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-        work = torch.zeros(2, dtype=torch.int32, device=dev)
+    lst = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
     K.KERNELS["site_scores" + K.SCORE_SUFFIX[dt]](
         coverage.data_ptr(), seq.data_ptr(), site_valid.data_ptr(), tables.packed.data_ptr(),
         tables.len_b, tables.len_g, nb, G, freeze_cov, tiny,
-        scores.data_ptr(), covsum.data_ptr(), K.ptr(tiles), K.ptr(full), K.ptr(lst), K.ptr(work),
-        K.stream_ptr(coverage),
+        scores.data_ptr(), covsum.data_ptr(), tiles.data_ptr(), full.data_ptr(), lst.data_ptr(),
+        work.data_ptr(), K.stream_ptr(coverage),
     )
     return scores, covsum

@@ -10,10 +10,11 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      in parallel, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      8.05 Mb slice shape with a 4000-read batch (mean length 3500), with
-     median times of both; H2 also in the tiled launch the single engine
-     makes, on the tiles H1 flagged and with its rescore-all flag set,
-     against the dense launch bit for bit and the plain version, with
-     times and bounds;
+     median times of both (H2 called without flags: its launch over every
+     site into new buffers); H2 also as the single engine calls it, into
+     kept buffers on the tiles H1 flagged and with its rescore-all flag
+     set, against the call without flags bit for bit and the plain
+     version, with times and bounds;
   4. the slice: a synthetic 8.05 Mb corpus through the port's gated
      BossRunsSim (4000-read batches), checked for strategy activation,
      rejections, enrichment, mask shapes, kernel launch counts and a
@@ -59,8 +60,8 @@ Phases, each printed on its own line; any failure raises and exits nonzero:
      p50 and peak memory of each, H8's launches in the sharded run
      (whose shards have phase 13's shapes), and then each step's device
      time by launch; then H1, H2 and H4 at the single engine's shape
-     (launches, device time, H4's split, bounds; H2 dense, tiled over the
-     tiles the last batch's H1 call flagged and tiled with every site,
+     (launches, device time, H4's split, bounds; H2 without flags, over
+     the tiles the last batch's H1 call flagged and with every site,
      checked as in 3, the plain version on gathered sites), and H4's binning launch
      alone (shard_benefit's bins phase) on the step's own benefit and on a
      copy spread over 100 exponent bins, counts and fsum exact;
@@ -377,7 +378,7 @@ def score_bound(args: dict, scores, covsum, sel=None, tiles=None) -> dict:
     read once, scores and covsum written once) and the arithmetic of the
     sites that need the contraction (a nonzero count among the model's
     symbols, unfrozen, valid). With ``sel`` (bool [G], the sites of the
-    tiles H1 flagged) and ``tiles`` (the flags): the tiled launch's bound,
+    tiles H1 flagged) and ``tiles`` (the flags): the bound of a call over them,
     which counts the bytes and the arithmetic of the selected sites only
     and the flags read once. Per contracted site: 2 LB LG + LG + LB FMAs (the two contractions,
     the k and q log q sums) and LG + LB + 2 special-function operations
@@ -431,24 +432,24 @@ def fmt_score_bound(b: dict) -> str:
             f"{b['bytes']} B; {b['n_contract']} of {b['sites']} sites contracted: {ops})")
 
 
-def check_tiled_scores(what: str, args: dict, tiles, dense, plain_chunk: int = 0,
+def check_tiled_scores(what: str, args: dict, tiles, fresh, plain_chunk: int = 0,
                        atol: float = 1e-6) -> dict:
-    """H2's tiled launch, the single engine's, against its dense launch
-    ``dense`` (scores, covsum) and its plain version on the same inputs and
-    H1's tile flags ``tiles``, into kept buffers that hold a sentinel:
-    with ``full`` clear the flagged tiles' sites equal the dense launch's
-    bit for bit and every other site keeps the sentinel; with ``full`` set
-    every site equals the dense launch's. The plain version, given the same
+    """H2 as the single engine calls it, against the call without flags
+    ``fresh`` (scores, covsum: every site into new buffers) and its plain
+    version on the same inputs and H1's tile flags ``tiles``, into kept
+    buffers that hold a sentinel: with ``full`` clear the flagged tiles'
+    sites equal ``fresh`` bit for bit and every other site keeps the
+    sentinel; with ``full`` set every site equals it. The plain version, given the same
     ``out``, ``tiles`` and ``full`` (or, with ``plain_chunk``, on the
     selected sites gathered that many at a time, where the whole genome's
     temporaries would not fit), agrees within H2's f32 tolerance (rtol
     1e-5, ``atol``) on the rescored sites, covsum exact, and leaves the
     same sentinel. Then each
-    launch's device time (queued events) and bound: the tiled one counts
+    mode's device time (queued events) and bound: the tiled one counts
     the flagged tiles' sites only (``score_bound``)."""
     from bossruns_torch.ops import scores as sc
 
-    s_d, cs_d = dense
+    s_d, cs_d = fresh
     nb, G = cs_d.shape
     dev = cs_d.device
     flags = {m: torch.full((1,), int(m == "full"), dtype=torch.int32, device=dev)
@@ -466,8 +467,8 @@ def check_tiled_scores(what: str, args: dict, tiles, dense, plain_chunk: int = 0
             exact(f"H2 {what} tiled covsum (sentinel outside the flagged tiles)", kept[1],
                   torch.where(sel[None, :], cs_d, torch.full_like(cs_d, -1)))
         else:
-            exact(f"H2 {what} tiled launch with full set, scores", kept[0], s_d)
-            exact(f"H2 {what} tiled launch with full set, covsum", kept[1], cs_d)
+            exact(f"H2 {what} kept buffers with full set, scores", kept[0], s_d)
+            exact(f"H2 {what} kept buffers with full set, covsum", kept[1], cs_d)
         if plain_chunk:
             idx = sel.nonzero()[:, 0] if mode == "tiled" else torch.arange(G, device=dev)
             pieces = idx.split(plain_chunk)
@@ -499,12 +500,12 @@ def check_tiled_scores(what: str, args: dict, tiles, dense, plain_chunk: int = 0
              else score_bound(args, *kept))
         out[mode] = dict(b, device_ms=ms)
     out["max_abs_err"] = err
-    log(f"H2 {what}, tiled launch: {out['tiles']} of {out['n_tiles']} tiles flagged by H1; "
-        f"the flagged tiles equal the dense launch bit for bit and the rest keeps the "
-        f"sentinel; with full set every site equals the dense launch; plain version "
+    log(f"H2 {what}, kept buffers: {out['tiles']} of {out['n_tiles']} tiles flagged by H1; "
+        f"the flagged tiles equal the call without flags bit for bit and the rest keeps "
+        f"the sentinel; with full set every site equals it; plain version "
         f"max abs err {err:.3g} (rtol 1e-5, atol {atol}), covsum and sentinel exact")
     for mode in ("tiled", "full"):
-        log(f"H2 {what}, tiled launch ({'flagged tiles' if mode == 'tiled' else 'full set'}): "
+        log(f"H2 {what}, kept buffers ({'flagged tiles' if mode == 'tiled' else 'full set'}): "
             f"device {out[mode]['device_ms']:.4f} ms, {fmt_score_bound(out[mode])}")
     return out
 
@@ -783,7 +784,7 @@ def check_kernels(dev, card: str) -> dict:
     log(f"H2 site_scores: covsum exact, scores max abs err {float(err.max()):.3g} "
         "(rtol 1e-5, atol 1e-6: same f32 closed form, other summation order); "
         f"{fmt_score_bound(res['site_scores'])}")
-    # the same inputs through the tiled launch the single engine makes, on
+    # the same inputs as the single engine calls H2, into kept buffers, on
     # the tiles this batch's H1 call flagged
     res["site_scores"]["modes"] = {"slice": check_tiled_scores("slice", args, tiles,
                                                                (s_k, cs_k))}
@@ -1648,8 +1649,9 @@ def dense_coverage(seq: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 def dense_scores(kw: dict, card: str) -> dict:
-    """H2 on phase 13's shard with dense coverage (``dense_coverage``):
-    timed at the whole shard, held against its plain version on its first
+    """H2 on phase 13's shard with dense coverage (``dense_coverage``),
+    called without flags as the sharded step calls it (every site into new
+    buffers): timed at the whole shard, held against its plain version on its first
     DENSE_SLICE sites, and the whole shard's first sites equal to the
     kernel's own result on the slice (a per-site function)."""
     from bossruns_torch.ops import scores as sc
@@ -1820,21 +1822,21 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
     cargs = eng.coverage_args(st._replace(coverage=st.coverage.clone()), rows)
     changed, tiles = gops.coverage_update_tiled(**cargs)
     h1 = coverage_bound(rows, eng.seq, changed, st.coverage, cargs["coverage"])
-    # H2 on the coverage after that call: the dense launch (the sharded
-    # step's form), and the tiled launch the single engine makes, on the
-    # tiles H1 flagged and with its rescore-all flag set
+    # H2 on the coverage after that call: without flags (the sharded
+    # step's call, every site into new buffers), and as the single engine
+    # calls it, on the tiles H1 flagged and with its rescore-all flag set
     args = eng.score_args(st._replace(coverage=cargs["coverage"]))
-    dense = sc.site_scores(**args)
-    h2 = score_bound(args, *dense)
+    fresh = sc.site_scores(**args)
+    h2 = score_bound(args, *fresh)
     h2_ms = queued_ms(lambda: sc.site_scores(**args))
-    log(f"chromosome single, H2 site_scores dense launch: device {h2_ms:.4f} ms, "
+    log(f"chromosome single, H2 site_scores without flags: device {h2_ms:.4f} ms, "
         f"{fmt_score_bound(h2)} [{card}]")
     # the plain version on the sites gathered 16M at a time, at phase 13's
     # bar for H2 on a chromosome's coverage (atol 5e-5)
-    h2_modes = check_tiled_scores("chromosome single", args, tiles, dense, plain_chunk=1 << 24,
+    h2_modes = check_tiled_scores("chromosome single", args, tiles, fresh, plain_chunk=1 << 24,
                                   atol=5e-5)
-    h2_modes["dense"] = dict(h2, device_ms=h2_ms)
-    del args, dense
+    h2_modes["flagless"] = dict(h2, device_ms=h2_ms)
+    del args, fresh
     h1_ms = queued_ms(lambda: gops.coverage_update(**cargs))
     del cargs
     log(f"chromosome single, H1 coverage_update: {single_launches['coverage_update']} launches, "
@@ -1844,7 +1846,7 @@ def run_chromosome(dev, card: str, genome: dict) -> dict:
         f"{h2_modes['tiled']['device_ms']:.4f} ms over {h2_modes['tiles']} of "
         f"{h2_modes['n_tiles']} tiles (bound {h2_modes['tiled']['bound_ms']:.4f} ms), full set "
         f"{h2_modes['full']['device_ms']:.4f} ms (bound {h2_modes['full']['bound_ms']:.4f} ms), "
-        f"dense {h2_ms:.4f} ms [{card}]")
+        f"without flags {h2_ms:.4f} ms [{card}]")
     h4 = chrom_benefit(eng, st, b, card, single_launches["benefit_strategy"])
     del s_res, m_res, sharded
     torch.cuda.empty_cache()

@@ -1137,10 +1137,11 @@ def test_score_kernel_ragged_and_unaligned(dev, G, offset):
 @pytest.mark.parametrize("nb", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
 def test_score_kernel_tiled_equals_dense(dev, dtype, nb, G):
-    """H2's tiled launch (float, _s64 and _h16; G % 4 == 0 and the scalar
-    instantiation at G % 4 != 0) over kept buffers: the flagged tiles'
-    sites equal the dense launch's bit for bit, the others keep what they
-    held; with ``full`` set every site equals it, with no flag none moves."""
+    """H2's launch (float, _s64 and _h16; G % 4 == 0 and the scalar
+    instantiation at G % 4 != 0) over kept buffers with ``full`` clear: the
+    flagged tiles' sites equal the full launch into fresh buffers (the call
+    without flags) bit for bit, the others keep what they held; with
+    ``full`` set every site equals it, with no tile flagged none moves."""
     from bossruns_torch.ops.model import make_model
 
     rng = np.random.default_rng(int(G) + 7 * nb + (dtype == torch.float64))
@@ -1167,6 +1168,58 @@ def test_score_kernel_tiled_equals_dense(dev, dtype, nb, G):
         assert bool((kept[0][:, ~sel] == 7.0).all()) and bool((kept[1][:, ~sel] == -1).all())
         ts.site_scores(**args, out=kept, tiles=tiles, full=i32(1))
         assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
+def test_score_kernel_without_out_equals_full_launch(dev, dtype):
+    """H2 without ``out`` (the sharded step's call: new buffers and a
+    ``full`` flag the wrapper sets) equals the launch into given buffers
+    that hold a sentinel, with ``full`` set and no tile flagged, and with
+    no tile flags at all, bit for bit."""
+    from bossruns_torch.ops.model import make_model
+
+    rng = np.random.default_rng(2302)
+    nb, G = 2, 5 * 4096 + 1237
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = dict(coverage=up(_mixed_coverage(rng, nb, G)),
+                seq=up(rng.integers(0, 4, G).astype(np.int8)), site_valid=up(rng.random(G) < 0.9),
+                tables=ts.ScoreTables(make_model(ploidy=2), dtype, device=dev), freeze_cov=30,
+                tiny=float(np.finfo(ts.NP_DTYPES[dtype]).tiny))
+    want_s, want_c = ts.site_scores(**args)
+    assert want_s.dtype == dtype and bool((want_c > 0).any())
+    sentinel = lambda: (torch.full((nb, G), 7.0, dtype=dtype, device=dev),  # noqa: E731
+                        torch.full((nb, G), -1, dtype=torch.int32, device=dev))
+    kept = sentinel()
+    ts.site_scores(**args, out=kept, tiles=torch.zeros(6, dtype=torch.uint8, device=dev),
+                   full=torch.ones(1, dtype=torch.int32, device=dev))
+    assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
+    kept = sentinel()
+    ts.site_scores(**args, out=kept)
+    assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
+
+
+def test_score_kernel_refuses_rows_beyond_its_offsets(dev):
+    """H2's entry point returns an error, before it reads a buffer, for a G
+    whose five coverage planes overrun 32-bit offsets (5 G > 2^32) and for
+    a NULL scratch pointer; the largest G it takes is 858,993,459."""
+    from bossruns_torch.ops import kernels as K
+    from bossruns_torch.ops.model import make_model
+
+    tables = ts.ScoreTables(make_model(ploidy=2), device=dev)
+    buf = torch.zeros(64, dtype=torch.int32, device=dev)
+    p = buf.data_ptr()
+
+    def call(G, scratch=p):
+        K.KERNELS["site_scores"](p, p, p, tables.packed.data_ptr(), tables.len_b,
+                                 tables.len_g, 1, G, 30, 1e-30, p, p, p, p, scratch, p,
+                                 K.stream_ptr(buf))
+
+    for G in (858_993_460, 1 << 31):
+        with pytest.raises(RuntimeError):
+            call(G)
+    with pytest.raises(RuntimeError):
+        call(4096, scratch=None)
+    assert bool((buf == 0).all())
 
 
 def test_captured_step_across_a_restore_equals_dense_engine(dev):

@@ -375,8 +375,9 @@ def test_kept_scores_equal_dense_engine_and_jax(graphed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
 def test_plain_scores_write_only_flagged_tiles(dtype):
     """site_scores with kept buffers and tile flags on the CPU: the flagged
-    tiles' sites as the dense call gives them, bit for bit, the rest of the
-    buffers untouched; with ``full`` set, every site."""
+    tiles' sites as the call without flags gives them, bit for bit, the
+    rest of the buffers untouched; with ``full`` set, or without tiles,
+    every site. Tiles need ``full`` and ``out``, and ``full`` needs tiles."""
     rng = np.random.default_rng(2202)
     nb, G = 2, 3 * tg.COVERAGE_TILE + 1237  # G % 4 != 0, a ragged last tile
     cov = rng.integers(0, 4, (nb, 5, G)) * (rng.random((nb, 5, G)) < 0.5)
@@ -401,10 +402,37 @@ def test_plain_scores_write_only_flagged_tiles(dtype):
     assert (kept[0][:, ~sel] == 7.0).all() and (kept[1][:, ~sel] == -1).all()
     ts.site_scores(*args, out=kept, tiles=tiles, full=torch.ones(1, dtype=torch.int32))
     assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
+    kept[0].fill_(7.0)
+    kept[1].fill_(-1)
+    ts.site_scores(*args, out=kept)  # no tiles: every site
+    assert torch.equal(kept[0], want_s) and torch.equal(kept[1], want_c)
     with pytest.raises(ValueError):
-        ts.site_scores(*args, out=kept)
+        ts.site_scores(*args, out=kept, tiles=tiles)
+    with pytest.raises(ValueError):
+        ts.site_scores(*args, out=kept, full=torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         ts.site_scores(*args, tiles=tiles, full=torch.ones(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64])
+def test_scores_without_out_equal_fresh_out_with_full_set(dtype):
+    """site_scores without ``out`` (the sharded step's call) equals a call
+    into fresh buffers with ``full`` set and no tile flagged, bit for bit."""
+    rng = np.random.default_rng(2301)
+    nb, G = 2, 2 * tg.COVERAGE_TILE + 517
+    cov = rng.integers(0, 4, (nb, 5, G)) * (rng.random((nb, 5, G)) < 0.5)
+    cov[:, :, rng.random(G) < 0.1] += 30  # frozen sites
+    args = dict(coverage=torch.from_numpy(cov.astype(np.uint16)),
+                seq=torch.from_numpy(rng.integers(0, 4, G).astype(np.int8)),
+                site_valid=torch.from_numpy(rng.random(G) < 0.9),
+                tables=ts.ScoreTables(make_model(ploidy=2), dtype, device="cpu"),
+                freeze_cov=30, tiny=float(np.finfo(ts.NP_DTYPES[dtype]).tiny))
+    want_s, want_c = ts.site_scores(**args)
+    fresh = (torch.full((nb, G), 7.0, dtype=dtype), torch.full((nb, G), -1, dtype=torch.int32))
+    ts.site_scores(**args, out=fresh, tiles=torch.zeros(3, dtype=torch.uint8),
+                   full=torch.ones(1, dtype=torch.int32))
+    assert want_s.dtype == dtype and want_c.dtype == torch.int32
+    assert torch.equal(fresh[0], want_s) and torch.equal(fresh[1], want_c)
 
 
 def test_second_engine_on_the_same_state_rescores_every_site():

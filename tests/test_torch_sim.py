@@ -8,6 +8,7 @@
 * the masks npz layout of the verify recipe, checkpoints and resume.
 """
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from bossruns_tpu.utils import checkpoint as jckpt
 from bossruns_tpu.utils.datagen import write_corpus
 from bossruns_tpu.utils.misc import read_strategy_npz
 from bossruns_torch.models.convert import state_to_numpy
-from bossruns_torch.models.runs_sim import BossRunsSim
+from bossruns_torch.models.runs_sim import BossRunsSim, SimOutcome, decision_tally
 from bossruns_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
@@ -73,6 +74,35 @@ def test_port_gated_matches_classic(corpus, tmp_path, quirks):
         np.testing.assert_array_equal(a.strat_host[name], b.strat_host[name])
     a.cleanup()
     b.cleanup()
+
+
+@pytest.mark.parametrize("accept_unmapped", [False, True])
+def test_decision_tally_on_a_hand_made_batch(accept_unmapped):
+    """The sims' one accept/reject tally against its bookkeeping written out:
+    mapped reads in decision order (r3 accepted with a full record, r0
+    rejected though it has one, r4 accepted in its prefix with none), then
+    the unmapped ones in batch order (r1 with a full record, r2 and r5
+    without)."""
+    seqs = {f"r{i}": "ACGTTGCA" * (i + 1) for i in range(6)}
+    decisions = {"r3": True, "r0": False, "r4": True}
+    best_full = {"r3": 2, "r1": 0, "r0": 1}
+    best_trunc = {"r3": 5, "r0": 4, "r4": 3}
+    full = SimpleNamespace(qlen=np.array([100, 200, 300], np.int64))
+    out = decision_tally(seqs, decisions, best_full, best_trunc, full, 6, accept_unmapped)
+    cut = lambda *rids: dict(seqs, **{r: seqs[r][:6] for r in rids})  # noqa: E731
+    if accept_unmapped:
+        want = SimOutcome(n_mapped=3, n_unmapped=3, n_accepted=5, n_rejected=1,
+                          reads_decision=cut("r0"),
+                          cov_rows=[("full", 2), ("trunc", 4), ("full", 0)],
+                          acc_rows=[2, 0], accepted_lengths=[300, 100],
+                          accepted=["r3", "r4", "r1", "r2", "r5"])
+    else:
+        want = SimOutcome(n_mapped=3, n_unmapped=3, n_accepted=2, n_rejected=4,
+                          reads_decision=cut("r0", "r1", "r2", "r5"),
+                          cov_rows=[("full", 2), ("trunc", 4)],
+                          acc_rows=[2], accepted_lengths=[300], accepted=["r3", "r4"])
+    assert out == want
+    assert list(out.reads_decision) == list(seqs)
 
 
 def test_port_boss_enriches_rare_contig(tmp_path):

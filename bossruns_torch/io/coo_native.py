@@ -8,20 +8,28 @@ through the port's jax-free loader, and ``pack_batch`` returns the port's
 
 This path preps strand-corrected code/qual slices and packed cigars in
 vectorised NumPy, then C calls (native/banded_align.cpp::
-expand_cigars_packed + split_match_runs_wide) emit the match-run + explicit
-COO pieces the device consumes. NumPy fallbacks keep everything functional
-without the shared library.
+prep_read_windows, expand_cigars_packed and split_match_runs_wide) emit the
+match-run + explicit COO pieces the device consumes; ``coverage_rows``
+makes those calls on record chunks on every usable core (``pack_batch``
+and the sim's gated flow build their rows with it). NumPy fallbacks keep
+everything functional without the shared library.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
+import os
 import re
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..aligner import native as native_mod
 from ..models.layout import GenomeLayout
+from ..utils import spans
 from .coo import _pad_len
 
 _CIG_RE = re.compile(r"(\d+)([MIDNSHP=XB])")
@@ -79,6 +87,140 @@ def _cat_cigars(parts: list) -> tuple[np.ndarray, np.ndarray]:
     return cat_ops, c_off
 
 
+#: the routines the coverage rows' passes call
+_ROW_SYMS = ("prep_read_windows", "expand_cigars_packed", "split_match_runs_wide_v2",
+             "split_match_runs_wide_v3")
+
+
+def _bound():
+    """The native library with the coverage rows' routines declared, or None
+    where it is missing or lacks one (the NumPy fallbacks run then)."""
+    lib = native_mod._load()
+    if not lib or not all(hasattr(lib, s) for s in _ROW_SYMS):
+        return None
+    if not hasattr(lib, "_rows_ready"):
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        lib.prep_read_windows.restype = i64
+        lib.prep_read_windows.argtypes = [ctypes.c_char_p, p, ctypes.c_char_p, p, p, p, p, i32,
+                                          p, p, i64]
+        lib.expand_cigars_packed.restype = i64
+        lib.expand_cigars_packed.argtypes = [p, p, p, p, p, i32, p, p, i64]
+        lib.split_match_runs_wide_v2.restype = i64
+        lib.split_match_runs_wide_v2.argtypes = [p, p, i64, p, p, p, i32, p, i64, i32, i32,
+                                                 p, p, p, i64, p, p, i64]
+        lib.split_match_runs_wide_v3.restype = i64
+        lib.split_match_runs_wide_v3.argtypes = [p, p, i64, p, p, p, p, i32, p, i64, i32, i32,
+                                                 p, p, p, p, i64, p, p, p, i64]
+        lib._rows_ready = True
+    return lib
+
+
+class _Set(NamedTuple):
+    """One record set made ready for the compiled passes: the records on
+    known contigs, in the set's order, their reads' text joined once, and
+    per-record arrays with ``[n + 1]`` offsets into the text, the
+    strand-corrected windows (``w_off``), the packed CIGARs and the
+    covered bases (``b_off``)."""
+    seq_cat: bytes
+    seq_off: np.ndarray   # int64 [n+1]
+    qual_cat: bytes
+    qual_off: np.ndarray  # int64 [n+1]
+    qs: np.ndarray        # int64 [n]
+    qe: np.ndarray        # int64 [n]
+    rev: np.ndarray       # uint8 [n]
+    w_off: np.ndarray     # int64 [n+1]
+    cig: np.ndarray       # uint32, every record's ops
+    c_off: np.ndarray     # int64 [n+1]
+    b_off: np.ndarray     # int64 [n+1]
+    rstart: np.ndarray    # int64 [n]
+    rspan: np.ndarray     # int32 [n]
+    rbc: np.ndarray       # int32 [n]
+    rrow: np.ndarray | None  # int32 [n], each record's read row
+
+
+def _prepare(layout, tid_of, rec, rows, seqs, quals, barcodes, read_rows=None):
+    """A record set as a ``_Set``, or None when it has no record on a
+    known contig. Python touches each record only to look up its names
+    (contig, read, barcode, read row) and its text and CIGAR. The text is
+    joined from each read's bytes: one ``encode`` of a joined string of
+    megabases costs several times as much."""
+    rows = np.asarray(list(rows), dtype=np.int64)
+    if rows.shape[0] == 0:
+        return None
+    tids = np.array([tid_of.get(t, -1) for t in rec.tname[rows].tolist()], dtype=np.int64)
+    keep = tids >= 0
+    sel, tids = rows[keep], tids[keep]
+    n = sel.shape[0]
+    if n == 0:
+        return None
+    rids = rec.qname[sel].tolist()
+    cig_parts = [rec.cigars[i] for i in sel.tolist()]
+    if any(p is None for p in cig_parts):
+        bad = rids[[j for j, p in enumerate(cig_parts) if p is None][0]]
+        raise ValueError(f"record for {bad} has no cigar")
+    seq_strs = [seqs[r] for r in rids]
+    qual_strs = [quals.get(r, "") for r in rids]
+    seq_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, seq_strs), np.int64, n), out=seq_off[1:])
+    qual_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, qual_strs), np.int64, n), out=qual_off[1:])
+    qs = rec.qstart[sel].astype(np.int64)
+    qe = rec.qend[sel].astype(np.int64)
+    w_off = np.zeros(n + 1, np.int64)
+    np.cumsum(qe - qs, out=w_off[1:])
+    span = (rec.tend[sel] - rec.tstart[sel]).astype(np.int64)
+    b_off = np.zeros(n + 1, np.int64)
+    np.cumsum(span, out=b_off[1:])
+    cig, c_off = _cat_cigars(cig_parts)
+    return _Set(
+        seq_cat=b"".join([t.encode() for t in seq_strs]), seq_off=seq_off,
+        qual_cat=b"".join([t.encode() for t in qual_strs]), qual_off=qual_off,
+        qs=qs, qe=qe, rev=rec.rev[sel].astype(np.uint8), w_off=w_off, cig=cig, c_off=c_off,
+        b_off=b_off, rstart=layout.offsets[tids] + rec.tstart[sel].astype(np.int64),
+        rspan=span.astype(np.int32),
+        rbc=(np.zeros(n, np.int32) if barcodes is None
+             else np.array([barcodes.get(r, 0) for r in rids], np.int32)),
+        rrow=None if read_rows is None else np.array([read_rows[r] for r in rids], np.int32),
+    )
+
+
+def _at(a: np.ndarray, i=0) -> int:
+    """The address of ``a[i]`` (``a`` one-dimensional and contiguous)."""
+    return a.ctypes.data + int(i) * a.itemsize
+
+
+def _expand_calls(lib, s: _Set, a: int, b: int, win, out) -> list:
+    """The native calls that write the symbols and quals at every base that
+    records ``[a, b)`` of ``s`` cover into their place in ``out`` (int8
+    pair at ``b_off``): their strand-corrected windows into ``win`` (int8
+    pair at ``w_off``), then their CIGARs expanded over them (deletions:
+    symbol 4, qual 20). Each call as (routine, arguments, the count it
+    must return), for ``_run``; the arguments hold addresses, so the
+    caller keeps ``s``, ``win`` and ``out`` until the calls have run."""
+    n, w0, b0 = b - a, s.w_off[a], s.b_off[a]
+    w, m = int(s.w_off[b] - w0), int(s.b_off[b] - b0)
+    return [
+        (lib.prep_read_windows, (s.seq_cat, _at(s.seq_off, a), s.qual_cat, _at(s.qual_off, a),
+                                 _at(s.qs, a), _at(s.qe, a), _at(s.rev, a), n,
+                                 _at(win[0], w0), _at(win[1], w0), w), w),
+        (lib.expand_cigars_packed, (_at(win[0]), _at(win[1]), _at(s.w_off, a), _at(s.cig),
+                                    _at(s.c_off, a), n, _at(out[0], b0), _at(out[1], b0), m), m),
+    ]
+
+
+def _run(calls) -> int:
+    """Make native calls in turn, each checked against the count it must
+    return (None: any count of 0 or more); the last one's return value."""
+    for fn, args, want in calls:
+        got = fn(*args)
+        assert got == want if want is not None else got >= 0, (fn.__name__, got, want)
+    return got
+
+
+def _pair(n: int) -> tuple[np.ndarray, np.ndarray]:
+    return np.empty(n, np.int8), np.empty(n, np.int8)
+
+
 def build_packed_runs(
     layout: GenomeLayout,
     record_sets,  # list of (rec, rows, seqs, quals)
@@ -91,84 +233,23 @@ def build_packed_runs(
     symbols/quals; site indices are reconstructed on device. rstart is int64:
     concatenated-genome offsets exceed int32 beyond ~2.1 Gb.
     """
-    lib = native_mod._load()
-    if not lib or not hasattr(lib, "prep_read_windows"):
+    lib = _bound()
+    if lib is None:
         return _build_packed_runs_numpy(layout, record_sets, barcodes)
-    if not hasattr(lib, "_packed_ready"):
-        lib.expand_cigars_packed.restype = ctypes.c_int64
-        lib.expand_cigars_packed.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.prep_read_windows.restype = ctypes.c_int64
-        lib.prep_read_windows.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib._packed_ready = True
     tid_of = {n: i for i, n in enumerate(layout.names)}
     sym_chunks, qual_chunks = [], []
     rstarts, rspans, rbcs = [], [], []
-    c = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     for rec, rows, seqs, quals in record_sets:
-        rows = np.asarray(list(rows), dtype=np.int64)
-        if rows.shape[0] == 0:
+        s = _prepare(layout, tid_of, rec, rows, seqs, quals, barcodes)
+        if s is None:
             continue
-        tids = np.array(
-            [tid_of.get(t, -1) for t in rec.tname[rows]], dtype=np.int64
-        )
-        sel = rows[tids >= 0]
-        tids = tids[tids >= 0]
-        n = sel.shape[0]
-        if n == 0:
-            continue
-        rids = rec.qname[sel]
-        cig_parts = [rec.cigars[i] for i in sel]
-        if any(p is None for p in cig_parts):
-            bad = rids[[j for j, p in enumerate(cig_parts) if p is None][0]]
-            raise ValueError(f"record for {bad} has no cigar")
-        seq_strs = [seqs[r] for r in rids]
-        qual_strs = [quals.get(r, "") for r in rids]
-        seq_cat = "".join(seq_strs).encode()
-        qual_cat = "".join(qual_strs).encode()
-        seq_off = np.zeros(n + 1, np.int64)
-        np.cumsum([len(s) for s in seq_strs], out=seq_off[1:])
-        qual_off = np.zeros(n + 1, np.int64)
-        np.cumsum([len(s) for s in qual_strs], out=qual_off[1:])
-        qs = rec.qstart[sel].astype(np.int64)
-        qe = rec.qend[sel].astype(np.int64)
-        rev = rec.rev[sel].astype(np.uint8)
-        wtot = int((qe - qs).sum())
-        seqs_win = np.empty(wtot, np.int8)
-        quals_win = np.empty(wtot, np.int8)
-        k = lib.prep_read_windows(
-            seq_cat, c(seq_off), qual_cat, c(qual_off),
-            c(qs), c(qe), c(np.ascontiguousarray(rev)), np.int32(n),
-            c(seqs_win), c(quals_win), np.int64(wtot),
-        )
-        assert k == wtot, (k, wtot)
-        s_off = np.zeros(n + 1, np.int64)
-        np.cumsum(qe - qs, out=s_off[1:])
-        cig_cat, c_off = _cat_cigars(cig_parts)
-        spans = (rec.tend[sel] - rec.tstart[sel]).astype(np.int64)
-        total = int(spans.sum())
-        out_sym = np.zeros(total, np.int8)
-        out_qual = np.zeros(total, np.int8)
-        k = lib.expand_cigars_packed(
-            c(seqs_win), c(quals_win), c(s_off), c(cig_cat), c(c_off),
-            np.int32(n), c(out_sym), c(out_qual), np.int64(total),
-        )
-        assert k == total, (k, total)
-        sym_chunks.append(out_sym)
-        qual_chunks.append(out_qual)
-        rstarts.append(layout.offsets[tids] + rec.tstart[sel].astype(np.int64))
-        rspans.append(spans.astype(np.int32))
-        rbcs.append(
-            np.zeros(n, np.int32) if barcodes is None
-            else np.array([barcodes.get(r, 0) for r in rids], np.int32)
-        )
+        win, (sym, qual) = _pair(int(s.w_off[-1])), _pair(int(s.b_off[-1]))
+        _run(_expand_calls(lib, s, 0, s.rspan.shape[0], win, (sym, qual)))
+        sym_chunks.append(sym)
+        qual_chunks.append(qual)
+        rstarts.append(s.rstart)
+        rspans.append(s.rspan)
+        rbcs.append(s.rbc)
     if not rspans:
         z8 = np.zeros(0, np.int8)
         z32 = np.zeros(0, np.int32)
@@ -234,18 +315,8 @@ def split_runs(layout, sym, qual, rstart, rspan, rbc, qt: int = 0, len_b: int = 
                 np.zeros(0, np.uint32))
     if rbc.size and int(rbc.max()) > 255:
         raise ValueError("ReadBatch carries barcodes as uint8 (max 256 rows)")
-    lib = native_mod._load()
-    if lib is not None and hasattr(lib, "split_match_runs_wide_v2"):
-        if not hasattr(lib, "_split_ready"):
-            lib.split_match_runs_wide_v2.restype = ctypes.c_int64
-            lib.split_match_runs_wide_v2.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ]
-            lib._split_ready = True
+    lib = _bound()
+    if lib is not None:
         cap = m + 1
         mr_bc = np.empty(cap, np.uint8)
         mr_g = np.empty(cap, np.uint32)
@@ -326,21 +397,8 @@ def split_runs_rows(layout, sym, qual, rstart, rspan, rbc, rrow,
                 np.zeros(0, np.uint16), z32, z32)
     if rbc.size and int(rbc.max()) > 255:
         raise ValueError("ReadBatch carries barcodes as uint8 (max 256 rows)")
-    lib = native_mod._load()
-    if lib is not None and hasattr(lib, "split_match_runs_wide_v3"):
-        if not hasattr(lib, "_split3_ready"):
-            lib.split_match_runs_wide_v3.restype = ctypes.c_int64
-            lib.split_match_runs_wide_v3.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64,
-            ]
-            lib._split3_ready = True
+    lib = _bound()
+    if lib is not None:
         cap = m + 1
         mr_bc = np.empty(cap, np.uint8)
         mr_g = np.empty(cap, np.uint32)
@@ -387,6 +445,145 @@ def split_runs_rows(layout, sym, qual, rstart, rspan, rbc, rrow,
             cat(3), cat(4), np.concatenate(ex_rows))
 
 
+#: covered bases a chunk of the record-parallel pass is cut to; a set of
+#: fewer than twice as many is one chunk, built on the calling thread.
+#: Measured on an 8-core host: from ~64 Kbases two chunks beat one, and
+#: chunks of 0.1-2 Mbases do best (PERF.md, section 6)
+CHUNK_BASES = 1 << 17
+#: chunks a set is cut into at most, for each worker: a chunk costs its
+#: calls' hand-offs of the interpreter lock, and on 8 cores 8 chunks of a
+#: 16-Mbase set beat 16 and 32 (cut by bases, no one read holds up one)
+CHUNKS_PER_WORKER = 1
+
+_pool: ThreadPoolExecutor | None = None
+_pool_size = 0
+_pool_lock = threading.Lock()
+
+
+def _workers() -> tuple[ThreadPoolExecutor, int]:
+    """The pass's pool, one thread for each core this process may use, made
+    at its first use and kept for the process's life; and its size."""
+    global _pool, _pool_size
+    with _pool_lock:
+        if _pool is None:
+            _pool_size = len(os.sched_getaffinity(0))
+            _pool = ThreadPoolExecutor(_pool_size, thread_name_prefix="coo")
+        return _pool, _pool_size
+
+
+def _cuts(s: _Set, most: int) -> list[int]:
+    """Record bounds ``[0, ..., n]`` that cut ``s`` into chunks of about
+    ``CHUNK_BASES`` covered bases each, at most ``most`` and at least one."""
+    n, total = s.rspan.shape[0], int(s.b_off[-1])
+    k = min(n, most, total // CHUNK_BASES)
+    if k <= 1:
+        return [0, n]
+    inner = np.searchsorted(s.b_off, total * np.arange(1, k) / k)
+    return np.unique(np.concatenate([[0], inner, [n]])).tolist()
+
+
+class _Bufs(NamedTuple):
+    """A set's buffers for the pass, made on the calling thread: each chunk
+    writes its own stretch of each (the rows of chunk ``j`` of records
+    ``[a, b)`` from ``b_off[a] + j``, room for its bases and one more)."""
+    win: tuple   # int8 symbols and quals of the windows, at w_off
+    base: tuple  # int8 symbols and quals of the covered bases, at b_off
+    mr: tuple    # mr_bc uint8, mr_g uint32, mr_len uint16[, mr_read uint32]
+    ex: tuple    # ex_bcsym uint16, ex_g uint32[, ex_read uint32]
+
+    @classmethod
+    def of(cls, s: _Set, chunks: int) -> _Bufs:
+        cap = int(s.b_off[-1]) + chunks
+        rows = s.rrow is not None
+        mr = (np.uint8, np.uint32, np.uint16) + ((np.uint32,) if rows else ())
+        ex = (np.uint16, np.uint32) + ((np.uint32,) if rows else ())
+        return cls(_pair(int(s.w_off[-1])), _pair(int(s.b_off[-1])),
+                   tuple(np.empty(cap, t) for t in mr), tuple(np.empty(cap, t) for t in ex))
+
+
+def _chunk_calls(lib, s: _Set, bufs: _Bufs, j: int, a: int, b: int, ref: np.ndarray,
+                 G: int, qt: int, len_b: int) -> list:
+    """The native calls of chunk ``j`` of ``s``, its records ``[a, b)``:
+    their bases (``_expand_calls``), then split_runs of them (or, where
+    ``s`` has read rows, split_runs_rows) into ``bufs`` from ``b_off[a] +
+    j``. Made on the calling thread, so that a worker runs only the
+    calls."""
+    b0 = s.b_off[a]
+    m, r0 = int(s.b_off[b] - b0), int(b0) + j
+    mr = [_at(x, r0) for x in bufs.mr]
+    ex = [_at(x, r0) for x in bufs.ex]
+    head = (_at(bufs.base[0], b0), _at(bufs.base[1], b0), m, _at(s.rstart, a),
+            _at(s.rspan, a), _at(s.rbc, a))
+    tail = (_at(ref), G, qt, len_b)
+    if s.rrow is None:
+        split = (lib.split_match_runs_wide_v2,
+                 (*head, b - a, *tail, *mr, m + 1, *ex, m + 1), None)
+    else:
+        split = (lib.split_match_runs_wide_v3,
+                 (*head, _at(s.rrow, a), b - a, *tail, *mr, m + 1, *ex, m + 1), None)
+    return _expand_calls(lib, s, a, b, bufs.win, bufs.base) + [split]
+
+
+def coverage_rows(layout, record_sets, barcodes=None, *, read_rows=None, qt: int = 0,
+                  len_b: int = 5):
+    """The match runs and explicit rows of record sets: ``split_runs`` of
+    ``build_packed_runs``, the same arrays in the same order; with
+    ``read_rows`` (read id -> row), ``split_runs_rows``' seven, each
+    record's row being its read's.
+
+    One record-parallel pass: each set is made ready once (``_prepare``,
+    its buffers ``_Bufs``), then cut into chunks of about equal covered
+    bases, and each chunk's three compiled passes (windows, CIGAR
+    expansion, match-run split) run on the shared pool (ctypes releases
+    the interpreter lock); the chunks' rows are joined in order. No run
+    crosses a record, so the join equals one call over the set. Where
+    every set is one chunk (under twice ``CHUNK_BASES``), it runs on the
+    calling thread and no pool is made. Span ``coo.build`` (attrs
+    ``records``, ``bases``, ``chunks``, ``workers``) covers the passes.
+    Without the native library, the NumPy fallbacks of
+    ``build_packed_runs`` and the split.
+    """
+    lib = _bound()
+    with_rows = read_rows is not None
+    tid_of = {n: i for i, n in enumerate(layout.names)}
+    if lib is None:
+        packed = build_packed_runs(layout, record_sets, barcodes)
+        if not with_rows:
+            return split_runs(layout, *packed, qt, len_b)
+        rrow = np.array([read_rows[rec.qname[i]] for rec, rows, _s, _q in record_sets
+                         for i in rows if rec.tname[i] in tid_of], np.int32)
+        return split_runs_rows(layout, *packed, rrow, qt, len_b)
+    sets = [s for s in (_prepare(layout, tid_of, rec, rows, seqs, quals, barcodes, read_rows)
+                        for rec, rows, seqs, quals in record_sets) if s is not None]
+    bases = sum(int(s.b_off[-1]) for s in sets)
+    if bases == 0:
+        z32 = np.zeros(0, np.uint32)
+        if with_rows:
+            return (np.zeros(0, np.uint8), z32, np.zeros(0, np.uint16), z32.copy(),
+                    np.zeros(0, np.uint16), z32.copy(), z32.copy())
+        return (np.zeros(0, np.uint8), z32, np.zeros(0, np.uint16), np.zeros(0, np.uint16),
+                z32.copy())
+    if max(int(s.rbc.max()) for s in sets) > 255:
+        raise ValueError("ReadBatch carries barcodes as uint8 (max 256 rows)")
+    most = CHUNKS_PER_WORKER * len(os.sched_getaffinity(0))
+    ref = layout.seq_int.view(np.int8)
+    chunks, calls = [], []   # (where its rows start in which buffers), its calls
+    for s in sets:
+        cuts = list(itertools.pairwise(_cuts(s, most)))
+        bufs = _Bufs.of(s, len(cuts))
+        for j, (a, b) in enumerate(cuts):
+            chunks.append((bufs, int(s.b_off[a]) + j))
+            calls.append(_chunk_calls(lib, s, bufs, j, a, b, ref, layout.G_pad, qt, len_b))
+    inline = len(chunks) == len(sets)
+    pool, size = (None, 1) if inline else _workers()
+    with spans.span("coo.build", records=sum(s.rspan.shape[0] for s in sets), bases=bases,
+                    chunks=len(chunks), workers=size):
+        packed = [_run(c) for c in calls] if inline else list(pool.map(_run, calls))
+    mr = [[x[r0:r0 + (p >> 32)] for x in bufs.mr] for (bufs, r0), p in zip(chunks, packed)]
+    ex = [[x[r0:r0 + (p & 0xFFFFFFFF)] for x in bufs.ex] for (bufs, r0), p in zip(chunks, packed)]
+    return tuple(np.concatenate(f) for f in (*zip(*mr), *zip(*ex)))
+
+
 EX_PAD = np.uint32(0xFFFFFFFF)
 """Sentinel ex_g value marking padding rows: it flattens to a negative /
 out-of-shard scatter index that the device drops, so no separate weight
@@ -427,9 +624,7 @@ def pack_batch(layout, record_sets, *, device: str | torch.device | None, barcod
     ex_floor) minimum pad sizes — callers pass the largest sizes seen so
     the batch shapes (and the allocator's blocks) stay stable.
     """
-    sym, qual, rstart, rspan, rbc = build_packed_runs(layout, record_sets, barcodes)
-    split = split_runs(layout, sym, qual, rstart, rspan, rbc, qt, len_b)
-    padded = pad_split(split, floors)
+    padded = pad_split(coverage_rows(layout, record_sets, barcodes, qt=qt, len_b=len_b), floors)
     from ..models.convert import batch_from_numpy
 
     if rs is None:

@@ -33,7 +33,7 @@ from ..aligner import make_aligner
 from ..device import as_device
 from ..io import coo as coo_mod
 from ..io.coo import _pad_len
-from ..io.coo_native import EX_PAD, build_packed_runs, pack_batch, split_runs_rows
+from ..io.coo_native import EX_PAD, coverage_rows, pack_batch
 from ..io.fastq import read_fastx
 from ..io.paf import PafRecords, best_per_query, parse_paf
 from ..io.sampler import Sampler
@@ -368,19 +368,14 @@ class BossRunsSim:
             read_bc = {rid: self.barcodes_index.get(bc, 0) for rid, bc in bc_names.items()}
             best_full = best_per_query(full)
             best_trunc = best_per_query(trunc)
-            known = set(self.layout.names)
             len_b = self.engine.model.len_b
 
             def one_set(rec, rows, sset, qset):
-                packed = build_packed_runs(self.layout, [(rec, rows, sset, qset)], read_bc)
-                kept = [i for i in rows if rec.tname[i] in known]
-                rrow = np.array([rid_idx[rec.qname[i]] for i in kept], np.int32)
-                return split_runs_rows(
-                    self.layout, packed[0], packed[1], packed[2], packed[3],
-                    packed[4], rrow, 0, len_b,
-                )
+                return coverage_rows(self.layout, [(rec, rows, sset, qset)], read_bc,
+                                     read_rows=rid_idx, len_b=len_b)
 
-            f_split = one_set(full, list(best_full.values()), seqs, quals)
+            f_rows = list(best_full.values())
+            f_split = one_set(full, f_rows, seqs, quals)
             t_rows = list(best_trunc.values())
             t_seqs = {r: s[: self.mu] for r, s in seqs.items()}
             t_quals = {r: quals[r][: len(t_seqs[r])] for r in seqs}
@@ -397,22 +392,19 @@ class BossRunsSim:
             # read-start rows for every best full record (io/coo.
             # build_read_start_rows incl. right-edge inclusion); active on
             # device iff the read's bit is set
-            tid_of = {n: i for i, n in enumerate(self.layout.names)}
-            rs_row, rs_strand, rs_read = [], [], []
-            for rid, i in best_full.items():
-                tid = tid_of.get(full.tname[i])
-                if tid is None:
-                    continue
-                wf = int(self.layout.lengths[tid]) // FHAT_WINDOW
-                if wf == 0:
-                    continue
-                start = int(full.tend[i]) if full.rev[i] else int(full.tstart[i])
-                if start > FHAT_WINDOW * wf:
-                    continue
-                rs_row.append(int(self.layout.fhat_offsets[tid])
-                              + min(start // FHAT_WINDOW, wf - 1))
-                rs_strand.append(int(full.rev[i]))
-                rs_read.append(rid_idx[rid])
+            lay = self.layout
+            tid_of = {n: i for i, n in enumerate(lay.names)}
+            rows = np.array(f_rows, np.int64)
+            tid = np.array([tid_of.get(t, -1) for t in full.tname[rows].tolist()], np.int64)
+            read = np.array([rid_idx[r] for r in best_full], np.int64)
+            known = tid >= 0
+            rows, tid, read = rows[known], tid[known], read[known]
+            wf = lay.lengths[tid] // FHAT_WINDOW
+            rev = full.rev[rows].astype(np.int64)
+            start = np.where(rev != 0, full.tend[rows], full.tstart[rows]).astype(np.int64)
+            keep = (wf > 0) & (start <= FHAT_WINDOW * wf)
+            rs_row = lay.fhat_offsets[tid] + np.minimum(start // FHAT_WINDOW, wf - 1)
+            rs_row, rs_strand, rs_read = rs_row[keep], rev[keep], read[keep]
 
             floors = getattr(self, "_gated_floors", {})
 
@@ -438,9 +430,9 @@ class BossRunsSim:
                 "t_ex_bcsym": pad_arr(t_split[4], "t_ex"),
                 "t_ex_g": pad_arr(t_split[5], "t_ex", fill=EX_PAD),
                 "t_ex_read": pad_arr(t_split[6], "t_ex"),
-                "rs_row": pad_arr(np.array(rs_row, np.int32), "rs"),
-                "rs_strand": pad_arr(np.array(rs_strand, np.int32), "rs"),
-                "rs_read": pad_arr(np.array(rs_read, np.int32), "rs", fill=-1),
+                "rs_row": pad_arr(rs_row.astype(np.int32), "rs"),
+                "rs_strand": pad_arr(rs_strand.astype(np.int32), "rs"),
+                "rs_read": pad_arr(rs_read.astype(np.int32), "rs", fill=-1),
             }
             self._gated_floors = floors
         wire, spec = self.engine.pack_gated(d, out=self.engine.stage)

@@ -29,6 +29,10 @@ The spans (where each is opened):
 ``sim.coo``         the gated flow's coverage rows, read-start rows and
                     padding; the classic flow's read lengths, read-start
                     rows and packed batch
+``coo.build``       ``io/coo_native.coverage_rows``: the compiled passes
+                    over a call's record sets (attrs ``records``,
+                    ``bases``, ``chunks``, ``workers``: 1 where every set
+                    is one chunk on the calling thread)
 ``sim.align``       the classic flow's live alignment: the prefixes'
                     mapping, the decisions and the accepted reads' mapping
 ``sim.decide``      the classic flow's decisions and coverage rows' choice

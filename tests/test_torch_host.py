@@ -17,9 +17,11 @@
   back, and a wrapper given a tensor on neither the CPU nor CUDA raises.
 """
 import json
+import os
 import subprocess
 import sys
 import textwrap
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -97,6 +99,172 @@ def test_split_runs_and_pack_batch_identical(corpus, parsed):
     bt = tcoo.pack_batch(lay, sets, device="cpu", rs=rs, floors=(5000, 100))
     for f in bj._fields:
         _same(getattr(bt, f).numpy(), getattr(bj, f), f"pack_batch.{f}")
+
+
+# ------------------------------------------------------ coverage rows ---
+
+MU = 400
+
+
+def _with_records(rec, extra):
+    """``rec``'s records, then ``extra``'s (a PafRecords of both)."""
+    cols = {f: np.concatenate([getattr(rec, f), getattr(extra, f)])
+            for f in PAF_FIELDS + ("qname", "tname")}
+    return tpaf.PafRecords(**cols, cigars=list(rec.cigars) + list(extra.cigars))
+
+
+@pytest.fixture(scope="module")
+def rows_case(corpus, parsed):
+    """The corpus's first 150 best full and truncated records, and three
+    more: an error-free forward read of 70,000 bases (a match run beyond
+    65,535), a reverse read with a deletion and an insertion and no
+    quality string, and a read on a contig the layout does not have."""
+    lay = build_layout(load_reference_contigs(corpus["ref"]))
+    seqs, quals = _reads(corpus)
+    rng = np.random.default_rng(2024)
+    ref = lambda g0, n: "".join("ACGT"[c] for c in lay.seq_int[g0 : g0 + n])  # noqa: E731
+    a0, b0 = int(lay.offsets[0]) + 1000, int(lay.offsets[1]) + 5000
+    aligned = ref(b0, 1500) + "ACGTA" + ref(b0 + 1510, 1490)   # M1500 D10 I5 M1490
+    extra_reads = {"long_fwd": ref(a0, 70_000),
+                   "rev_indel": "TT" + tpaf.revcomp(aligned) + "GG",
+                   "lost": ref(a0, 500)}
+    seqs.update(extra_reads)
+    quals["long_fwd"] = "I" * 70_000
+    quals["lost"] = "5" * 500
+    n3 = lambda *v: np.array(v, np.int64)  # noqa: E731
+    extra = tpaf.PafRecords(
+        qname=np.array(list(extra_reads), object), qlen=n3(70_000, 2_999, 500),
+        qstart=n3(0, 2, 0), qend=n3(70_000, 2_997, 500), rev=np.array([0, 1, 0], np.int8),
+        tname=np.array([lay.names[0], lay.names[1], "not_a_contig"], object),
+        tlen=n3(*lay.lengths[:2], 500), tstart=n3(1000, 5000, 0), tend=n3(71_000, 8000, 500),
+        nmatch=n3(70_000, 2_990, 500), blocklen=n3(70_000, 3_005, 500), mapq=n3(60, 60, 60),
+        align_score=n3(0, 0, 0), s1=n3(0, 0, 0), primary=np.ones(3, np.int8),
+        cigars=["70000M", np.array([1500 << 4, (10 << 4) | 2, (5 << 4) | 1, 1490 << 4],
+                                   np.uint32), "500M"])
+    full = _with_records(parsed["paf_full"][1], extra)
+    trunc = parsed["paf_trunc"][1]
+    n_full = len(parsed["paf_full"][1])
+    f_rows = list(tpaf.best_per_query(parsed["paf_full"][1]).values())[:150]
+    f_rows = f_rows[:75] + [n_full, n_full + 1, n_full + 2] + f_rows[75:]
+    t_rows = list(tpaf.best_per_query(trunc).values())[:150]
+    t_seqs = {r: s[:MU] for r, s in seqs.items()}
+    t_quals = {r: quals.get(r, "")[: len(t_seqs[r])] for r in seqs}
+    for i in t_rows:   # Q2: a reverse truncated record's text is the read's last mu bases
+        if trunc.rev[i]:
+            rid = trunc.qname[i]
+            t_seqs[rid], t_quals[rid] = seqs[rid][-MU:], quals.get(rid, "")[-MU:]
+    assert trunc.rev[t_rows].any() and not trunc.rev[t_rows].all()
+    bc = {r: int(rng.integers(0, 4)) for r in seqs}
+    read_rows = {r: int(i) for i, r in enumerate(rng.permutation(list(seqs)))}
+    sets = {"full": [(full, f_rows, seqs, quals)],
+            "trunc_q2": [(trunc, t_rows, t_seqs, t_quals)],
+            "pack_batch": [(full, f_rows, seqs, quals), (trunc, t_rows, t_seqs, t_quals)],
+            "empty": [(full, [], seqs, quals), (full, [n_full + 2], seqs, quals)]}
+    return lay, sets, bc, read_rows
+
+
+def _serial_rows(lay, sets, bc, read_rows, tid_of, **kw):
+    """The serial composition: build_packed_runs, then split_runs_rows."""
+    rrow = np.array([read_rows[rec.qname[i]] for rec, rows, _s, _q in sets
+                     for i in rows if rec.tname[i] in tid_of], np.int32)
+    return tcoo.split_runs_rows(lay, *tcoo.build_packed_runs(lay, sets, bc), rrow, **kw)
+
+
+def _built(fn):
+    """``fn()`` under the profiler, and the ``coo.build`` spans it made."""
+    from bossruns_torch.utils import spans
+
+    n = len(spans.recorded())
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    return out, [r for r in spans.recorded()[n:]
+                 if isinstance(r, spans.Span) and r.name == "coo.build"]
+
+
+@pytest.mark.parametrize("case", ["full", "trunc_q2", "pack_batch", "empty"])
+@pytest.mark.parametrize("chunks", [1, 2, 7, "records"])
+def test_coverage_rows_equal_serial_and_numpy_at_every_chunk_count(rows_case, case, chunks,
+                                                                    monkeypatch):
+    """The record-parallel pass gives the serial native path's arrays and
+    the NumPy fallback's, byte for byte: the gated sets with their read
+    rows (reverse strands, the Q2 truncated windows, a run over 65,535, a
+    record on an unknown contig), pack_batch's padded fields over both
+    sets, and sets with nothing on a known contig; with 1, 2 and 7 chunks
+    a set and with more chunks asked for than the set has records."""
+    lay, sets, bc, read_rows = rows_case
+    sets = sets[case]
+    tid_of = {n: i for i, n in enumerate(lay.names)}
+    known = [[i for i in rows if rec.tname[i] in tid_of] for rec, rows, _s, _q in sets]
+    bases = [int((rec.tend[k] - rec.tstart[k]).sum()) for (rec, *_), k in zip(sets, known)]
+    monkeypatch.setattr(tcoo, "CHUNKS_PER_WORKER", 10 ** 6)
+    if chunks == 1:
+        monkeypatch.setattr(tcoo, "CHUNK_BASES", 1 << 40)
+    elif chunks == "records":
+        monkeypatch.setattr(tcoo, "CHUNK_BASES", 1)
+    else:
+        monkeypatch.setattr(tcoo, "CHUNK_BASES", max(1, min(b for b in bases if b) // chunks)
+                            if any(bases) else 1)
+    rs = (np.arange(512, dtype=np.int32) % 7, np.zeros(512, np.int32),
+          np.ones(512, np.float32))
+    if case == "pack_batch":
+        kw = dict(barcodes=bc, rs=rs, floors=(5000, 100), qt=10, len_b=4)
+        got, built = _built(lambda: tcoo.pack_batch(lay, sets, device=None, **kw))
+        serial = tcoo.pad_split(tcoo.split_runs(lay, *tcoo.build_packed_runs(lay, sets, bc),
+                                                10, 4), (5000, 100))
+        serial.update(rs_row=rs[0], rs_strand=rs[1], rs_w=rs[2])
+        assert set(got) == set(serial)
+        got, serial = [got[k] for k in sorted(got)], [serial[k] for k in sorted(serial)]
+        monkeypatch.setattr(tcoo.native_mod, "_lib", False)
+        plain = tcoo.pack_batch(lay, sets, device=None, **kw)
+        plain = [plain[k] for k in sorted(plain)]
+    else:
+        got, built = _built(lambda: tcoo.coverage_rows(lay, sets, bc, read_rows=read_rows))
+        serial = _serial_rows(lay, sets, bc, read_rows, tid_of)
+        monkeypatch.setattr(tcoo.native_mod, "_lib", False)
+        plain = tcoo.coverage_rows(lay, sets, bc, read_rows=read_rows)
+    assert len(got) == len(serial) == len(plain)
+    for a, b, c in zip(got, serial, plain):
+        _same(a, b, f"{case} against serial")
+        _same(a, c, f"{case} against numpy")
+    if case == "empty":
+        assert not any(a.size for a in got) and not built
+        return
+    assert len(built) == 1
+    attrs = built[0].attrs
+    assert attrs["records"] == sum(map(len, known)) and attrs["bases"] == sum(bases)
+    if chunks == 1:
+        assert attrs["chunks"] == len(sets) and attrs["workers"] == 1
+    else:   # cut at records, so a long record can take two cuts' places
+        most = attrs["records"] if chunks == "records" else chunks * len(sets)
+        assert len(sets) < attrs["chunks"] <= most
+    if attrs["chunks"] > len(sets):
+        assert attrs["workers"] == len(os.sched_getaffinity(0))
+    if case == "full":
+        assert int(got[2].max()) == 65_535    # the 70,000-base run, cut at 65,535
+
+
+def test_small_set_runs_as_one_chunk_on_the_calling_thread(rows_case, monkeypatch):
+    """A set under twice CHUNK_BASES covered bases is one chunk: its
+    native calls run on the calling thread, and no pool is made."""
+    lay, sets, bc, read_rows = rows_case
+    rec, rows, seqs, quals = sets["full"][0]
+    small = [(rec, rows[:20], seqs, quals)]
+    assert int((rec.tend[rows[:20]] - rec.tstart[rows[:20]]).sum()) < 2 * tcoo.CHUNK_BASES
+    monkeypatch.setattr(tcoo, "_pool", None)
+
+    def no_pool():
+        raise AssertionError("a pool was asked for")
+
+    monkeypatch.setattr(tcoo, "_workers", no_pool)
+    threads, run = [], tcoo._run
+    monkeypatch.setattr(tcoo, "_run", lambda calls: threads.append(threading.get_ident())
+                        or run(calls))
+    got, built = _built(lambda: tcoo.coverage_rows(lay, small, bc, read_rows=read_rows))
+    assert threads == [threading.get_ident()] and tcoo._pool is None
+    assert [b.attrs["chunks"] for b in built] == [1] and built[0].attrs["workers"] == 1
+    tid_of = {n: i for i, n in enumerate(lay.names)}
+    for a, b in zip(got, _serial_rows(lay, small, bc, read_rows, tid_of)):
+        _same(a, b, "one chunk against serial")
 
 
 JAX_BLOCKED = textwrap.dedent("""

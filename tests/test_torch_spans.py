@@ -35,6 +35,7 @@ import torch
 
 from bossruns_torch.aligner import TorchAligner, bucket_of
 from bossruns_torch.aligner import native as tnative
+from bossruns_torch.io import coo_native
 from bossruns_torch.io.coo_native import pad_split, split_runs
 from bossruns_torch.models import runs as truns
 from bossruns_torch.models.convert import state_to_numpy
@@ -49,7 +50,8 @@ from bossruns_torch.utils.staging import PinnedStaging
 torch.set_num_threads(2)
 
 CCL = np.array([30000, 20000, 14000, 10000, 7000, 5000, 3500, 2200, 1200, 400])
-SIM_SPANS = {"sim.batch", "sim.prefetch", "sim.draw", "sim.paf", "sim.coo", "engine.pack",
+SIM_SPANS = {"sim.batch", "sim.prefetch", "sim.draw", "sim.paf", "sim.coo", "coo.build",
+             "engine.pack",
              "engine.upload", "engine.params", "engine.launch", "engine.pull_aux", "mask.pull",
              "mask.split", "mask.write", "checkpoint.pull", "checkpoint.write"}
 CHAIN_SPANS = ["engine.params", "engine.pack", "engine.upload", "engine.launch",
@@ -255,6 +257,8 @@ def test_gated_sim_records_every_span_with_its_parent(corpus, tmp_path):
         elif r.name == "checkpoint.write":   # the npz writer's pool and pieces
             assert set(r.attrs) == {"workers", "chunks"}
             assert r.attrs["workers"] >= 1 and r.attrs["chunks"] >= 1
+        elif r.name == "coo.build":          # the coverage rows' pass
+            assert parent(r) == "sim.coo", r
         else:
             assert r.attrs is None
         assert r.t0 <= r.t1
@@ -264,7 +268,8 @@ def test_gated_sim_records_every_span_with_its_parent(corpus, tmp_path):
     assert w.seconds["sim.paf"] == pytest.approx(sum(r.t1 - r.t0 for r in got
                                                      if r.name == "sim.paf"))
     under = spans.window(t0, time.perf_counter(), under="sim.prefetch")
-    assert set(under.n) == {"sim.draw", "sim.paf", "sim.coo", "engine.pack", "engine.upload"}
+    assert set(under.n) == {"sim.draw", "sim.paf", "sim.coo", "coo.build", "engine.pack",
+                            "engine.upload"}
     assert spans.window(t0, t0).n == {}
 
     # the counters against hand counts
@@ -283,6 +288,35 @@ def test_gated_sim_records_every_span_with_its_parent(corpus, tmp_path):
             + sum(os.path.getsize(p) for p in dumps))
     assert any(os.path.getsize(p) for p in dumps)
     assert counted(recs, "bytes.disk") == disk
+
+
+def test_coo_build_records_its_pass_under_sim_coo(corpus, tmp_path):
+    """Each traced gated batch builds its two record sets' rows in one
+    ``coo.build`` each, under its ``sim.coo``: the full set (200 reads of
+    ~5 kb, above twice ``CHUNK_BASES``) in chunks on the pool, the
+    truncated set (200 prefixes of at most mu bases) as one chunk on the
+    calling thread."""
+    n = len(spans.recorded())
+    with profiling():
+        sim = _sim(corpus, tmp_path)
+        sim.process_batch()
+        sim.cleanup()
+    got = span_records(since(n))
+    by_id = {r.id: r for r in got}
+    coo = [r for r in got if r.name == "sim.coo"]
+    builds = [r for r in got if r.name == "coo.build"]
+    assert len(builds) == 2 * len(coo) >= 2
+    for r in builds:
+        assert by_id[r.parent].name == "sim.coo" and by_id[r.parent].t0 <= r.t0 <= r.t1
+        assert set(r.attrs) == {"records", "bases", "chunks", "workers"}
+        assert 0 < r.attrs["records"] <= 200 and r.attrs["bases"] > 0
+        assert 1 <= r.attrs["chunks"] <= r.attrs["records"]
+        assert (r.attrs["workers"] == 1) == (r.attrs["chunks"] == 1)
+    for full, trunc in zip(builds[::2], builds[1::2]):
+        assert full.attrs["bases"] >= 2 * coo_native.CHUNK_BASES and full.attrs["chunks"] > 1
+        assert full.attrs["workers"] == len(os.sched_getaffinity(0))
+        assert trunc.attrs["bases"] <= 200 * sim.mu
+        assert trunc.attrs["chunks"] == 1 and trunc.attrs["workers"] == 1
 
 
 def test_the_live_chain_records_engine_and_mask_spans(tmp_path):

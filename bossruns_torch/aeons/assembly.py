@@ -28,6 +28,7 @@ import logging
 import numpy as np
 
 from ..io.paf import revcomp
+from ..utils import spans
 from .ava import PoolIndex, find_overlaps, rows_to_records
 from .pool import LinkStore, Sequence, SequencePool
 
@@ -238,8 +239,10 @@ def initial_assembly(reads: dict[str, str], min_seq_len: int = 3000,
     if pool.is_empty():
         return SequencePool(min_len=min_seq_len)
     store = LinkStore(tetra=False)
-    pidx = PoolIndex(pool.seqdict(), device=device)
-    rec = rows_to_records(find_overlaps(pool.seqdict(), pidx, min_votes=min_votes, merge=True))
+    with spans.span("aeons.ava", stage="initial"):
+        pidx = PoolIndex(pool.seqdict(), device=device)
+        rec = rows_to_records(find_overlaps(pool.seqdict(), pidx, min_votes=min_votes,
+                                            merge=True))
     containments, _ovl = store.load_records(rec, pool)
     contained = pool.increment(containments)
     store.remove_links(contained)

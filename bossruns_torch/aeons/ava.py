@@ -27,6 +27,7 @@ from ..aligner.index import _digest, _memo_get, build_index_cached
 from ..aligner.seed import DeviceIndex, anchor_budget, seed_candidates_from_numpy
 from ..device import as_device
 from ..io.paf import PafRecords
+from ..utils import spans
 
 logger = logging.getLogger("boss_torch")
 
@@ -115,6 +116,11 @@ def find_overlaps(
     packed through its staging; H6 on CUDA, the plain version on the CPU);
     'host' seeds every bucket with ``host_seed_candidates``. The ultralong
     bucket is always host-seeded. Both give identical rows.
+
+    Every call's seeding is one ``ava.seed`` span (attr ``calls``: each
+    seeding call's rows, length bucket, the index's keys and ``"H6"`` or
+    ``"host"``); the counters ``ava.queries``, ``ava.bases`` and
+    ``ava.rows`` (rows before the merge) add up the call.
     """
     if backend not in ("auto", "device", "host"):
         raise ValueError(f"unknown seeding backend {backend!r}")
@@ -126,30 +132,40 @@ def find_overlaps(
     k = pool_index.k
     qname_arr = np.array(qnames, dtype=object)
     name_arr = np.array(pool_index.names, dtype=object)
-    for L, group in _bucketize(enc):
-        if backend == "host" or L > AVA_DEVICE_MAX:
-            # reuse memoised minimizer scans when available (new reads were
-            # just scanned for the pool index build): same anchors, skips
-            # the per-query re-scan. Truncated reads (> L) and memo misses
-            # take the batch scan.
-            w = pool_index.host.w
-            budget = (anchor_budget(L, w, cap=ULTRALONG_BUDGET)
-                      if L > AVA_DEVICE_MAX else None)
-            scans = [
-                _memo_get((_digest(queries[qnames[g]].encode()), enc[g].shape[0], k, w))
-                if enc[g].shape[0] <= L else None
-                for g in group
-            ]
-            cands = host_seed_candidates(
-                [enc[g][:L] for g in group], pool_index.host, ncand=ncand, L=L,
-                pre_scans=scans if all(s is not None for s in scans) else None,
-                budget=budget,
-            )
-        else:
-            mat = np.full((len(group), L), 4, np.int8)
-            for r, g in enumerate(group):
-                mat[r, : min(enc[g].shape[0], L)] = enc[g][:L]
-            cands = seed_candidates_from_numpy(mat, pool_index.dev, ncand=ncand)
+    spans.count("ava.queries", len(qnames))
+    spans.count("ava.bases", sum(e.shape[0] for e in enc))
+    seeded, n_keys = [], int(pool_index.host.keys.shape[0])
+    with spans.span("ava.seed") as sp:
+        calls = []
+        for L, group in _bucketize(enc):
+            if backend == "host" or L > AVA_DEVICE_MAX:
+                # reuse memoised minimizer scans when available (new reads were
+                # just scanned for the pool index build): same anchors, skips
+                # the per-query re-scan. Truncated reads (> L) and memo misses
+                # take the batch scan.
+                w = pool_index.host.w
+                budget = (anchor_budget(L, w, cap=ULTRALONG_BUDGET)
+                          if L > AVA_DEVICE_MAX else None)
+                scans = [
+                    _memo_get((_digest(queries[qnames[g]].encode()), enc[g].shape[0], k, w))
+                    if enc[g].shape[0] <= L else None
+                    for g in group
+                ]
+                cands = host_seed_candidates(
+                    [enc[g][:L] for g in group], pool_index.host, ncand=ncand, L=L,
+                    pre_scans=scans if all(s is not None for s in scans) else None,
+                    budget=budget,
+                )
+                calls.append((len(group), L, n_keys, "host"))
+            else:
+                mat = np.full((len(group), L), 4, np.int8)
+                for r, g in enumerate(group):
+                    mat[r, : min(enc[g].shape[0], L)] = enc[g][:L]
+                cands = seed_candidates_from_numpy(mat, pool_index.dev, ncand=ncand)
+                calls.append((len(group), L, n_keys, "H6"))
+            seeded.append((group, cands))
+        sp.attr("calls", calls)
+    for group, cands in seeded:
         nc = cands["votes"].shape[1]
         # columnar candidate -> record conversion (no per-candidate Python)
         g_idx = np.repeat(np.asarray(group, np.int64), nc)
@@ -188,6 +204,7 @@ def find_overlaps(
             ("s1", nmatch),
         ):
             rows[field].extend(vals[keep2].tolist())
+    spans.count("ava.rows", len(rows["qname"]))
     return merge_chains(rows) if merge else rows
 
 

@@ -39,6 +39,7 @@ import torch
 
 from ..device import as_device
 from ..ops import kernels as K
+from ..utils import spans
 
 NODE = 100
 NBINS = 192
@@ -332,4 +333,5 @@ def contig_strategies(
     else:
         mask_t, thr, _ = strategy(*inp.device_args(as_device(device)))
         mask = mask_t.cpu().numpy()
+        spans.count("bytes.d2h", mask.nbytes + 8)   # the mask and the threshold
     return {h: mask[o : o + k] for h, (o, k) in inp.offsets.items()}, thr

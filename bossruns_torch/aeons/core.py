@@ -12,6 +12,16 @@ port's copies of the JAX package's host classes. The checkpoint pickles
 them under the JAX package's module paths and the loader maps those paths
 to the copies, so a checkpoint resumes in either package and loading one
 imports nothing of the JAX package.
+
+Spans (``utils/spans.py``; they record only under a recording profiler):
+a batch's stages are ``aeons.ava`` (attr ``stage``: each pool index and
+overlap search with its records), ``aeons.graph`` (the link store, the
+containment increments, the trims and the removals), ``aeons.assemble``
+(the unitig walk and the frozen reads' removal), ``aeons.strategy`` and
+``aeons.write``; none of them nests in another. ``save_checkpoint`` is
+``aeons.checkpoint``. The counters ``aeons.pool_seqs``,
+``aeons.pool_bases``, ``aeons.contigs`` and ``aeons.contig_bases`` hold
+the pool and its contigs after each batch's assembly.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import numpy as np
 from ..device import as_device
 from ..io.fastq import FastqBatch
 from ..live.sequencer import LiveRun
+from ..utils import spans
 from ..utils.checkpoint import MetricsWriter
 from ..utils.misc import make_output_dirs, write_strategy_npz
 from ..utils.readlen import ReadLengthDist
@@ -160,51 +171,63 @@ class BossAeons:
 
     # ------------------------------------------------------------ update ----
 
-    def add_new_sequences(self, new_pool: SequencePool, increment: bool = True) -> None:
+    def _overlaps(self, queries: dict[str, str], target: dict[str, str], stage: str):
+        """The merged overlaps of ``queries`` against ``target`` as records,
+        the index built over ``target``: one ``aeons.ava`` span."""
+        with spans.span("aeons.ava", stage=stage):
+            pidx = self._pool_index(target)
+            return rows_to_records(find_overlaps(queries, pidx, merge=True))
+
+    def add_new_sequences(self, new_pool: SequencePool, increment: bool = True,
+                          stage: str = "ingest") -> None:
         """Overlap new sequences against themselves + the pool, load the
         classified records, propagate containments."""
         if new_pool.is_empty():
             return
-        target = dict(self.pool.seqdict(), **new_pool.seqdict())
-        self.pool.ingest(new_pool)
+        with spans.span("aeons.graph"):
+            target = dict(self.pool.seqdict(), **new_pool.seqdict())
+            self.pool.ingest(new_pool)
         if len(target) < 2:
             return
-        pidx = self._pool_index(target)
-        rec = rows_to_records(find_overlaps(new_pool.seqdict(), pidx, merge=True))
-        containments, overlappers = self.store.load_records(rec, self.pool)
-        if increment:
-            contained = self.pool.increment(containments)
-        else:
-            contained = {s for (s, _t) in containments}
-        self.remove_seqs(contained)
-        self.pool.reset_temperature(overlappers, t=self.args.optional.temperature)
+        rec = self._overlaps(new_pool.seqdict(), target, stage)
+        with spans.span("aeons.graph"):
+            containments, overlappers = self.store.load_records(rec, self.pool)
+            if increment:
+                contained = self.pool.increment(containments)
+            else:
+                contained = {s for (s, _t) in containments}
+            self.remove_seqs(contained)
+            self.pool.reset_temperature(overlappers, t=self.args.optional.temperature)
 
     def overlap_pool(self) -> None:
         """AVA among current contigs."""
-        contigs = self.pool.declare_contigs(self.args.optional.min_contig_len)
+        with spans.span("aeons.graph"):
+            contigs = self.pool.declare_contigs(self.args.optional.min_contig_len)
         if len(contigs.sequences) < 2:
             return
-        pidx = self._pool_index(contigs.seqdict())
-        rec = rows_to_records(find_overlaps(contigs.seqdict(), pidx, merge=True))
-        containments, overlappers = self.store.load_records(rec, self.pool)
-        contained = self.pool.increment(containments)
-        if contained:
-            self.remove_seqs(contained)
-        self.pool.reset_temperature(overlappers)
+        rec = self._overlaps(contigs.seqdict(), contigs.seqdict(), "pool")
+        with spans.span("aeons.graph"):
+            containments, overlappers = self.store.load_records(rec, self.pool)
+            contained = self.pool.increment(containments)
+            if contained:
+                self.remove_seqs(contained)
+            self.pool.reset_temperature(overlappers)
 
     def trim_sequences(self) -> None:
         """Trim class-6 overhangs and re-overlap the products."""
-        trim_dict = self.store.to_be_trimmed()
+        with spans.span("aeons.graph"):
+            trim_dict = self.store.to_be_trimmed()
+            trimmed = self.pool.trim_sequences(trim_dict) if trim_dict else {}
         if not trim_dict:
             return
-        trimmed = self.pool.trim_sequences(trim_dict)
         if len(trimmed) >= 2:
-            pidx = self._pool_index(self.pool.seqdict())
-            rec = rows_to_records(find_overlaps(trimmed, pidx, merge=True))
-            containments, _ = self.store.load_records(rec, self.pool)
-            self.pool.increment(containments)
-        to_remove = self.store.trim_success(trim_dict)
-        self.remove_seqs(to_remove)
+            rec = self._overlaps(trimmed, self.pool.seqdict(), "trim")
+            with spans.span("aeons.graph"):
+                containments, _ = self.store.load_records(rec, self.pool)
+                self.pool.increment(containments)
+        with spans.span("aeons.graph"):
+            to_remove = self.store.trim_success(trim_dict)
+            self.remove_seqs(to_remove)
 
     def remove_seqs(self, sids: set[str]) -> None:
         if not sids:
@@ -215,13 +238,16 @@ class BossAeons:
     def assemble(self) -> SequencePool:
         """Walk unitigs, replace members with merged sequences, return
         current contigs."""
-        unitigs, used = walk_unitigs(
-            self.pool, self.store, min_seq_len=self.args.optional.min_seq_len
-        )
+        with spans.span("aeons.assemble"):
+            unitigs, used = walk_unitigs(
+                self.pool, self.store, min_seq_len=self.args.optional.min_seq_len
+            )
+            if used:
+                self.remove_seqs(used)
         if used:
-            self.remove_seqs(used)
-            self.add_new_sequences(unitigs, increment=False)
-        return self.pool.declare_contigs(self.args.optional.min_contig_len)
+            self.add_new_sequences(unitigs, increment=False, stage="unitigs")
+        with spans.span("aeons.assemble"):
+            return self.pool.declare_contigs(self.args.optional.min_contig_len)
 
     def write_contigs(self, contigs: SequencePool) -> None:
         """Atomic contig fasta for the readfish index reload."""
@@ -231,8 +257,11 @@ class BossAeons:
                 fh.write(f">{sid}\n{seqo.seq}\n")
         final = Path(self.out_dir) / "contigs" / "aeons.fa"
         tmp.rename(final)
+        spans.count_files(final)
         if self.batch % 10 == 0:
-            shutil.copy(final, Path(self.out_dir) / "contigs" / "prev" / f"aeons_{self.batch}.fa")
+            prev = Path(self.out_dir) / "contigs" / "prev" / f"aeons_{self.batch}.fa"
+            shutil.copy(final, prev)
+            spans.count_files(prev)
 
     def update_wrapper(self, new_reads: dict[str, str]) -> None:
         """Per-batch AEONS pipeline. Per-stage wall times land in
@@ -249,8 +278,9 @@ class BossAeons:
         if self.repeat_filter is not None:
             new_reads = self.repeat_filter.filter_batch(new_reads)
         mark("repeat_filter")
-        new_pool = SequencePool(min_len=self.args.optional.min_seq_len)
-        new_pool.ingest(new_reads)
+        with spans.span("aeons.graph"):
+            new_pool = SequencePool(min_len=self.args.optional.min_seq_len)
+            new_pool.ingest(new_reads)
         self.add_new_sequences(new_pool)
         mark("ingest_ava")
         self.overlap_pool()
@@ -258,37 +288,47 @@ class BossAeons:
         self.trim_sequences()
         mark("trim")
         contigs = self.assemble()
-        frozen = self.pool.decrease_temperature(lim=self.args.optional.min_contig_len)
-        self.remove_seqs(frozen)
+        with spans.span("aeons.assemble"):
+            frozen = self.pool.decrease_temperature(lim=self.args.optional.min_contig_len)
+            self.remove_seqs(frozen)
         mark("assemble")
+        if spans.on():
+            spans.count("aeons.pool_seqs", len(self.pool.sequences))
+            spans.count("aeons.pool_bases", self.pool.total_bases())
+            spans.count("aeons.contigs", len(contigs.sequences))
+            spans.count("aeons.contig_bases", contigs.total_bases())
         if contigs.is_empty():
             logger.info("no contigs yet; strategy stays accept-all")
             return
-        self.strat, threshold = contig_strategies(
-            contigs.sequences,
-            ccl=self.rl_dist.approx_ccl,
-            lam=self.rl_dist.lam,
-            lowcov=self.args.optional.lowcov,
-            device=self.device,
-        )
+        with spans.span("aeons.strategy") as sp:
+            self.strat, threshold = contig_strategies(
+                contigs.sequences,
+                ccl=self.rl_dist.approx_ccl,
+                lam=self.rl_dist.lam,
+                lowcov=self.args.optional.lowcov,
+                device=self.device,
+            )
+            sp.attr("chunks", sum(m.shape[0] for m in self.strat.values()))
+            sp.attr("contigs", len(self.strat))
         mark("strategy")
-        write_strategy_npz(self.out_dir, self.strat)
-        self.write_contigs(contigs)
-        mark("write")
-        logger.info(
-            f"batch {self.batch}: {len(contigs.sequences)} contigs "
-            f"({contigs.total_bases()} bases), threshold {threshold:.3g}"
-        )
-        lens = sorted((len(s.seq) for s in contigs.sequences.values()), reverse=True)
-        self.metrics.write(
-            batch=self.batch,
-            n_contigs=len(contigs.sequences),
-            contig_bases=contigs.total_bases(),
-            longest=lens[:5],
-            pool_size=len(self.pool.sequences),
-            threshold=threshold,
-            stages=self.stage_times,
-        )
+        with spans.span("aeons.write"):
+            write_strategy_npz(self.out_dir, self.strat)
+            self.write_contigs(contigs)
+            mark("write")
+            logger.info(
+                f"batch {self.batch}: {len(contigs.sequences)} contigs "
+                f"({contigs.total_bases()} bases), threshold {threshold:.3g}"
+            )
+            lens = sorted((len(s.seq) for s in contigs.sequences.values()), reverse=True)
+            self.metrics.write(
+                batch=self.batch,
+                n_contigs=len(contigs.sequences),
+                contig_bases=contigs.total_bases(),
+                longest=lens[:5],
+                pool_size=len(self.pool.sequences),
+                threshold=threshold,
+                stages=self.stage_times,
+            )
 
     def _checkpoint_extra(self) -> dict:
         """Subclass hook: extra host state to persist (sim pseudotime etc.)."""
@@ -313,9 +353,11 @@ class BossAeons:
                 self.repeat_filter.lim,
                 self.repeat_filter.min_votes,
             )
-        with open(tmp, "wb") as fh:
-            _PackagePickler(fh).dump(data)
-        tmp.rename(ckpt / "pool.pkl")
+        with spans.span("aeons.checkpoint"):
+            with open(tmp, "wb") as fh:
+                _PackagePickler(fh).dump(data)
+            tmp.rename(ckpt / "pool.pkl")
+        spans.count_files(ckpt / "pool.pkl")
 
     def load_checkpoint(self) -> dict | None:
         """Restore the pool/store/strategy; returns the raw checkpoint dict
@@ -344,20 +386,21 @@ class BossAeons:
 
     def process_batch(self) -> int:
         tic = time.time()
-        new_fastq = LiveRun.scan_dir(self.fq_dir, self.processed_files)
-        if not new_fastq:
-            return self.args.general.wait
-        self.processed_files.update(new_fastq)
-        fq = FastqBatch(new_fastq, channels=self.channels)
-        if not fq.read_sequences:
-            return self.args.general.wait
-        self.rl_dist.update(np.fromiter(fq.read_lengths.values(), dtype=np.int64))
-        self.update_wrapper(fq.read_sequences)
-        self.batch += 1
-        # save AFTER the increment: the persisted counter must equal the number
-        # of consumed batches so a resume does not re-process the last one
-        if self.checkpoint_every and self.batch % self.checkpoint_every == 0:
-            self.save_checkpoint()
+        with spans.span("aeons.batch"):
+            with spans.span("aeons.draw"):
+                new_fastq = LiveRun.scan_dir(self.fq_dir, self.processed_files)
+                self.processed_files.update(new_fastq)
+                fq = FastqBatch(new_fastq, channels=self.channels) if new_fastq else None
+            if fq is None or not fq.read_sequences:
+                return self.args.general.wait
+            self.rl_dist.update(np.fromiter(fq.read_lengths.values(), dtype=np.int64))
+            self.update_wrapper(fq.read_sequences)
+            self.batch += 1
+            # save AFTER the increment: the persisted counter must equal the
+            # number of consumed batches so a resume does not re-process the
+            # last one
+            if self.checkpoint_every and self.batch % self.checkpoint_every == 0:
+                self.save_checkpoint()
         return int(self.args.general.wait - (time.time() - tic))
 
     def run(self) -> None:

@@ -23,6 +23,7 @@ from ..io.paf import best_per_query
 from ..io.sampler import Sampler
 from ..models.layout import build_layout
 from ..models.runs_sim import MU, ReadCache
+from ..utils import spans
 from .assembly import initial_assembly
 from .core import BossAeons
 
@@ -134,26 +135,35 @@ class BossAeonsSim(BossAeons):
     # ------------------------------------------------------------- batch ----
 
     def process_batch(self) -> None:
-        t0 = time.perf_counter()
-        seqs, *_ = self.sampler.sample()
-        t1 = time.perf_counter()
-        decisions = self.make_decisions(seqs)
-        t2 = time.perf_counter()
-        self.rl_dist.update(np.array([len(s) for s in seqs.values()]))
-        self._update_times(seqs, decisions)
-        self.read_cache.fill(seqs, decisions)
-        self.update_wrapper(new_reads=decisions)
-        # prepend the sim-only stages to the update stages (update_wrapper)
-        self.stage_times = {
-            "sample": round(t1 - t0, 4),
-            "decide": round(t2 - t1, 4),
-            **self.stage_times,
-        }
-        self.batch += 1
-        # after the increment: persisted counter == consumed batches (resume
-        # slices the sampler offsets by it)
-        if self.checkpoint_every and self.batch % self.checkpoint_every == 0:
-            self.save_checkpoint()
+        """One batch: ``aeons.batch``, the parent of ``aeons.draw`` (the
+        sampler), ``aeons.decide`` (the decisions, their pseudotime and the
+        read-length distribution), the read cache's fill under
+        ``aeons.write``, the update's stage spans (``BossAeons``) and, every
+        tenth batch, ``aeons.checkpoint``."""
+        with spans.span("aeons.batch"):
+            t0 = time.perf_counter()
+            with spans.span("aeons.draw"):
+                seqs, *_ = self.sampler.sample()
+            t1 = time.perf_counter()
+            with spans.span("aeons.decide"):
+                decisions = self.make_decisions(seqs)
+                t2 = time.perf_counter()
+                self.rl_dist.update(np.array([len(s) for s in seqs.values()]))
+                self._update_times(seqs, decisions)
+            with spans.span("aeons.write"):
+                self.read_cache.fill(seqs, decisions)
+            self.update_wrapper(new_reads=decisions)
+            # prepend the sim-only stages to the update stages (update_wrapper)
+            self.stage_times = {
+                "sample": round(t1 - t0, 4),
+                "decide": round(t2 - t1, 4),
+                **self.stage_times,
+            }
+            self.batch += 1
+            # after the increment: persisted counter == consumed batches (resume
+            # slices the sampler offsets by it)
+            if self.checkpoint_every and self.batch % self.checkpoint_every == 0:
+                self.save_checkpoint()
 
     def run(self, maxb: int | None = None) -> None:
         # self.batch counts binit initial batches too; on resume, run only

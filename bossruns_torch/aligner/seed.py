@@ -618,6 +618,9 @@ def seed_candidates_from_numpy(reads: np.ndarray, dev_idx: DeviceIndex, ncand: i
     the packed payload). The reads go packed through the index's staging,
     H6 runs on them, and the result comes back in one device-to-host copy.
     tol: diagonal clustering tolerance, candidate_tol(L) by default."""
+    from ..utils import spans
+
     (x,) = upload_reads([np.asarray(reads)], dev_idx)
     packed = seed_candidates(x, dev_idx, ncand=ncand, tol=tol).cpu().numpy()
+    spans.count("bytes.d2h", packed.nbytes)
     return {f: packed[:, i] for i, f in enumerate(CAND_FIELDS)}

@@ -57,15 +57,47 @@ The spans (where each is opened):
 ``checkpoint.pull`` the state's copy to the host
 ``checkpoint.write`` the checkpoint's files (attrs ``workers``,
                     ``chunks``: the npz writer's pool and pieces)
+``aeons.batch``     ``BossAeonsSim.process_batch`` (and the live
+                    ``BossAeons.process_batch``): one AEONS batch, the
+                    parent of the ``aeons.*`` spans below
+``aeons.draw``      the sampler's batch (live: the new files' reads)
+``aeons.decide``    ``make_decisions`` (the decision aligner's rebuild
+                    under its ``align.index``), the pseudotime and the
+                    read-length distribution
+``aeons.ava``       a pool index's build and ``find_overlaps`` with its
+                    records and merge (attr ``stage``: ``initial``,
+                    ``ingest``, ``pool``, ``trim``, ``unitigs``)
+``ava.seed``        inside ``aeons.ava``: the overlap search's seeding
+                    (attr ``calls``: each call's rows, length bucket,
+                    index keys and ``"H6"`` or ``"host"``)
+``aeons.graph``     the link store's records, the containment
+                    increments, the trims and the removals
+``aeons.assemble``  ``walk_unitigs`` and the frozen reads' removal (the
+                    unitigs' re-ingest counts under ``aeons.ava`` and
+                    ``aeons.graph``)
+``aeons.strategy``  the strategy's descriptors, H7 and its pull (attrs
+                    ``chunks``, ``contigs``)
+``aeons.write``     the read cache, the mask, the contig FASTA and the
+                    metrics line
+``aeons.checkpoint`` the pickled checkpoint, every tenth batch
 =================== =================================================
 
+The AEONS stage spans (``aeons.decide``, ``aeons.ava``, ``aeons.graph``,
+``aeons.assemble``, ``aeons.strategy``) never nest in one another; with
+``aeons.draw``, ``aeons.write`` and ``aeons.checkpoint`` they make up
+``aeons.batch``.
+
 The counters: ``bytes.d2h`` (bytes copied from the device: the aux
-vector, the strategy, the checkpointed state, the aligner's seeds),
+vector, the strategy, the checkpointed state, the aligner's seeds, the
+overlap search's candidates, the AEONS mask and threshold),
 ``bytes.disk`` (bytes written to files: the strategy file, the
-checkpoint, the metrics lines, the read dumps) and the aligner's
-``align.reads``, ``align.bases`` (the bases seeded), ``align.jobs`` (DP
-jobs) and ``align.dp_cells`` (each job's query bases times its band's
-width, 2 half + 1).
+checkpoint, the metrics lines, the read dumps, the contig FASTA), the
+aligner's ``align.reads``, ``align.bases`` (the bases seeded),
+``align.jobs`` (DP jobs) and ``align.dp_cells`` (each job's query bases
+times its band's width, 2 half + 1), the overlap search's
+``ava.queries``, ``ava.bases`` and ``ava.rows`` (rows before the merge),
+and after each AEONS batch's assembly ``aeons.pool_seqs``,
+``aeons.pool_bases``, ``aeons.contigs`` and ``aeons.contig_bases``.
 """
 from __future__ import annotations
 

@@ -15,6 +15,10 @@
   ``sim.align`` within ``sim.batch``, its counters equal hand counts of a
   batch's reads, bases, DP jobs, cells and seed pulls, nothing records
   with the profiler off, and the gated flow records none of them;
+* the reference-free sim: a traced batch records every AEONS span and
+  counter, its stage spans never nest and with the draw, the writes and
+  the checkpoint make up ``aeons.batch``, the ingest search counts the
+  batch's reads and bases, and nothing records untraced;
 * on the card (marker ``cuda``): a replayed step's launch is recorded as a
   replay, and the strategy's pinned pull counts its bytes.
 
@@ -492,6 +496,89 @@ def test_gated_flow_records_no_aligner_span(corpus, tmp_path):
 
 
 # ------------------------------------------------------------------ card ---
+
+# ------------------------------------------------------------------ AEONS ---
+
+AEONS_STAGES = {"aeons.decide", "aeons.ava", "aeons.graph", "aeons.assemble", "aeons.strategy"}
+AEONS_SPANS = AEONS_STAGES | {"aeons.batch", "aeons.draw", "aeons.write", "aeons.checkpoint",
+                              "ava.seed"}
+AEONS_COUNTERS = {"ava.queries", "ava.bases", "ava.rows", "aeons.pool_seqs",
+                  "aeons.pool_bases", "aeons.contigs", "aeons.contig_bases", "bytes.d2h",
+                  "bytes.disk"}
+
+
+@pytest.fixture(scope="module")
+def aeons_sim(tmp_path_factory):
+    """A small reference-free sim after its initial assembly and one batch
+    (so that a strategy is in force and the next batch maps its reads)."""
+    from bossruns_torch.aeons.simulation import BossAeonsSim
+    from bossruns_torch.config import BossConfig
+
+    out = tmp_path_factory.mktemp("aeons_spans")
+    paths = write_corpus(out / "data", rng=np.random.default_rng(31),
+                         contig_lengths={"gA": 90_000, "gB": 60_000}, n_reads=1100,
+                         mean_len=5000.0)
+    args = BossConfig()
+    args.general.name = "sp"
+    args.simulation.fq = paths["fq"]
+    args.simulation.batchsize = 120
+    args.simulation.maxb = 4
+    args.simulation.binit = 3
+    sim = BossAeonsSim(args, out_base=out, device="cpu")
+    sim.process_batch()
+    return sim
+
+
+def test_aeons_batch_records_its_stages_and_counters(aeons_sim, monkeypatch):
+    """A traced batch: every AEONS span and counter; the stage spans never
+    nest in one another and, with the draw, the writes and the checkpoint,
+    sum to within 5% of ``aeons.batch``; the ingest search counts the
+    batch's decided reads that pass min_seq_len, and their bases."""
+    sim = aeons_sim
+    sim.checkpoint_every = sim.batch + 1
+    decided = {}
+    orig = sim.make_decisions
+
+    def keep(reads, *a, **kw):
+        decided.update(orig(reads, *a, **kw))
+        return decided
+    monkeypatch.setattr(sim, "make_decisions", keep)
+    n = len(spans.recorded())
+    with profiling():
+        sim.process_batch()
+    recs = since(n)
+    got = span_records(recs)
+    assert AEONS_SPANS <= {r.name for r in got}
+    assert AEONS_COUNTERS <= {r.name for r in recs if isinstance(r, spans.Count)}
+    assert {"ingest", "pool"} <= {r.attrs["stage"] for r in got if r.name == "aeons.ava"}
+    by_id = {r.id: r for r in got}
+    (batch,) = [r for r in got if r.name == "aeons.batch"]
+    for r in got:
+        if r.name in AEONS_STAGES:
+            p = by_id.get(r.parent)
+            assert p is not None and p.name == "aeons.batch", r
+    parts = [r for r in got if r.parent == batch.id]
+    assert {r.name for r in parts} <= AEONS_STAGES | {"aeons.draw", "aeons.write",
+                                                       "aeons.checkpoint"}
+    assert sum(r.t1 - r.t0 for r in parts) >= 0.95 * (batch.t1 - batch.t0)
+    for r in got:
+        if r.name == "ava.seed":
+            assert by_id[r.parent].name == "aeons.ava" and r.attrs["calls"]
+    (ingest,) = [r for r in got if r.name == "aeons.ava" and r.attrs["stage"] == "ingest"]
+    inside = [r for r in recs if isinstance(r, spans.Count) and ingest.t0 <= r.t <= ingest.t1]
+    new = [s for s in decided.values() if len(s) > sim.args.optional.min_seq_len]
+    assert counted(inside, "ava.queries") == len(new) > 0
+    assert counted(inside, "ava.bases") == sum(map(len, new))
+    contigs = sim.pool.declare_contigs(sim.args.optional.min_contig_len)
+    assert counted(recs, "aeons.contigs") == len(contigs.sequences)
+    assert counted(recs, "aeons.pool_seqs") == len(sim.pool.sequences)
+
+
+def test_aeons_batch_off_records_nothing(aeons_sim):
+    n = len(spans.recorded())
+    aeons_sim.process_batch()
+    assert len(spans.recorded()) == n
+
 
 @pytest.mark.cuda
 def test_replayed_step_and_pinned_pull_on_the_card(tmp_path):
